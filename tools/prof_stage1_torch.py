@@ -1,0 +1,107 @@
+"""Where the time of the port's stage-1 training step goes, on one GPU.
+
+    python3 tools/prof_stage1_torch.py [--steps 3] [--out runs/prof_stage1_torch.txt]
+
+Drives the full-width ``BENCH_CFG`` step of ``chip_smoke.py`` (1024 rays,
+8x256 SDF and NeRF++, all losses) at step 0 (init-SDF regulariser, K1 + K2)
+and step 25000 (occlusion loss, K1) under ``torch.profiler`` after a warm-up,
+and prints per phase: wall ms per step, device busy ms per step (the union of
+the kernels' intervals), the idle share, the share of the fused chain kernels
+K1/K2, and the kernels that take the most device time.  The full tables go to
+``--out``.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import BENCH_CFG, batch_for, card_line  # noqa: E402
+
+
+def _kernels(events):
+    """The device kernels among the profiler's events (not the user
+    annotations, such as ``Optimizer.step#Adam.step``, that the profiler also
+    places on the device's timeline; kernel names may hold a ``#`` too)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def _busy_us(kernels):
+    """Union of the kernels' [start, end) intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default="runs/prof_stage1_torch.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs CUDA", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    renderer = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
+    train = TrainStep(renderer, 5e-4)
+    batch = batch_for(BENCH_CFG, dev)
+    card = card_line()
+    print(card)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        print(card, file=f)
+        for step in (0, 25000):
+            for _ in range(2):
+                train(batch, step)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.steps):
+                    train(batch, step)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / args.steps * 1e3
+            kernels = _kernels(prof.events())
+            if not kernels:
+                raise RuntimeError("the profiler recorded no device kernels")
+            busy = _busy_us(kernels) / args.steps / 1e3
+            kern = {}
+            for e in kernels:
+                kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+            total = sum(kern.values())
+            chain = sum(v for k, v in kern.items() if k.startswith("chain_"))
+            print(f"step {step}: wall {wall:.1f} ms/step (profiled), device busy "
+                  f"{busy:.1f} ms/step, idle share {1 - busy / wall:.3f}, "
+                  f"K1/K2 share of kernel time {chain / max(total, 1e-9):.3f}, "
+                  f"{len(kernels) // args.steps} kernels/step")
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
+            for name, us in top:
+                print(f"  {us / args.steps / 1e3:8.3f} ms/step  {us / total:6.3f}  {name[:90]}")
+            print(f"== step {step}", file=f)
+            print(prof.key_averages().table(sort_by="device_time_total", row_limit=60), file=f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
