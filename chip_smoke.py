@@ -7,15 +7,21 @@ Phases (any failure exits non-zero):
      for f32 matmuls and convolutions (the plain versions run in full f32);
   2. build: every ``nunerf_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in
      parallel;
-  3. kernels: K1 (chain forward) and K2 (chain backward) against their plain
-     PyTorch versions at the main path's shapes, with times after warm-up
-     (CUDA events) beside each kernel's bound;
-  4. correctness: a small stage-1 step on the card (kernels on) against the
-     same step on the CPU (plain versions);
-  5. the main path: the stage-1 training step at ``BENCH_CFG``'s full width
-     (1024 rays, 64+64 SDF samples, 8x256 SDF and NeRF++), a few Adam steps
-     at step 0 (init-SDF regulariser on: K1 and K2) and at step 25000
-     (occlusion loss on: K1), with the launch counters read around it.
+  3. kernels: K1 (chain forward), K2 (chain backward) and K3 (ray/triangle
+     closest hit) against their plain PyTorch versions at the main path's
+     shapes, with times after warm-up (CUDA events) beside each kernel's
+     bound; K3 on the full-width mesh, beside the port's brute sweep and
+     tile-culled descent on the same rays;
+  4. correctness: a small stage-1 step and a small stage-2 step on the card
+     (kernels on) against the same steps on the CPU (plain versions);
+  5. the main paths, each with the launch counters set to 0 just before and
+     read just after: the stage-1 training step at ``BENCH_CFG``'s full
+     width (1024 rays, 64+64 SDF samples, 8x256 SDF and NeRF++), a few Adam
+     steps at step 0 (init-SDF regulariser on: K1 and K2) and at step 25000
+     (occlusion loss on: K1); and the stage-2 zero-thickness training step
+     at ``STAGE2_CFG``'s full width (1024 rays, 256 samples on each outside
+     segment, 64 + 2x32 inside the glass, 3 bounces through a mesh of about
+     10^5 triangles, frozen stage-1 weights): 3 K3 launches a step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -60,14 +66,38 @@ SMALL_CFG = dict(BENCH_CFG, n_samples=8, n_importance=8, up_sample_steps=2,
                  occ_loss_max_pn=1 << 20, mixed_precision=False,
                  sdf_mixed_precision=False)
 
+# the full-width stage-2 step: ZERO_THICK_DEFAULTS as they stand with the keys
+# of configs/stage2/nerf/glassice.yaml, stage 1 = BENCH_CFG
+STAGE2_CFG = {
+    "name": "bench_s2",
+    "network": "stage2",
+    "is_nerf": True,
+    "zero_thickness": True,
+    "stage1_cfg": BENCH_CFG,
+    "loss": ["eikonal", "std", "nerf_render"],
+    "eikonal_weight": 0.02,
+    "train_ray_num": 1024,
+    "mixed_precision": True,
+}
+MESH_RESOLUTION = 128   # the lumpy sphere marched at 128^3: ~117k triangles
+
+# the small configuration of the stage-2 check
+SMALL_S2_CFG = dict(STAGE2_CFG, stage1_cfg=SMALL_CFG, n_samples_outer=16,
+                    n_bg_importance=4, n_samples_inner=8, inner_up_rounds=1,
+                    inner_up_each=4, sdf_n_layers=4, train_ray_num=16,
+                    mixed_precision=False)
+
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 without
 # them, HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-SOURCE = "nunerf_tpu_torch/csrc/fused_mlp.cu"
-REPLACES = {"K1": "nunerf_tpu/ops/fused_mlp.py:168",   # _fwd_kernel
-            "K2": "nunerf_tpu/ops/fused_mlp.py:199"}   # _make_bwd_kernel
+SOURCE = {"K1": "nunerf_tpu_torch/csrc/fused_mlp.cu",
+          "K2": "nunerf_tpu_torch/csrc/fused_mlp.cu",
+          "K3": "nunerf_tpu_torch/csrc/ray_intersect.cu"}
+REPLACES = {"K1": "nunerf_tpu/ops/fused_mlp.py:168",        # _fwd_kernel
+            "K2": "nunerf_tpu/ops/fused_mlp.py:199",        # _make_bwd_kernel
+            "K3": "nunerf_tpu/ops/pallas_intersect.py:33"}  # _mt_kernel
 
 
 def log(*args):
@@ -113,6 +143,37 @@ def batch_for(cfg, dev):
          "rgbs": rs.rand(rn, 3).astype(np.float32),
          "masks": np.ones((rn,), np.float32)}
     return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def lumpy_sphere_mesh(resolution):
+    """The outer mesh stage 2 traces: a lumpy sphere (radius 0.5 +- 0.05)
+    marched with the port's ``extract_geometry``."""
+    from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
+
+    def sdf(p):
+        r = np.linalg.norm(p, axis=-1)
+        return r - (0.5 + 0.05 * np.sin(7 * p[..., 0]) * np.cos(7 * p[..., 1]))
+
+    return extract_geometry(sdf, resolution=resolution, bound=1.0)
+
+
+def intersect_rays(n, seed, dev):
+    """A third each: from outside towards the mesh, from inside the glass,
+    and pointing away from it (misses)."""
+    rs = np.random.RandomState(seed)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    target = rs.randn(n, 3).astype(np.float32) * 0.2
+    k = np.arange(n) % 3
+    o = np.where((k == 0)[:, None], target - 2.0 * d,
+                 np.where((k == 1)[:, None], rs.rand(n, 3).astype(np.float32) * 0.4 - 0.2,
+                          target + 2.0 * d)).astype(np.float32)
+    return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev), k
+
+
+def stage2_batch(rn, dev):
+    b = batch_for({"train_ray_num": rn}, dev)
+    return {k: b[k] for k in ("rays_o", "rays_d", "rgbs")}
 
 
 def chain_bytes(spec, n):
@@ -227,6 +288,77 @@ def phase_kernels(renderer, dev):
     return rec
 
 
+def phase_kernel_k3(scene, dev):
+    """K3 against its plain version on the full-width mesh: exact ``t``,
+    index and ``hit`` (the kernel multiplies and adds without FMA
+    contraction, one rounding an operation as the plain version)."""
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tracing import intersect as ti
+
+    n_tris = len(scene.tris_np)
+    tri = (scene.v0, scene.e1, scene.e2)
+    # the tile index the scene would build with the kernel off, to time the
+    # culled descent beside K3
+    cull_tile, group = ti.auto_tile_params(n_tris)
+    index = ti.build_tile_index(scene.verts_np, scene.tris_np, tile=cull_tile,
+                                group=group, device=dev)
+    rec = None
+    for rn in (1024, 5000):
+        ro, rd, kind = intersect_rays(rn, rn, dev)
+        t, idx, hit = ri.closest_hit_cuda(ro, rd, *tri)
+        torch.cuda.synchronize()
+        rt, ridx, rhit = ri.closest_hit_reference(ro, rd, *tri)
+        kind = torch.as_tensor(kind, device=dev)
+        share = [float(hit[kind == j].double().mean()) for j in range(3)]
+        same = torch.equal(t, rt) and torch.equal(idx, ridx) and torch.equal(hit, rhit)
+        err = float((t - rt).abs().max())
+        log(f"K3 closest hit R={rn} T={n_tris}: hit share outside/inside/away "
+            f"{share[0]:.3f}/{share[1]:.3f}/{share[2]:.3f}, max |t - plain| {err:.1e}, "
+            f"index and hit {'equal' if same else 'DIFFER'} (held exactly)")
+        if not same:
+            bad = int((idx != ridx).sum()), int((hit != rhit).sum()), int((t != rt).sum())
+            raise AssertionError(f"K3 disagrees with its plain version: {bad} "
+                                 "(index, hit, t) rays differ")
+        if not (share[0] > 0.9 and bool(hit[kind == 1].all())
+                and not bool(hit[kind == 2].any())):
+            raise AssertionError(f"K3 hit shares {share}: expected hits from outside "
+                                 "and inside, none pointing away")
+        if not (bool((idx[~hit] == 0).all()) and bool((t[~hit] == ri.MISS_T).all())):
+            raise AssertionError("K3 missed lanes do not carry (MISS_T, 0)")
+        # the brute sweep and the culled descent answer the same query with a
+        # barycentric tolerance: equal t wherever all agree on the hit
+        brute = ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile)
+        rounds = []
+        culled = ti.ray_mesh_intersect_culled(ro, rd, index, group=group,
+                                              rounds_out=rounds)
+        both = hit & brute.hit & culled.hit
+        for name, other in (("brute sweep", brute), ("culled descent", culled)):
+            if int((other.hit != hit).sum()) > rn // 500:
+                raise AssertionError(f"{name} and K3 disagree on hit for "
+                                     f"{int((other.hit != hit).sum())} of {rn} rays")
+            if not torch.allclose(other.t[both], t[both], rtol=1e-5):
+                raise AssertionError(f"{name} and K3 disagree on t")
+        if rn == 1024:
+            ms = cuda_ms(lambda: ri.closest_hit_cuda(ro, rd, *tri), 20)
+            plain = cuda_ms(lambda: ri.closest_hit_reference(ro, rd, *tri), 2)
+            brute_ms = cuda_ms(lambda: ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile), 2)
+            culled_ms = cuda_ms(lambda: ti.ray_mesh_intersect_culled(
+                ro, rd, index, group=group), 2)
+            # pairs x the kernel's f32 operations a pair against the f32
+            # peak without tensor cores; rays and triangles read once, three
+            # outputs (t, index, hit) written once
+            flops = rn * n_tris * ri.OPS_PER_PAIR
+            nbytes = 4 * (6 * rn + 9 * n_tris) + 9 * rn  # the mesh's own triangles
+            b, by = bound_ms(flops, nbytes, "float32")
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                       brute_ms=brute_ms, culled_ms=culled_ms, culled_rounds=rounds[0],
+                       shape=f"R={rn} rays x T={n_tris} triangles, f32")
+            log(f"K3 R={rn}: {ms:.3f} ms, plain {plain:.1f} ms, brute sweep "
+                f"{brute_ms:.1f} ms, culled descent {culled_ms:.1f} ms "
+                f"({rounds[0]} rounds, one host sync each), bound {b:.4f} ms ({by})")
+    return rec
+
+
 def phase_small_check(dev):
     """The small step on the card (kernels on) against the CPU (plain)."""
     from nunerf_tpu_torch.models.stage1 import ShapeRenderer
@@ -254,6 +386,104 @@ def phase_small_check(dev):
                 raise AssertionError(f"step {step} {k}: card {a} vs cpu {b}")
         log(f"small step {step}: card loss_total {float(terms['cuda']['loss_total']):.6f}"
             f" vs cpu {float(terms['cpu']['loss_total']):.6f} ok")
+
+
+def phase_small_check_stage2(dev):
+    """A small stage-2 step on the card (closest hit by K3) against the same
+    step on the CPU (closest hit by the brute sweep), f32 on both."""
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.models.stage2 import Stage2Renderer
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
+    from nunerf_tpu_torch.tracing.scene import Scene
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    mesh = extract_geometry(lambda p: np.linalg.norm(p, axis=-1) - 0.5, resolution=16)
+    terms = {}
+    for d in (dev, torch.device("cpu")):
+        scene = Scene(mesh, tile=512, device=d)
+        if scene.use_kernel != (d.type == "cuda"):
+            raise AssertionError("the closest-hit kernel gate does not follow the device")
+        s1 = ShapeRenderer(SMALL_CFG, device=d, seed=3)
+        r = Stage2Renderer(SMALL_S2_CFG, scene, s1, device=d, seed=4)
+        before = dict(ri.launches)
+        terms[d.type] = TrainStep(r, 5e-4)(stage2_batch(16, d), 10)
+        n = ri.launches["closest_hit"] - before["closest_hit"]
+        if n != (3 if d.type == "cuda" else 0):
+            raise AssertionError(f"{n} K3 launches in a small step on {d.type}")
+    # f32 on both sides and no bf16: the card orders its sums differently, and
+    # a sample position or an edge ray can move with it, so loss_total agrees
+    # to 1e-3 relative and each term to 1e-2 of itself plus 1e-3 of loss_total
+    total = float(terms["cpu"]["loss_total"])
+    for k, v in terms["cpu"].items():
+        a, b = float(terms["cuda"][k]), float(v)
+        tol = 1e-3 * abs(b) if k == "loss_total" else 1e-2 * abs(b) + 1e-3 * abs(total)
+        if not (math.isfinite(a) and abs(a - b) <= tol):
+            raise AssertionError(f"stage-2 small step {k}: card {a} vs cpu {b}")
+    log(f"small stage-2 step ({len(mesh[1])} triangles): card loss_total "
+        f"{float(terms['cuda']['loss_total']):.6f} vs cpu {total:.6f} ok")
+
+
+def phase_main_path_stage2(scene, dev):
+    """A few stage-2 training steps at full width through the entry points."""
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.models.stage2 import Stage2Renderer
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    stage1 = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
+    renderer = Stage2Renderer(STAGE2_CFG, scene, stage1, device=dev, seed=1)
+    del stage1
+    if not scene.use_kernel:
+        raise AssertionError("the closest-hit kernel is off on the card")
+    train = TrainStep(renderer, 5e-4)
+    rn = STAGE2_CFG["train_ray_num"]
+    batch = stage2_batch(rn, dev)
+    frozen = {n: p.detach().clone() for n, p in renderer.stage1.named_parameters()}
+    watched = ("sdf_inner.lin0.v", "color_inner.albedo.out.v",
+               "ior_net.module0.layer_0.v", "var_inner.variance")
+    params = dict(renderer.named_parameters())
+    watch = {n: params[n].detach().clone() for n in watched}
+    n_steps, step = 4, 1000
+
+    torch.cuda.reset_peak_memory_stats()
+    ri.reset_launches()
+    fm.reset_launches()
+    times = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        terms = train(batch, step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in terms.items() if not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"stage-2 step: non-finite {bad}")
+    launches = dict(ri.launches)
+    chain = dict(fm.launches)
+
+    steady = times[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    log(f"stage-2 main path: {n_steps} steps, steady {ms:.1f} ms/step "
+        f"({rn / (ms / 1e3):.0f} rays/s), first {1e3 * times[0]:.1f} ms, loss_total "
+        f"{float(terms['loss_total']):.5f}, ior_glass {float(terms['ior_glass']):.4f}, "
+        f"launches {launches} (chain kernels {chain}), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if launches != {"closest_hit": 3 * n_steps}:
+        raise AssertionError(f"K3 launches {launches}, expected {3 * n_steps} "
+                             "(one a bounce, three bounces a step)")
+    if any(chain.values()):
+        raise AssertionError(f"the stage-2 step launched chain kernels: {chain}")
+    for n, p in renderer.stage1.named_parameters():
+        if p.grad is not None or not torch.equal(frozen[n], p.detach()):
+            raise AssertionError(f"frozen stage-1 parameter {n} changed")
+    for n in watched:
+        if torch.equal(watch[n], params[n].detach()):
+            raise AssertionError(f"trainable parameter {n} did not change")
+    return launches, dict(step_ms=ms, rays_per_s=rn / (ms / 1e3),
+                          first_step_ms=1e3 * times[0],
+                          loss_total=float(terms["loss_total"]))
 
 
 def phase_main_path(dev):
@@ -332,28 +562,48 @@ def main():
     libs = cuda_build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    t0 = time.perf_counter()
+    verts, tris = lumpy_sphere_mesh(MESH_RESOLUTION)
+    scene = Scene((verts, tris), device=dev)
+    log(f"outer mesh: {len(tris)} triangles, {len(verts)} vertices, marched at "
+        f"{MESH_RESOLUTION}^3 in {time.perf_counter() - t0:.1f} s")
+    if not 80000 <= len(tris) <= 120000:
+        raise AssertionError(f"{len(tris)} triangles: outside the 80,000-120,000 "
+                             "that stage 2 traces")
+
     renderer = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
     rec = phase_kernels(renderer, dev)
     del renderer
+    rec["K3"] = phase_kernel_k3(scene, dev)
     phase_small_check(dev)
+    phase_small_check_stage2(dev)
     launches, res = phase_main_path(dev)
+    launches2, res2 = phase_main_path_stage2(scene, dev)
+    launches.update(launches2)
 
     names = {"K1": ("chain_fwd", "chain-MLP forward (fused_chain_mlp fwd)"),
-             "K2": ("chain_bwd", "chain-MLP backward (fused_chain_mlp VJP)")}
+             "K2": ("chain_bwd", "chain-MLP backward (fused_chain_mlp VJP)"),
+             "K3": ("closest_hit", "ray/triangle closest hit (ray_mesh_closest_hit)")}
     kernels = []
-    for k in ("K1", "K2"):
+    for k in ("K1", "K2", "K3"):
         counter, desc = names[k]
         r = rec[k]
-        kernels.append({"name": f"{k} {desc}", "route": "cuda", "source": SOURCE,
+        extra = {x: r[x] for x in ("max_rel_err", "tol", "brute_ms", "culled_ms",
+                                   "culled_rounds") if x in r}
+        kernels.append({"name": f"{k} {desc}", "route": "cuda", "source": SOURCE[k],
                         "replaces": REPLACES[k], "launches": launches[counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
-                        "max_rel_err": r["max_rel_err"], "tol": r["tol"],
-                        "shape": r["shape"]})
+                        "shape": r["shape"], **extra})
     summary = {"card": card,
                "step_ms": {str(s): v["step_ms"] for s, v in res.items()},
                "rays_per_s": {str(s): v["rays_per_s"] for s, v in res.items()},
+               "stage2_step_ms": res2["step_ms"],
+               "stage2_rays_per_s": res2["rays_per_s"],
+               "stage2_triangles": len(tris),
                "seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(json.dumps({"kernels": kernels}))

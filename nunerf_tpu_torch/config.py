@@ -1,6 +1,6 @@
 """Config system: YAML -> one flat dict, default-merged per component.
 
-The port's own copy of ``nunerf_tpu/config.py`` (stage-1 part).  Mirrors the
+The port's own copy of ``nunerf_tpu/config.py`` (renderer defaults).  Mirrors the
 reference convention (``utils/base_utils.py:319-322`` +
 ``{**default_cfg, **cfg}`` merging everywhere) so reference YAML configs work
 unchanged (keys per reference ``README.md:74-82``).
@@ -92,3 +92,41 @@ SHADER_DEFAULTS: Dict[str, Any] = {
     "refrac_freq": 6,
 }
 
+
+# Stage-2 renderer defaults (reference network/renderer.py:908-965 /
+# renderer_zerothick.py:869-930).
+STAGE2_DEFAULTS: Dict[str, Any] = {
+    "std_act": "exp",
+    "inv_s_init": 0.3,
+    "freeze_inv_s_step": None,
+    "sdf_activation": "none",
+    "sdf_bias": 0.5,
+    "sdf_n_layers": 8,
+    "sdf_freq": 6,
+    "sdf_d_out": 257,
+    "geometry_init": True,
+    "shader_config": {},
+    "n_samples_inner": 64,
+    "n_importance_inner": 32,
+    "n_bg_samples": 64,
+    "n_samples_segment": 64,
+    "max_bounces": 3,
+    "perturb": 1.0,
+    "anneal_end": 50000,
+    "train_ray_num": 1024,
+    "test_ray_num": 1024,
+    "is_nerf": False,
+    "database_name": "nerf/spherepot",
+    "dataset_dir": "./datasets",
+    "downsample_ratio": 1.0,
+    "test_downsample_ratio": True,
+    "rgb_loss": "charbonier",
+    "apply_occ_loss": True,
+    "occ_loss_step": 20000,
+    "get_mask": False,
+    "zero_thickness": False,
+    "stage1_mesh_dir": None,
+    "stage1_ckpt_dir": None,
+    "stage1_cfg_dir": None,
+    "mixed_precision": True,
+}

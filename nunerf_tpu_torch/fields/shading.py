@@ -1,12 +1,14 @@
 """NeRO-style split-sum shading network with NU-NeRF transmission terms;
-the stage-1 parts of ``nunerf_tpu/fields/shading.py`` (reference
-``network/field.py:557-783``).
+counterpart of ``nunerf_tpu/fields/shading.py`` (reference
+``network/field.py:557-783``, the diffuse-only inner variant
+``field.py:1127-1283``, the stage-2 interface shader ``field.py:786-1016``).
 
   color = (diffuse + specular) * (1 - T)
         + (R_schlick * spec_light0 + (1 - R_schlick) * refrac_light) * T
 
-The stage-2 interface shader (``s2_shade``) and the diffuse-only inner
-variant wait for the stage-2 port.
+``forward`` is the stage-1 shader and the stage-2 inner shader
+(``diffuse_only`` selects the lambertian inner variant); ``s2_shade`` shades
+a glass interface during stage-2 tracing with these same heads, frozen.
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ class AppShadingNetwork(nn.Module):
                  light_pos_freq: int = 6, inner_init: float = -0.95,
                  roughness_init: float = 0.0, metallic_init: float = 0.0,
                  light_exp_max: float = 3.0, refrac_freq: int = 6,
-                 feature_dim: int = 256, dtype=None, device=None):
+                 feature_dim: int = 256, diffuse_only: bool = False,
+                 dtype=None, device=None):
         super().__init__()
+        self.diffuse_only = diffuse_only
         self.human_light = human_light
         self.sphere_direction = sphere_direction
         self.light_pos_freq = light_pos_freq
@@ -110,6 +114,42 @@ class AppShadingNetwork(nn.Module):
             sph_points + direction * get_sphere_intersection(sph_points, direction))
         return self.sph_enc(sph_points, roughness)
 
+    def predict_specular_lights(self, points, reflective, roughness, human_poses):
+        """field.py:636-667, with the zero-roughness light of the
+        transmission term; the rows of each head stacked ([2N])."""
+        n = points.shape[0]
+        zero_r = torch.zeros_like(roughness)
+        enc = self.sph_enc(torch.cat([reflective, reflective], 0),
+                           torch.cat([roughness, zero_r], 0))
+        pts = posenc(points, self.light_pos_freq)
+        if self.sphere_direction:
+            sph = self._sphere_dir_enc(points, reflective, roughness)
+            direct = self.outer_light(torch.cat([enc, torch.cat([sph, sph], 0)], -1))
+        else:
+            direct = self.outer_light(enc)
+        direct_light, direct_light_0 = direct[:n], direct[n:]
+
+        human_light, human_weight = 0.0, 0.0
+        if self.human_light:
+            human_light, human_weight = self.predict_human_light(
+                points, reflective, human_poses, roughness)
+
+        inner = self.inner_light(torch.cat([torch.cat([pts, pts], 0), enc], -1))
+        indirect_light, indirect_light_0 = inner[:n], inner[n:]
+        ref_enc = posenc(reflective, 6)
+        occ_prob = self.inner_weight(torch.cat([pts, ref_enc], -1).detach())
+        occ_prob = occ_prob * 0.5 + 0.5
+        occ_prob_ = torch.clamp(occ_prob, 0.0, 1.0)
+
+        light = (indirect_light * occ_prob_
+                 + (human_light * human_weight + direct_light * (1 - human_weight))
+                 * (1 - occ_prob_))
+        light_0 = (indirect_light_0 * occ_prob_
+                   + (human_light * human_weight + direct_light_0 * (1 - human_weight))
+                   * (1 - occ_prob_))
+        return (light, light_0, occ_prob, indirect_light * occ_prob_,
+                human_light * human_weight)
+
     def _lights_batched(self, points, normals, reflective, roughness, human_poses):
         """All light-head evaluations of the stage-1 forward with the rows of
         each head stacked (outer_light x3, inner_light x2)."""
@@ -168,7 +208,7 @@ class AppShadingNetwork(nn.Module):
             return self.outer_light(torch.cat([dir_enc, sph], -1))
         return self.outer_light(dir_enc)
 
-    # ----- stage-1 forward -------------------------------------------------
+    # ----- stage-1 / inner-shader forward ---------------------------------
 
     def forward(self, points, normals, view_dirs, feature_vectors,
                 human_poses=None, inter_results: bool = False):
@@ -180,6 +220,22 @@ class AppShadingNetwork(nn.Module):
         metallic, roughness, albedo = self.predict_materials(points, feature_vectors)
         transmission_weight = self.transmission_weight(
             torch.cat([feature_vectors, points], -1))
+
+        if self.diffuse_only:
+            # AppShadingNetwork_DiffuseInner (field.py:1245-1257): metallic
+            # and transmission multiplied by 0, the colour pure diffuse.  The
+            # parameter set is that of the full shader, so a checkpointed
+            # run can resume with the flag flipped; the unused heads
+            # (specular lights, refrac_light) are not evaluated and their
+            # gradients are zero.  linear_to_srgb is applied once (the
+            # reference applies it twice, field.py:1268-1270).
+            diffuse_light, (_sl, _sl0, occ_prob, _il, _hl) = self._lights_batched(
+                points, normals, reflective, roughness, human_poses)
+            color = linear_to_srgb(albedo * diffuse_light)
+            return color, {"reflective": reflective, "occ_prob": occ_prob,
+                           "transmission_weight": transmission_weight * 0.0,
+                           "metallic": metallic * 0.0}
+
         diffuse_albedo = (1 - metallic) * albedo
         diffuse_light, (specular_light, specular_light_0, occ_prob,
                         indirect_light, human_light) = self._lights_batched(
@@ -236,3 +292,58 @@ class AppShadingNetwork(nn.Module):
         if self.human_light:
             inter["human_light"] = linear_to_srgb(human_light)
         return color, occ_info, inter
+
+    # ----- stage-2 interface shader (frozen stage-1 heads) -----------------
+
+    def s2_shade(self, points, normals, view_dirs, feature_vectors,
+                 is_internal: bool):
+        """AppShadingNetwork_S2.forward (field.py:909-1010): shading at a
+        glass interface during stage-2 tracing, with this network's heads.
+
+        color = (diffuse+spec)(1-T) + R_schlick*spec_light0*T, zeroed when
+        the interface is internal; also emits
+        ``refraction_coefficient = (1-R_schlick)*T`` for transmittance
+        chaining.  The encoding path follows this network's
+        ``sphere_direction`` flag: parameter shapes exist only for it."""
+        normals = normalize(normals)
+        view_dirs = normalize(view_dirs)
+        reflective = torch.sum(view_dirs * normals, -1, keepdim=True) * normals * 2 - view_dirs
+        no_v = torch.sum(normals * view_dirs, -1, keepdim=True)
+
+        metallic, roughness, albedo = self.predict_materials(points, feature_vectors)
+        transmission_weight = self.transmission_weight(
+            torch.cat([feature_vectors, points], -1))
+
+        diffuse_albedo = (1 - metallic) * albedo
+        roughness_one = torch.ones_like(roughness)
+        ref_d = self.sph_enc(normals, roughness_one)
+        if self.sphere_direction:
+            sph = self._sphere_dir_enc(points, normals, roughness_one)
+            diffuse_light = self.outer_light(torch.cat([ref_d, sph], -1))
+        else:
+            diffuse_light = self.outer_light(ref_d)
+        diffuse_color = diffuse_albedo * diffuse_light
+        specular_albedo = 0.04 * (1 - metallic) + metallic * albedo
+
+        (specular_light, specular_light_0, occ_prob, _indirect,
+         _human) = self.predict_specular_lights(points, reflective, roughness, None)
+
+        reflection_weight = schlick_weight(no_v)
+        fg = fg_lookup(self.fg_lut, torch.clamp(no_v, 0.0, 1.0),
+                       torch.clamp(roughness, 0.0, 1.0))
+        specular_ref = specular_albedo * fg[..., 0:1] + fg[..., 1:2]
+        specular_color = specular_ref * specular_light
+
+        color = ((diffuse_color + specular_color) * (1 - transmission_weight)
+                 + reflection_weight * specular_light_0 * transmission_weight)
+        if is_internal:
+            color = color * 0
+        color = linear_to_srgb(color)
+
+        occ_info = {
+            "reflective": reflective,
+            "occ_prob": occ_prob,
+            "transmission_weight": transmission_weight,
+            "refraction_coefficient": (1 - reflection_weight) * transmission_weight,
+        }
+        return color, occ_info

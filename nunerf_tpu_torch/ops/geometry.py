@@ -1,6 +1,8 @@
-"""Ray/sphere geometry primitives used by stage 1; counterpart of the
-matching functions of ``nunerf_tpu/ops/geometry.py`` (reference
-``network/field.py:447-464``, ``network/renderer.py:337-344``)."""
+"""Ray/sphere/refraction geometry primitives; counterpart of
+``nunerf_tpu/ops/geometry.py`` (reference ``network/field.py:447-464``,
+``network/DiffRender.py:28-58``, ``network/renderer.py:337-344``).
+
+Total internal reflection is reported as a mask, never branched on."""
 
 from __future__ import annotations
 
@@ -17,8 +19,50 @@ def safe_norm(v, dim=-1, keepdims=False, eps: float = 1e-12):
     return torch.sqrt(torch.clamp(sq, min=eps))
 
 
+def safe_sqrt(x, eps: float = 1e-12):
+    """Square root with a finite gradient at x = 0."""
+    return torch.sqrt(torch.clamp(x, min=eps))
+
+
 def normalize(v, eps: float = 1e-12):
     return v / safe_norm(v, keepdims=True, eps=eps * eps)
+
+
+def reflect(wo, n):
+    """Mirror direction of ``wo`` about normal ``n`` (DiffRender.py:28-30)."""
+    return -wo + 2.0 * dot(wo, n) * n
+
+
+def refract(wi, n, eta):
+    """Snell refraction of incident dir ``wi`` (pointing *away* from the
+    surface) across normal ``n`` with relative IoR ``eta = n_i / n_t``
+    (DiffRender.py:32-46).
+
+    Returns ``(wt, tir_mask)``: the transmitted direction (zeros where TIR)
+    and a boolean mask of total internal reflection."""
+    cos_i = dot(wi, n)  # [...,1]
+    sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = eta * eta * sin2_i
+    tir = sin2_t[..., 0] >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wt = eta * -wi + (eta * cos_i - cos_t) * n
+    wt = torch.where(tir[..., None], torch.zeros_like(wt), wt)
+    return wt, tir
+
+
+def fresnel_dielectric(cos_i, eta_i, eta_t):
+    """Unpolarized Fresnel reflectance of a dielectric interface
+    (DiffRender.py:48-58).  ``cos_i`` >= 0 assumed; 1.0 under TIR."""
+    cos_i = torch.clamp(cos_i, 0.0, 1.0)
+    sin_t = eta_i / eta_t * torch.sqrt(torch.clamp(1.0 - cos_i * cos_i, min=0.0))
+    tir = sin_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    r_parl = ((eta_t * cos_i - eta_i * cos_t)
+              / torch.clamp(eta_t * cos_i + eta_i * cos_t, min=1e-10))
+    r_perp = ((eta_i * cos_i - eta_t * cos_t)
+              / torch.clamp(eta_i * cos_i + eta_t * cos_t, min=1e-10))
+    fr = 0.5 * (r_parl * r_parl + r_perp * r_perp)
+    return torch.where(tir, torch.ones_like(fr), fr)
 
 
 def schlick_weight(no_v):
@@ -52,3 +96,16 @@ def near_far_from_sphere(rays_o, rays_d):
     near = torch.clamp(mid - 1.0, min=1e-3)
     far = mid + 1.0
     return near, far
+
+
+def ray_sphere_hit(rays_o, rays_d, radius: float = 1.0):
+    """Both intersection distances with a ``radius`` sphere at the origin.
+
+    Returns (t_near, t_far, hit_mask); the t's are zero where no hit."""
+    b = dot(rays_o, rays_d)[..., 0]
+    c = dot(rays_o, rays_o)[..., 0] - radius * radius
+    disc = b * b - c
+    hit = disc > 0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    zero = torch.zeros_like(b)
+    return torch.where(hit, -b - sq, zero), torch.where(hit, -b + sq, zero), hit

@@ -1,11 +1,15 @@
-"""The stage-1 training step; counterpart of the ``loss_fn`` and
+"""The training step of either stage; counterpart of the ``loss_fn`` and
 ``one_step`` of ``nunerf_tpu/train/trainer.py:_build_train_step``
 (reference ``train/trainer.py:152-170``).
 
 One step: ``renderer.train_outputs`` -> ``compute_losses`` -> backward ->
-one Adam update with optax.adam's constants (b1 0.9, b2 0.999, eps 1e-8).
-The batch is already on the renderer's device; ray selection, validation,
-checkpoints and the training loop are not ported yet.
+one Adam update with optax.adam's constants (b1 0.9, b2 0.999, eps 1e-8) of
+the parameters that require grad.  A ``Stage2Renderer`` holds its stage-1
+weights with ``requires_grad_(False)``: they get no optimizer state and no
+update, the counterpart of ``optax.multi_transform`` with ``set_to_zero`` on
+the ``frozen`` subtree (``train/trainer.py:175-181``).  The batch is already
+on the renderer's device; ray selection, validation, checkpoints and the
+training loop are not ported yet.
 """
 
 from __future__ import annotations

@@ -188,6 +188,154 @@ def test_app_shading_forward_and_grads():
                                 expected64=jg64[k])
 
 
+def _shade_inputs(seed, n=40):
+    rs = np.random.RandomState(seed)
+    return [(rs.randn(n, 3) * 0.4).astype(np.float32), rs.randn(n, 3).astype(np.float32),
+            rs.randn(n, 3).astype(np.float32), rs.randn(n, 256).astype(np.float32) * 0.5]
+
+
+def _shade_case(jmod, params, tmod_kwargs, jcall, tcall, unused=()):
+    """Outputs, input gradients and parameter gradients of one shader entry
+    point on both sides, calibrated by float64 on both sides as in
+    ``test_app_shading_forward_and_grads``.  The loss reaches every output."""
+    arrs = _shade_inputs(21)
+
+    def jloss(p, *a):
+        c, info = jcall(p, *a)
+        return jnp.sum(c ** 2) + sum(jnp.sum(v ** 2) for v in info.values())
+
+    jfwd = jax.jit(jcall)
+    jgrad = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3, 4)))
+    args_j = [jnp.asarray(a) for a in arrs]
+    jc, jinfo = jfwd(params, *args_j)
+    jg = jgrad(params, *args_j)
+    with jax.enable_x64(True):
+        jg64 = jgrad(jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), params),
+                     *[jnp.asarray(a, jnp.float64) for a in arrs])
+
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        tmod = AppShadingNetwork(device="cpu", **tmod_kwargs)
+        load_jax_params(tmod, params)
+        tmod.to(dt)
+        leaves = [t(a).to(dt).requires_grad_(True) for a in arrs]
+        c, info = tcall(tmod, *leaves)
+        (torch.sum(c ** 2) + sum(torch.sum(v ** 2) for v in info.values())).backward()
+        out = {"color": c, **{f"info/{k}": v for k, v in info.items()}}
+        grads = flat_leaves(to_jax_tree(tmod, what="grad"))
+        grads.update({f"input{i}": a.grad.numpy() for i, a in enumerate(leaves)})
+        res[dt] = ({k: v.detach() for k, v in out.items()}, grads)
+    (o32, g32), (o64, g64) = res[torch.float32], res[torch.float64]
+
+    expected = {"color": jc, **{f"info/{k}": v for k, v in jinfo.items()}}
+    assert sorted(o32) == sorted(expected)
+    for k, e in expected.items():
+        assert_close_calibrated(o32[k], e, o64[k], RTOL_FWD, what=k)
+
+    def with_inputs(g):
+        out = flat_leaves(g[0])
+        out.update({f"input{i}": np.asarray(a) for i, a in enumerate(g[1:])})
+        return out
+
+    jg, jg64 = with_inputs(jg), with_inputs(jg64)
+    assert sorted(g32) == sorted(jg)
+    for k, e in jg.items():
+        assert_close_calibrated(g32[k], e, g64[k], RTOL_GRAD, what=k, expected64=jg64[k])
+    # the gradient reaches the inputs (positions and normals carry it on to
+    # the IoR field in stage 2) ...
+    assert all(np.abs(g32[f"input{i}"]).max() > 0 for i in range(4))
+    # ... and heads the entry point does not evaluate get exactly zero
+    for k, v in g32.items():
+        if k.split("/")[0] in unused:
+            assert not v.any() and not jg[k].any(), k
+    return o32
+
+
+@pytest.mark.parametrize("is_internal", [False, True])
+@pytest.mark.parametrize("sphere_direction", [False, True])
+def test_s2_shade_forward_and_grads(is_internal, sphere_direction):
+    jmod = JShade(sphere_direction=sphere_direction)
+    params = jitter_tree(jmod.init(jax.random.PRNGKey(5), *(jnp.zeros((1, 3)),) * 3,
+                                   jnp.zeros((1, 256))), 22)
+    out = _shade_case(
+        jmod, params, {"sphere_direction": sphere_direction},
+        lambda p, *a: jmod.apply(p, *a, is_internal, method=JShade.s2_shade),
+        lambda m, *a: m.s2_shade(*a, is_internal), unused=("refrac_light",))
+    assert "info/refraction_coefficient" in out
+    assert bool(out["color"].any()) != is_internal
+
+
+def test_diffuse_only_shader_forward_and_grads():
+    """The lambertian inner variant: the parameter set of the full shader,
+    metallic and transmission reported as zero."""
+    jmod = JShade(diffuse_only=True)
+    params = jitter_tree(jmod.init(jax.random.PRNGKey(6), *(jnp.zeros((1, 3)),) * 3,
+                                   jnp.zeros((1, 256))), 23)
+    full = JShade().init(jax.random.PRNGKey(6), *(jnp.zeros((1, 3)),) * 3,
+                         jnp.zeros((1, 256)))
+    assert sorted(flat_leaves(params)) == sorted(flat_leaves(full))
+    out = _shade_case(jmod, params, {"diffuse_only": True},
+                      lambda p, *a: jmod.apply(p, *a), lambda m, *a: m(*a),
+                      unused=("refrac_light", "inner_light"))
+    assert not out["info/metallic"].any() and not out["info/transmission_weight"].any()
+    assert sorted(n for n, _ in AppShadingNetwork(device="cpu", diffuse_only=True)
+                  .named_parameters()) == sorted(
+        n for n, _ in AppShadingNetwork(device="cpu").named_parameters())
+
+
+def test_jax_checkpoint_is_read_by_the_port(tmp_path):
+    """A checkpoint written by the JAX trainer's ``save_checkpoint`` (stage-1
+    tree and two-level stage-2 tree) is read with pickle alone and loads
+    into the port's modules leaf by leaf."""
+    import optax
+    from nunerf_tpu.models.stage1 import ShapeRenderer as JShapeRenderer
+    from nunerf_tpu.train.trainer import save_checkpoint
+    from nunerf_tpu_torch.convert import load_jax_checkpoint
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
+    from nunerf_tpu_torch.models.stage2 import Stage2Renderer, tree_keys
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    s1_cfg = {"sdf_n_layers": 2, "is_nerf": True}
+    params = jitter_tree(JShapeRenderer(s1_cfg).init_params(jax.random.PRNGKey(0)), 30)
+    path = str(tmp_path / "s1" / "model.pth")
+    save_checkpoint(path, 1234, params, optax.adam(1e-3).init(params), 7.5)
+    step, tree, best = load_jax_checkpoint(path)
+    assert (step, best) == (1234, 7.5)
+    r = ShapeRenderer(s1_cfg, device="cpu")
+    load_jax_params(r, tree, PARAM_KEYS)
+    back = flat_leaves(to_jax_tree(r, PARAM_KEYS))
+    expected = flat_leaves(params)
+    assert sorted(back) == sorted(expected)
+    for k, e in expected.items():
+        np.testing.assert_array_equal(back[k], e, err_msg=k)
+
+    # stage 2: the frozen stage-1 weights come from that checkpoint
+    # (stage1_ckpt_dir), and the renderer's own tree round-trips through one
+    tri = (np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]], np.float32), np.array([[0, 1, 2]]))
+    cfg = {"stage1_cfg": s1_cfg, "stage1_ckpt_dir": path, "sdf_n_layers": 2,
+           "learn_absorption": True, "mixed_precision": False}
+    r2 = Stage2Renderer(cfg, Scene(tri, device="cpu"), device="cpu", seed=5)
+    tree2 = to_jax_tree(r2, tree_keys())
+    assert sorted(tree2) == ["frozen", "train"]
+    assert tree2["train"]["iors_vec"].shape == (10,)
+    assert tree2["train"]["absorption"].shape == (3,)
+    assert "params" in tree2["train"]["sdf_inner"] and "params" in tree2["frozen"]["sdf"]
+    frozen = flat_leaves(tree2["frozen"])
+    for k, e in expected.items():
+        np.testing.assert_array_equal(frozen[k], e, err_msg=k)
+    path2 = str(tmp_path / "s2" / "model.pth")
+    save_checkpoint(path2, 5, jitter_tree(tree2, 31), None, 0.0)
+    _, tree2b, _ = load_jax_checkpoint(path2)
+    r3 = Stage2Renderer(cfg, Scene(tri, device="cpu"), device="cpu", seed=6)
+    load_jax_params(r3, tree2b, tree_keys())
+    back2, want2 = flat_leaves(to_jax_tree(r3, tree_keys())), flat_leaves(tree2b)
+    assert sorted(back2) == sorted(want2)
+    for k, e in want2.items():
+        np.testing.assert_array_equal(back2[k], e, err_msg=k)
+    with pytest.raises(KeyError):
+        load_jax_params(r3, {"train": tree2b["train"]}, tree_keys())
+
+
 def test_variance():
     jmod = JVar(init_val=0.3)
     params = jmod.init(jax.random.PRNGKey(0), jnp.zeros((1, 3)))

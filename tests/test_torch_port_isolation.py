@@ -31,8 +31,20 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 20, res.stdout
+    assert int(n) >= 27, res.stdout
     assert bad == "[]", bad
+
+
+def test_probe_walks_the_stage2_modules():
+    """The import probe above reaches every module of the second slice."""
+    import pkgutil
+
+    import nunerf_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
+                                                   "nunerf_tpu_torch.")}
+    for mod in ("tracing.mesh_ops", "tracing.intersect", "tracing.scene",
+                "ops.ray_intersect", "models.stage2", "convert"):
+        assert f"nunerf_tpu_torch.{mod}" in names, mod
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
@@ -48,3 +60,20 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     r = ShapeRenderer({"sdf_n_layers": 2}, device="cpu")
     assert r.device.type == "cpu" and not r.fused_sdf_value
     assert all(p.device.type == "cpu" for p in r.parameters())
+
+    # stage 2: the scene and the renderer resolve the device the same way
+    import numpy as np
+    from nunerf_tpu_torch.models.stage2 import Stage2Renderer
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    tri = (np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]], np.float32), np.array([[0, 1, 2]]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scene(tri)
+    scene = Scene(tri, device="cpu")
+    assert scene.device.type == "cpu" and not scene.use_kernel
+    cfg = {"sdf_n_layers": 2, "stage1_cfg": {"sdf_n_layers": 2}}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Stage2Renderer(cfg, scene, r)
+    r2 = Stage2Renderer(cfg, scene, r, device="cpu")
+    assert all(p.device.type == "cpu" for p in r2.parameters())
+    assert not any(p.requires_grad for p in r2.stage1.parameters())

@@ -79,6 +79,61 @@ def test_geometry():
         assert_close(a, b, 1e-6)
 
 
+def test_refraction_geometry():
+    """safe_sqrt, reflect, refract, fresnel_dielectric, ray_sphere_hit: values
+    to 1e-6 (the same few f32 operations), masks exact, TIR angles included,
+    and the zero-safe gradients of safe_sqrt and safe_norm."""
+    rs = _rs(20)
+    n = rs.randn(64, 3).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    wi = rs.randn(64, 3).astype(np.float32)
+    wi /= np.linalg.norm(wi, axis=-1, keepdims=True)
+    wi *= np.sign(np.sum(wi * n, -1, keepdims=True))  # on the normal's side
+    assert_close(geometry.reflect(t(wi), t(n)), j_geo.reflect(jnp.asarray(wi), jnp.asarray(n)),
+                 1e-6, what="reflect")
+    for eta in (1.0 / 1.5, 1.5):  # entering; exiting, where grazing rays reflect totally
+        wt, tir = geometry.refract(t(wi), t(n), eta)
+        jwt, jtir = j_geo.refract(jnp.asarray(wi), jnp.asarray(n), eta)
+        np.testing.assert_array_equal(tir.numpy(), np.asarray(jtir))
+        assert bool(tir.any()) == (eta > 1.0)
+        assert_close(wt, jwt, 1e-6, what="refract")
+        assert not wt[tir].any()
+    eta_row = np.full((64, 1), 1.5, np.float32)
+    wt, tir = geometry.refract(t(wi), t(n), t(eta_row))
+    jwt, jtir = j_geo.refract(jnp.asarray(wi), jnp.asarray(n), jnp.asarray(eta_row))
+    assert_close(wt, jwt, 1e-6, what="refract, eta per ray")
+
+    cos_i = np.linspace(-0.1, 1.1, 50, dtype=np.float32)
+    for ei, et in ((1.0, 1.5), (1.5, 1.0)):
+        fr = geometry.fresnel_dielectric(t(cos_i), ei, et)
+        assert_close(fr, j_geo.fresnel_dielectric(jnp.asarray(cos_i), ei, et), 1e-6,
+                     what="fresnel")
+        assert float(fr.min()) >= 0.0 and float(fr.max()) <= 1.0
+    assert float(geometry.fresnel_dielectric(t(cos_i), 1.5, 1.0)[5]) == 1.0  # TIR
+
+    o = (rs.randn(64, 3) * 1.5).astype(np.float32)
+    for radius in (1.0, 0.5):
+        res = geometry.ray_sphere_hit(t(o), t(wi), radius)
+        jres = j_geo.ray_sphere_hit(jnp.asarray(o), jnp.asarray(wi), radius)
+        np.testing.assert_array_equal(res[2].numpy(), np.asarray(jres[2]))
+        assert 0 < int(res[2].sum()) < 64
+        assert_close(res[0], jres[0], 1e-6, what="t_near")
+        assert_close(res[1], jres[1], 1e-6, what="t_far")
+
+    x = np.array([0.0, 1e-14, 0.25, 4.0], np.float32)
+    assert_close(geometry.safe_sqrt(t(x)), j_geo.safe_sqrt(jnp.asarray(x)), 1e-6)
+    xt = t(x).requires_grad_(True)
+    geometry.safe_sqrt(xt).sum().backward()
+    jg = jax.grad(lambda v: jnp.sum(j_geo.safe_sqrt(v)))(jnp.asarray(x))
+    assert torch.isfinite(xt.grad).all() and float(xt.grad[0]) == 0.0
+    assert_close(xt.grad, jg, 1e-6, what="safe_sqrt grad")
+    v = t(np.array([[0.0, 0.0, 0.0], [3.0, 0.0, 4.0]], np.float32)).requires_grad_(True)
+    geometry.safe_norm(v).sum().backward()
+    jg = jax.grad(lambda a: jnp.sum(j_geo.safe_norm(a)))(jnp.asarray(v.detach().numpy()))
+    assert torch.isfinite(v.grad).all() and not v.grad[0].any()
+    assert_close(v.grad, jg, 1e-6, what="safe_norm grad")
+
+
 def test_searchsorted_right_with_ties():
     cdf = np.array([[0.0, 0.2, 0.2, 0.5, 1.0]] * 3, np.float32)
     u = np.array([[0.0, 0.2, 0.3], [0.5, 0.99, 1.0], [0.1, 0.2, 0.7]], np.float32)
@@ -191,7 +246,12 @@ def test_fg_lut_and_lookup():
 
 
 def test_config_copy_matches_jax():
-    """The port's own copy of the stage-1 defaults and of the YAML loader."""
+    """The port's own copy of the renderer defaults and of the YAML loader."""
+    from nunerf_tpu.models.stage2 import ZERO_THICK_DEFAULTS as J_ZERO_THICK
+    from nunerf_tpu_torch.models.stage2 import ZERO_THICK_DEFAULTS
+
+    assert config.STAGE2_DEFAULTS == j_config.STAGE2_DEFAULTS
+    assert ZERO_THICK_DEFAULTS == J_ZERO_THICK
     assert config.STAGE1_DEFAULTS == j_config.STAGE1_DEFAULTS
     assert config.SHADER_DEFAULTS == j_config.SHADER_DEFAULTS
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
