@@ -8,6 +8,9 @@ Weight norm: ``W = g * V / ||V||`` with the norm per output unit.  The kernel
 
 ``dtype`` (None or ``torch.bfloat16``) is the compute dtype of a layer's
 matmul; parameters stay f32.  A bf16 layer returns bf16.
+
+``Predictor(fused=True)`` runs its layer stack through the fused chain kernel
+(K1 forward, K2 backward; the plain chain on the CPU).
 """
 
 from __future__ import annotations
@@ -123,14 +126,18 @@ _ACTS = {
 class Predictor(nn.Module):
     """``make_predictor`` head (field.py:371-408): ``n_hidden`` 256-wide WN
     layers with ReLU, a final WN layer and an activation.  ``final_bias``
-    sets the last layer's bias constant."""
+    sets the last layer's bias constant.  ``fused`` sends the stack through
+    the fused chain kernel."""
 
     def __init__(self, in_dim: int, out_dim: int, n_hidden: int = 3,
                  activation: str = "sigmoid", exp_max: float = 0.0,
-                 final_bias: Optional[float] = None, dtype=None, device=None):
+                 final_bias: Optional[float] = None, dtype=None,
+                 fused: bool = False, device=None):
         super().__init__()
         self.activation = activation
         self.exp_max = exp_max
+        self.dtype = dtype
+        self.fused = fused
         dims = [in_dim] + [256] * n_hidden
         for i in range(n_hidden):
             self.add_module(f"hidden_{i}", WNDense(dims[i], 256, dtype=dtype,
@@ -143,11 +150,34 @@ class Predictor(nn.Module):
         for m in self.children():
             m.reset_parameters(generator)
 
+    def chain(self):
+        """(spec, flat) of the layer stack for the fused chain kernel: hidden
+        layers relu, the last linear; bf16 operands only when the head's
+        dtype is bf16."""
+        from nunerf_tpu_torch.ops.fused_mlp import ChainSpec
+
+        layers = [getattr(self, f"hidden_{i}") for i in range(self.n_hidden)] + [self.out]
+        n_l = len(layers)
+        spec = ChainSpec(
+            (layers[0].v.shape[0],) + tuple(m.v.shape[1] for m in layers),
+            ("relu",) * (n_l - 1) + ("none",), (False,) * n_l, (1.0,) * n_l,
+            compute_dtype="bfloat16" if self.dtype == torch.bfloat16 else "float32")
+        return spec, [m.weight() for m in layers] + [m.b[None, :] for m in layers]
+
     def forward(self, x):
-        for i in range(self.n_hidden):
-            x = torch.relu(getattr(self, f"hidden_{i}")(x))
+        if self.fused:
+            from nunerf_tpu_torch.ops.fused_mlp import fused_chain_mlp
+
+            spec, flat = self.chain()
+            # the input goes in as f32; the head's activation follows in f32
+            x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
+            x = fused_chain_mlp(spec, x2, *flat).reshape(*x.shape[:-1], spec.dims[-1])
+        else:
+            for i in range(self.n_hidden):
+                x = torch.relu(getattr(self, f"hidden_{i}")(x))
+            x = self.out(x)
         # head outputs leave in the parameters' dtype (f32) for the physics
-        x = self.out(x).to(self.out.v.dtype)
+        x = x.to(self.out.v.dtype)
         if self.activation == "exp":
             return exp_activation(x, self.exp_max)
         return _ACTS[self.activation](x)

@@ -3,8 +3,8 @@ counterpart of ``nunerf_tpu/fields/nerf.py`` (reference
 ``network/field.py:212-305``).
 
 Input is ``(x/|x|, 1/|x|)`` (4-D) plus view directions; D=8, W=256, skip at
-layer 4, viewdirs head.  The trunk is plain PyTorch: the fused chain kernel
-is not wired to it yet (the JAX ``fused_mlp`` gate).
+layer 4, viewdirs head.  ``fused=True`` runs the trunk through the fused chain
+kernel (K1 forward, K2 backward; the plain chain on the CPU).
 """
 
 from __future__ import annotations
@@ -22,8 +22,9 @@ class NeRFNetwork(nn.Module):
     def __init__(self, d_in: int = 4, d_views: int = 3, depth: int = 8,
                  width: int = 256, multires: int = 10, multires_view: int = 4,
                  skips: Sequence[int] = (4,), rgb_bias_init: float = 0.0,
-                 dtype=None, device=None):
+                 dtype=None, fused: bool = False, device=None):
         super().__init__()
+        self.fused = fused
         self.depth, self.width = depth, width
         self.multires, self.multires_view = multires, multires_view
         self.skips = tuple(skips)
@@ -46,11 +47,49 @@ class NeRFNetwork(nn.Module):
 
     def _trunk(self, pts):
         enc = posenc(pts, self.multires)
+        if self.fused:
+            return self._trunk_fused(enc)
         h = enc
         for i in range(self.depth):
             h = torch.relu(getattr(self, f"pts_{i}")(h))
             if i in self.skips:
                 h = torch.cat([enc, h.to(enc.dtype)], dim=-1)
+        return h
+
+    def trunk_chain(self):
+        """(spec, flat) of the trunk for the fused chain kernel.  The
+        post-activation skip ``h = cat([enc, h])`` makes the NEXT layer a
+        split layer: rows [0:E] of its kernel multiply ``enc`` (the W_x
+        half), rows [E:] the carried ``h`` (the W_h half), scale 1; every
+        layer is relu."""
+        from nunerf_tpu_torch.ops.fused_mlp import ChainSpec
+
+        e = self.pts_0.kernel.shape[0]
+        flat_w, flat_b, has_skip = [], [], []
+        for i in range(self.depth):
+            lin = getattr(self, f"pts_{i}")
+            split = i > 0 and (i - 1) in self.skips
+            if split:
+                flat_w += [lin.kernel[e:], lin.kernel[:e]]
+            else:
+                flat_w.append(lin.kernel)
+            has_skip.append(split)
+            flat_b.append(lin.bias[None, :])
+        spec = ChainSpec(
+            (e,) + (self.width,) * self.depth, ("relu",) * self.depth,
+            tuple(has_skip), (1.0,) * self.depth,
+            compute_dtype="bfloat16" if self.dtype == torch.bfloat16 else "float32")
+        return spec, flat_w + flat_b
+
+    def _trunk_fused(self, enc):
+        from nunerf_tpu_torch.ops.fused_mlp import fused_chain_mlp
+
+        spec, flat = self.trunk_chain()
+        e = enc.shape[-1]
+        h = fused_chain_mlp(spec, enc.reshape(-1, e).to(torch.float32).contiguous(), *flat)
+        h = h.reshape(*enc.shape[:-1], self.width)
+        if (self.depth - 1) in self.skips:
+            h = torch.cat([enc.to(h.dtype), h], dim=-1)
         return h
 
     def forward(self, pts, views):

@@ -4,8 +4,10 @@
 8x256 weight-normalized MLP, skip at the middle layer (concat input /
 sqrt(2)), softplus(beta=100) activations, output ``[sdf, feature_256]``.
 Normals come from autograd with ``create_graph=True`` (the reference's double
-backward).  The value-only path (``fused_sdf_apply``) runs the fused chain
-kernel K1, differentiable once through K2.
+backward), or, behind the ``fused_sdf`` gate, from ``fused_sdf_all``: the
+value+Jacobian kernel K4, differentiated by K5.  The value-only path
+(``fused_sdf_apply``) runs the fused chain kernel K1, differentiable once
+through K2.
 """
 
 from __future__ import annotations
@@ -172,6 +174,44 @@ def fused_sdf_apply(module: SDFNetwork, x, value_only: bool = False):
     x2 = module.embed(x.reshape(-1, x.shape[-1])).to(torch.float32).contiguous()
     y = fused_chain_mlp(spec, x2, *flat)
     return y.reshape(*x.shape[:-1], 1 if value_only else module.d_out)
+
+
+def _embed_pullback(module: SDFNetwork, x, g_emb):
+    """``g_emb`` [N, embed dim], a cotangent of ``module.embed(x)``, pulled
+    back to ``x`` [N, d].  Written out in the column order of ``posenc``
+    (``x``, then ``sin`` and ``cos`` of each frequency) with plain tensor
+    operations, so autograd differentiates it in both ``g_emb`` and ``x``
+    (the eikonal loss does)."""
+    d = x.shape[-1]
+    g = g_emb[:, :d]
+    m = module.multires
+    if m > 0:
+        freqs = 2.0 ** torch.arange(m, dtype=x.dtype, device=x.device)
+        xb = (x * module.scale)[:, None, :] * freqs[:, None]     # [N, m, d]
+        ge = g_emb[:, d:].reshape(-1, m, 2, d)
+        g = g + torch.sum(freqs[:, None] * (torch.cos(xb) * ge[:, :, 0]
+                                            - torch.sin(xb) * ge[:, :, 1]), dim=1)
+    return g * module.scale
+
+
+def fused_sdf_all(module: SDFNetwork, x):
+    """(sdf, feats, grad_x) through the value+Jacobian kernels (K4, and K5
+    when differentiated); counterpart of the JAX ``fused_sdf_all``.
+
+    The kernel gives d sdf / d embedding; ``_embed_pullback`` maps it to xyz.
+    Losses of all three outputs differentiate through K5, which takes the
+    place of ``sdf_value_feature_grad``'s double backward."""
+    from nunerf_tpu_torch.ops.fused_mlp import chain_mlp_with_grad0
+
+    spec, flat = _sdf_chain(module, x.device)
+    flat = [f.contiguous() for f in flat]
+    x2 = x.reshape(-1, x.shape[-1])
+    emb = module.embed(x2).to(torch.float32).contiguous()
+    y, j_emb = chain_mlp_with_grad0(spec, emb, *flat)
+    grad_x = _embed_pullback(module, x2.to(torch.float32), j_emb)
+    lead = x.shape[:-1]
+    return (y[..., 0].reshape(lead), y[..., 1:].reshape(*lead, -1),
+            grad_x.reshape(*lead, x.shape[-1]))
 
 
 def sdf_value_feature_grad(module: SDFNetwork, points):

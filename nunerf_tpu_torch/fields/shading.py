@@ -51,14 +51,16 @@ class AppShadingNetwork(nn.Module):
                  roughness_init: float = 0.0, metallic_init: float = 0.0,
                  light_exp_max: float = 3.0, refrac_freq: int = 6,
                  feature_dim: int = 256, diffuse_only: bool = False,
-                 dtype=None, device=None):
+                 dtype=None, fused: bool = False, device=None):
         super().__init__()
         self.diffuse_only = diffuse_only
         self.human_light = human_light
         self.sphere_direction = sphere_direction
         self.light_pos_freq = light_pos_freq
         self.refrac_freq = refrac_freq
-        kw = dict(dtype=dtype, device=device)
+        # ``fused``: every head but the human-light one goes through the
+        # fused chain kernel, as in the JAX module
+        kw = dict(dtype=dtype, fused=fused, device=device)
         fx = feature_dim + 3
         self.metallic = Predictor(
             fx, 1, final_bias=metallic_init if metallic_init != 0 else None, **kw)

@@ -13,6 +13,12 @@ Differences of form from the JAX package, not of result:
 * the value-only SDF sweeps run under ``torch.no_grad`` (the reference's
   ``no_grad``, the JAX package's ``stop_gradient``) and go through the fused
   chain kernel K1 on CUDA.
+
+Two opt-in gates, off by default as in the JAX package (cfg key, else env):
+``fused_sdf`` / ``NUNERF_FUSED_SDF`` sends ``sdf_all`` through the
+value+Jacobian kernels K4/K5 instead of autograd's double backward;
+``fused_mlp`` / ``NUNERF_FUSED_MLP`` sends the NeRF++ trunk and the shading
+heads through K1/K2 and puts ``sdf`` on the fused value path.
 """
 
 from __future__ import annotations
@@ -30,12 +36,17 @@ from nunerf_tpu_torch.fields.aux import InfOutNetwork
 from nunerf_tpu_torch.fields.nerf import NeRFNetwork
 from nunerf_tpu_torch.fields.sdf import (
     SDFNetwork,
+    fused_sdf_all,
     fused_sdf_apply,
     sdf_value_feature_grad,
 )
 from nunerf_tpu_torch.fields.shading import AppShadingNetwork
 from nunerf_tpu_torch.fields.variance import SingleVarianceNetwork
-from nunerf_tpu_torch.ops.fused_mlp import use_fused_sdf_value
+from nunerf_tpu_torch.ops.fused_mlp import (
+    use_fused_mlp,
+    use_fused_sdf,
+    use_fused_sdf_value,
+)
 from nunerf_tpu_torch.ops.geometry import normalize
 from nunerf_tpu_torch.ops.sampling import get_intersection, merge_z_vals, neus_upsample
 from nunerf_tpu_torch.ops.srgb import linear_to_srgb
@@ -63,10 +74,6 @@ class ShapeRenderer(nn.Module):
             defaults["train_ray_num"] = 512
             defaults["downsample_ratio"] = 0.5
         self.cfg = merge_cfg(defaults, cfg)
-        if self.cfg.get("fused_sdf") or self.cfg.get("fused_mlp"):
-            raise NotImplementedError(
-                "fused_sdf (K4/K5) and fused_mlp on the NeRF/predictor heads "
-                "are not ported yet")
         shader_cfg = merge_cfg(SHADER_DEFAULTS, self.cfg.get("shader_config") or {})
         self.shader_cfg = shader_cfg
         dev = self.device
@@ -80,12 +87,16 @@ class ShapeRenderer(nn.Module):
             init_val=self.cfg["inv_s_init"], activation=self.cfg["std_act"],
             device=dev)
         dtype = torch.bfloat16 if self.cfg.get("mixed_precision", True) else None
+        fused = self.cfg.get("fused_mlp")
+        self.fused = use_fused_mlp() if fused is None else bool(fused)
+        fused_sdf = self.cfg.get("fused_sdf")
+        self.fused_sdf = use_fused_sdf() if fused_sdf is None else bool(fused_sdf)
         fsv = self.cfg.get("fused_sdf_value")
         if fsv is None:
             fsv = use_fused_sdf_value(dev)
         self.fused_sdf_value = bool(fsv)
         self.outer_nerf = NeRFNetwork(rgb_bias_init=float(np.log(0.5)),
-                                      dtype=dtype, device=dev)
+                                      dtype=dtype, fused=self.fused, device=dev)
         self.color_net = AppShadingNetwork(
             human_light=shader_cfg["human_light"],
             sphere_direction=shader_cfg["sphere_direction"],
@@ -95,7 +106,7 @@ class ShapeRenderer(nn.Module):
             metallic_init=shader_cfg["metallic_init"],
             light_exp_max=shader_cfg["light_exp_max"],
             refrac_freq=shader_cfg["refrac_freq"],
-            dtype=dtype, device=dev)
+            dtype=dtype, fused=self.fused, device=dev)
         self.inf_out = InfOutNetwork(device=dev)
         self.init_params(torch.Generator().manual_seed(seed))
         self.generator = torch.Generator(device=dev).manual_seed(seed)
@@ -109,12 +120,15 @@ class ShapeRenderer(nn.Module):
     def sdf(self, x):
         """SDF value only [..., 1]: the sampling sweeps, the occlusion march
         and the init-SDF regulariser.  Fused kernel behind the gate."""
-        if self.fused_sdf_value:
+        if self.fused or self.fused_sdf_value:
             return fused_sdf_apply(self.sdf_net, x, value_only=True)
         return self.sdf_net(x)[..., :1]
 
     def sdf_all(self, x):
-        """(sdf [N], feats [N,256], grad [N,3]) with a differentiable grad."""
+        """(sdf [N], feats [N,256], grad [N,3]) with a differentiable grad:
+        autograd's double backward, or K4/K5 behind ``fused_sdf``."""
+        if self.fused_sdf:
+            return fused_sdf_all(self.sdf_net, x)
         return sdf_value_feature_grad(self.sdf_net, x)
 
     def inv_s(self, x):

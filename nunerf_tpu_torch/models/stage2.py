@@ -41,11 +41,16 @@ from torch import nn
 from nunerf_tpu_torch.config import STAGE2_DEFAULTS, load_cfg, merge_cfg
 from nunerf_tpu_torch.device import resolve_device
 from nunerf_tpu_torch.fields.aux import IoRNetwork, ThicknessNetwork
-from nunerf_tpu_torch.fields.sdf import SDFNetwork, sdf_value_feature_grad
+from nunerf_tpu_torch.fields.sdf import (
+    SDFNetwork,
+    fused_sdf_all,
+    sdf_value_feature_grad,
+)
 from nunerf_tpu_torch.fields.shading import AppShadingNetwork
 from nunerf_tpu_torch.fields.variance import SingleVarianceNetwork
 from nunerf_tpu_torch.models.stage1 import PARAM_KEYS as STAGE1_PARAM_KEYS
 from nunerf_tpu_torch.models.stage1 import ShapeRenderer, masked_mean
+from nunerf_tpu_torch.ops.fused_mlp import use_fused_sdf
 from nunerf_tpu_torch.ops.geometry import normalize, safe_norm, safe_sqrt
 from nunerf_tpu_torch.ops.sampling import merge_z_vals, neus_upsample, sample_pdf
 from nunerf_tpu_torch.ops.srgb import linear_to_srgb, srgb_to_linear
@@ -98,8 +103,8 @@ class Stage2Renderer(nn.Module):
         self.device = resolve_device(device)
         dev = self.device
         self.cfg = merge_cfg(ZERO_THICK_DEFAULTS, cfg)
-        if self.cfg.get("fused_sdf"):
-            raise NotImplementedError("fused_sdf (K4/K5) is not ported yet")
+        fused_sdf = self.cfg.get("fused_sdf")
+        self.fused_sdf = use_fused_sdf() if fused_sdf is None else bool(fused_sdf)
         shader_cfg = self.cfg.get("shader_config") or {}
 
         # frozen stage-1 stack.  It inherits stage 2's precision choice: bf16
@@ -469,7 +474,10 @@ class Stage2Renderer(nn.Module):
 
     def _inner_sdf_alpha(self, points, dists, dirs, cos_anneal, step):
         """Inner NeuS alpha (renderer_zerothick.py:1490-1528)."""
-        sdf, feats, grads = sdf_value_feature_grad(self.sdf_inner, points)
+        if self.fused_sdf:  # K4/K5 in place of autograd's double backward
+            sdf, feats, grads = fused_sdf_all(self.sdf_inner, points)
+        else:
+            sdf, feats, grads = sdf_value_feature_grad(self.sdf_inner, points)
         inv_s = torch.clamp(self.var_inner(points), 1e-6, 1e6)[..., 0]
         freeze = self.cfg.get("freeze_inv_s_step")
         if freeze is not None and step < freeze:

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card against their plain versions.
+"""K1, K2, K3, K4 and K5 on the card against their plain versions.
 
 Needs an NVIDIA GPU with ``nvcc`` (the kernels are built at first use) and
 skips elsewhere.  The file imports no JAX, so it runs on a machine that has
@@ -9,7 +9,8 @@ only PyTorch:
 Tolerances, relative to each array's largest magnitude: f32 1e-5 forward and
 1e-4 backward (sums in another order); bf16 1e-2 forward and 3e-2 backward
 (hidden activations and cotangents rounded to bf16, where a rounding flips
-with the sum order).  K3 multiplies and adds without FMA contraction, one
+with the sum order); K4 is held as a forward (``y``, ``j``) and K5 as a
+backward (against autograd through K4's plain version).  K3 multiplies and adds without FMA contraction, one
 rounding an operation as the plain version: ``t``, the triangle index and
 ``hit`` are held exactly.
 """
@@ -30,6 +31,14 @@ SPECS = {
     # a predictor head: relu chain with a 3-wide linear output
     "relu": ((131, 64, 64, 64, 3), ("relu",) * 3 + ("none",),
              (False,) * 4, (1.0,) * 4),
+    # a material head: the input (feature + point) wider than the hidden layers
+    "relu259": ((259, 256, 256, 256, 3), ("relu",) * 3 + ("none",),
+                (False,) * 4, (1.0,) * 4),
+    # the NeRF++ trunk's shape: a post-activation skip, every layer relu
+    "trunk": ((84, 256, 256, 256), ("relu",) * 3, (False, False, True), (1.0,) * 3),
+    # a skip on layer 1 and on the last layer, a relu among the activations
+    "jac_skips": ((20, 64, 64, 64, 5), ("softplus100", "relu", "softplus100", "none"),
+                  (False, True, False, True), (1.0, 0.5, 1.0, 0.7)),
 }
 TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 1e-4,
        ("fwd", "bfloat16"): 1e-2, ("bwd", "bfloat16"): 3e-2}
@@ -64,7 +73,8 @@ def _assert_close(a, e, rtol, what):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name,n", [("sdf", 1000), ("relu", 333)])
+@pytest.mark.parametrize("name,n", [("sdf", 1000), ("relu", 333), ("relu259", 333),
+                                    ("trunk", 200)])
 def test_kernels_match_plain_version(cuda, name, n, compute_dtype):
     spec, x, g, flat = _make(name, n, compute_dtype, cuda)
     leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
@@ -75,7 +85,7 @@ def test_kernels_match_plain_version(cuda, name, n, compute_dtype):
     y = fm.chain_fwd_cuda(spec, x, flat)
     dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
     torch.cuda.synchronize()
-    assert fm.launches == {"chain_fwd": 1, "chain_bwd": 1}
+    assert fm.launches["chain_fwd"] == 1 and fm.launches["chain_bwd"] == 1
     _assert_close(y, y_ref.detach(), TOL[("fwd", compute_dtype)], "K1")
     for i, (a, r) in enumerate(zip((dx,) + dflat, leaves)):
         _assert_close(a, r.grad, TOL[("bwd", compute_dtype)], f"K2 grad {i}")
@@ -87,7 +97,7 @@ def test_autograd_function_runs_the_kernels(cuda):
     leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
     fm.reset_launches()
     torch.sum(fm.fused_chain_mlp(spec, *leaves) * g).backward()
-    assert fm.launches == {"chain_fwd": 1, "chain_bwd": 1}
+    assert fm.launches["chain_fwd"] == 1 and fm.launches["chain_bwd"] == 1
     ref = [a.clone().requires_grad_(True) for a in [x] + flat]
     torch.sum(fm.chain_mlp_reference(spec, *ref) * g).backward()
     for a, r in zip(leaves, ref):
@@ -95,6 +105,50 @@ def test_autograd_function_runs_the_kernels(cuda):
     # a CUDA tensor the kernel does not take raises: no plain fallback
     with pytest.raises(ValueError):
         fm.fused_chain_mlp(spec, x.double(), *flat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,n", [("sdf", 1000), ("jac_skips", 333), ("sdf", 64)])
+def test_jacobian_kernels_match_plain_version(cuda, monkeypatch, name, n, compute_dtype):
+    """K4 (y, j) and K5 (dx, every dW, every db); 40 rows a chunk, so that
+    the ragged cases also cross chunks whose last one is short."""
+    monkeypatch.setattr(fm, "JAC_CHUNK_ROWS", 40 * 16)
+    spec, x, gy, flat = _make(name, n, compute_dtype, cuda)
+    gj = torch.as_tensor(np.random.RandomState(9).randn(*x.shape).astype(np.float32),
+                         device=cuda)
+    leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
+    y_ref, j_ref = fm.chain_mlp_with_grad0_reference(spec, *leaves)
+    (torch.sum(y_ref * gy) + torch.sum(j_ref * gj)).backward()
+
+    fm.reset_launches()
+    y, j = fm.chain_jac_fwd_cuda(spec, x, flat)
+    dx, dflat = fm.chain_jac_bwd_cuda(spec, x, gy, gj, flat)
+    torch.cuda.synchronize()
+    assert fm.launches == {"chain_fwd": 0, "chain_bwd": 0, "chain_jac_fwd": 1,
+                           "chain_jac_bwd": 1}
+    _assert_close(y, y_ref.detach(), TOL[("fwd", compute_dtype)], "K4 y")
+    _assert_close(j, j_ref.detach(), TOL[("bwd", compute_dtype)], "K4 j")
+    for i, (a, r) in enumerate(zip((dx,) + dflat, leaves)):
+        _assert_close(a, r.grad, TOL[("bwd", compute_dtype)], f"K5 grad {i}")
+
+
+@pytest.mark.cuda
+def test_grad0_autograd_function_runs_the_kernels(cuda):
+    spec, x, gy, flat = _make("sdf", 200, "float32", cuda)
+    leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
+    fm.reset_launches()
+    y, j = fm.chain_mlp_with_grad0(spec, *leaves)
+    (torch.sum(y * gy) + torch.sum(j ** 2)).backward()
+    assert fm.launches["chain_jac_fwd"] == 1 and fm.launches["chain_jac_bwd"] == 1
+    ref = [a.clone().requires_grad_(True) for a in [x] + flat]
+    yr, jr = fm.chain_mlp_with_grad0_reference(spec, *ref)
+    (torch.sum(yr * gy) + torch.sum(jr ** 2)).backward()
+    for a, r in zip(leaves, ref):
+        _assert_close(a.grad, r.grad, TOL[("bwd", "float32")], "grad")
+    # a CUDA tensor the kernels do not take raises: no plain fallback
+    with pytest.raises(ValueError):
+        fm.chain_mlp_with_grad0(spec, x.double(), *flat)
 
 
 def _sphere_soup(n_lat, n_lon, radius=0.5, pad_to=256):

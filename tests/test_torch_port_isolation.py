@@ -59,6 +59,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         resolve_device("cuda")
     r = ShapeRenderer({"sdf_n_layers": 2}, device="cpu")
     assert r.device.type == "cpu" and not r.fused_sdf_value
+    assert not r.fused and not r.fused_sdf  # the opt-in gates default to off
     assert all(p.device.type == "cpu" for p in r.parameters())
 
     # stage 2: the scene and the renderer resolve the device the same way

@@ -328,10 +328,12 @@ def test_stage2_entry_points_and_refusals(setup):
     assert not scene.use_kernel
     with pytest.raises(ValueError, match="stage-1"):
         Stage2Renderer(CFG, scene, None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Stage2Renderer(dict(CFG, fused_sdf=True), scene, params["frozen"], device="cpu")
+    # the fused_sdf key is honoured: on the inner SDF, not on the frozen stage 1
+    rf = Stage2Renderer(dict(CFG, fused_sdf=True), scene, params["frozen"], device="cpu")
+    assert rf.fused_sdf and not rf.stage1.fused_sdf
     r = Stage2Renderer(dict(CFG, learn_absorption=True), scene, params["frozen"],
                        device="cpu")
+    assert not r.fused_sdf
     assert tuple(r.absorption.shape) == (3,) and float(r.absorption.detach()[0]) == -2.0
     assert r._inv_s_floor(500) is None
     r2 = Stage2Renderer(dict(CFG, inv_s_floor_max=400.0, inv_s_floor_start=100,

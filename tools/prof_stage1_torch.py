@@ -1,6 +1,7 @@
 """Where the time of the port's training steps goes, on one GPU.
 
     python3 tools/prof_stage1_torch.py [--stage 1|2|both] [--steps 3]
+                                       [--fused none|sdf|mlp]
                                        [--out runs/prof_stage1_torch.txt]
 
 Drives the full-width steps of ``chip_smoke.py`` under ``torch.profiler``
@@ -12,6 +13,13 @@ phase: wall ms per step, unprofiled ms per step measured just before, device
 busy ms per step (the union of the kernels' intervals), the idle share, the
 share of the hand-written kernels (K1/K2: ``chain_*``, K3: ``k3_*``), and the
 kernels that take the most device time.  The full tables go to ``--out``.
+
+``--fused sdf`` turns the ``fused_sdf`` gate on in both stages (K4/K5 in
+place of autograd's double backward), ``--fused mlp`` the ``fused_mlp`` gate
+of stage 1 (K1/K2 on the NeRF++ trunk and the shading heads).  Each gated
+phase is profiled right after the same phase with the gate off, and the
+report gives K4/K5's share of kernel time and the kernel count a step beside
+the plain run's.
 """
 
 import argparse
@@ -79,11 +87,15 @@ def profile_phase(label, run_step, steps, f):
         kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(kern.values())
     chain = sum(v for k, v in kern.items() if k.startswith("chain_"))
+    jac = sum(v for k, v in kern.items() if k.startswith("chain_jac_"))
     k3 = sum(v for k, v in kern.items() if k.startswith("k3_"))
     print(f"{label}: wall {wall:.1f} ms/step (profiled), {plain_wall:.1f} ms/step "
           f"unprofiled, device busy {busy:.1f} ms/step, idle share "
           f"{1 - busy / wall:.3f} (profiled) / {max(0.0, 1 - busy / plain_wall):.3f} "
-          f"(unprofiled), K1/K2 share of kernel time {chain / max(total, 1e-9):.3f}, "
+          f"(unprofiled), chain kernels (K1/K2/K4/K5 and their dW pass) "
+          f"{chain / steps / 1e3:.1f} ms/step, share of kernel time "
+          f"{chain / max(total, 1e-9):.3f}, of which the J-pass kernels of K4/K5 "
+          f"{jac / steps / 1e3:.1f} ms/step, "
           f"K3 {k3 / steps / 1e3:.3f} ms/step (share {k3 / max(total, 1e-9):.4f}), "
           f"{len(kernels) // steps} kernels/step")
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
@@ -97,6 +109,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=("1", "2", "both"), default="both")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--fused", choices=("none", "sdf", "mlp"), default="none")
     ap.add_argument("--out", default="runs/prof_stage1_torch.txt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -116,22 +129,29 @@ def main():
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         print(card, file=f)
+        gate = {"none": None, "sdf": "fused_sdf", "mlp": "fused_mlp"}[args.fused]
+        variants = [("", {})] + ([(f", {gate}", {gate: True})] if gate else [])
         if args.stage in ("1", "both"):
-            renderer = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
-            train = TrainStep(renderer, 5e-4)
             batch = batch_for(BENCH_CFG, dev)
             for step in (0, 25000):
-                profile_phase(f"step {step}", lambda: train(batch, step), args.steps, f)
-            del renderer, train
-        if args.stage in ("2", "both"):
+                for tag, extra in variants:
+                    renderer = ShapeRenderer(dict(BENCH_CFG, **extra), device=dev, seed=0)
+                    train = TrainStep(renderer, 5e-4)
+                    profile_phase(f"step {step}{tag}", lambda: train(batch, step),
+                                  args.steps, f)
+                    del renderer, train
+        if args.stage in ("2", "both") and gate != "fused_mlp":
             verts, tris = lumpy_sphere_mesh(MESH_RESOLUTION)
             scene = Scene((verts, tris), device=dev)
-            stage1 = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
-            renderer = Stage2Renderer(STAGE2_CFG, scene, stage1, device=dev, seed=1)
-            train = TrainStep(renderer, 5e-4)
             batch = stage2_batch(STAGE2_CFG["train_ray_num"], dev)
-            profile_phase(f"stage-2 step, {len(tris)} triangles",
-                          lambda: train(batch, 1000), args.steps, f)
+            for tag, extra in variants:
+                stage1 = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
+                renderer = Stage2Renderer(dict(STAGE2_CFG, **extra), scene, stage1,
+                                          device=dev, seed=1)
+                train = TrainStep(renderer, 5e-4)
+                profile_phase(f"stage-2 step, {len(tris)} triangles{tag}",
+                              lambda: train(batch, 1000), args.steps, f)
+                del stage1, renderer, train
     return 0
 
 
