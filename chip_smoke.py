@@ -12,7 +12,10 @@ Phases (any failure exits non-zero):
      backward) against their plain PyTorch versions at the main paths'
      shapes, with times after warm-up (CUDA events) beside each kernel's
      bound; K1/K2 also at a shading head's shape (259 inputs) and at the
-     NeRF++ trunk's, beside the plain modules; K3 on the full-width mesh,
+     NeRF++ trunk's, beside the plain modules; K1, K2, K4 and K5 at the shapes
+     that can break a tiled MMA (N = 1, 63, 65, 1000; inputs of 39, 84, 131
+     and 259; the 217-deep layer; last layers of 1, 3 and 257), f32 and bf16;
+     K3 on the full-width mesh,
      beside the port's brute sweep and tile-culled descent on the same rays;
   4. correctness: a small stage-1 step and a small stage-2 step on the card
      (kernels on) against the same steps on the CPU (plain versions), plain
@@ -147,6 +150,52 @@ def cuda_ms(fn, reps):
 
 def rel_err(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+
+def chain_errs(fm, spec, x, g, flat, got, t_b):
+    """K1 and K2 (``got`` = y, dx, dflat) against the plain version, every
+    error relative to the plain array's largest magnitude.
+
+    ``fwd`` and ``hidden``: y, and every hidden activation of the kernel's
+    stash, against the plain chain's.  ``bwd``: dx and every weight and bias
+    gradient, by the largest error over all rows, against autograd through the
+    plain chain taken at the kernel's own relu gates
+    (``chain_hidden_reference``): a relu whose pre-activation is within
+    rounding of 0 opens or closes with the order of the sums, and then its
+    unit's whole share of the row's gradients comes or goes; ``hidden`` holds
+    the gates themselves, since a gate that differs where the plain
+    pre-activation is not small shows there.  A chain without a relu has no
+    gates and ``bwd`` is against plain autograd.  Beside them, against
+    autograd at the plain chain's own gates: ``bwd_own_gates``, the rows in
+    which some gate differs (``flipped_rows``), the rows whose dx is off by
+    more than ``t_b`` (``outlier_rows``) and those of them in which no gate
+    differs (``stray_rows``: there the gates explain nothing)."""
+    y, dx, dflat = got
+    leaves = [x.clone().requires_grad_(True)] + [f.clone().requires_grad_(True)
+                                                 for f in flat]
+    y_ref, h_ref = fm.chain_hidden_reference(spec, *leaves)
+    ref = torch.autograd.grad(torch.sum(y_ref * g), leaves)
+    y_k, h_k = fm.chain_hidden_cuda(spec, x, flat)
+    torch.cuda.synchronize()
+    row = (dx - ref[0]).abs().amax(dim=1) / (ref[0].abs().max() + 1e-30)
+    outlier = row > t_b
+    e = {"fwd": rel_err(y, y_ref.detach()),
+         "hidden": max([rel_err(a, b.detach()) for a, b in zip(h_k, h_ref)], default=0.0),
+         "bwd_own_gates": max(rel_err(a, b) for a, b in zip((dx,) + dflat, ref)),
+         "outlier_rows": int(outlier.sum())}
+    if "relu" not in spec.acts:
+        e.update(bwd=e["bwd_own_gates"], flipped_rows=0, stray_rows=e["outlier_rows"])
+        return e
+    gates = fm.relu_gates(spec, h_k, y_k)
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for gate, a in zip(gates, h_ref + [y_ref]):
+        if gate is not None:
+            flipped |= ((a.detach() > 0) != (gate > 0)).any(dim=1)
+    y_g, _ = fm.chain_hidden_reference(spec, *leaves, gates=gates)
+    ref_g = torch.autograd.grad(torch.sum(y_g * g), leaves)
+    e.update(bwd=max(rel_err(a, b) for a, b in zip((dx,) + dflat, ref_g)),
+             flipped_rows=int(flipped.sum()), stray_rows=int((outlier & ~flipped).sum()))
+    return e
 
 
 def batch_for(cfg, dev):
@@ -375,6 +424,7 @@ def phase_kernels_jac(renderer, dev):
         b5, by5 = bound_ms(3 * jac_flops(spec, n),
                            4 * (3 * x.numel() + gy.numel()) + 2 * w_bytes, cd)
         shape = f"full SDF chain {spec.dims}, N={n}, bf16"
+        floor_ms, floor_bytes = stash_floor_ms(spec, n)
         rec["K4"] = dict(max_abs_err=max(float((y - y_ref).abs().max()),
                                          float((j - j_ref).abs().max())),
                          max_rel_err=max(e_y, e_j), tol=t_g, ms=ms4, plain_ms=plain4,
@@ -385,8 +435,120 @@ def phase_kernels_jac(renderer, dev):
         log(f"K4 N={n} bf16: {ms4:.3f} ms, plain {plain4:.3f} ms, bound {b4:.4f} ms "
             f"({by4}); K5: {ms5:.3f} ms, plain (autograd through K4's plain version) "
             f"{plain5:.3f} ms, bound {b5:.4f} ms ({by5}); peak scratch of the two "
-            f"{scratch:.2f} GiB")
+            f"{scratch:.2f} GiB; K5's stash traffic floor {floor_ms:.3f} ms "
+            f"({floor_bytes / 1e9:.2f} GB written once and read once a consuming pass)")
     return rec
+
+
+def stash_floor_ms(spec, n):
+    """The least time K5's pass structure could take on its scratch stashes
+    (bf16 route): every stash element written once and read once by each pass
+    that consumes it, at the card's memory rate.  h is written by pass 1 and
+    read by the J-pass, its reverse, the data pass and dW; q (f32) written by
+    the J-pass, read by its reverse; p and qbar (bf16) written there, read by
+    dW; dbar (f32) written there, read by the data pass; zs (bf16, all
+    layers) written by the data pass, read by dW."""
+    from nunerf_tpu_torch.ops.fused_mlp import mma_layout
+    lay = mma_layout(spec)
+    per_row = lay.psum_hidden * (2 * 5 + 4 * 2 + 2 * 2 + 4 * 2 + 2 * 2) + lay.psum * 2 * 2
+    return n * per_row / PEAK_BYTES * 1e3, n * per_row
+
+
+def phase_kernels_odd(renderer, dev):
+    """K1, K2, K4 and K5 against their plain versions at the shapes that can
+    break a tiled MMA: ragged and single-row tiles (N = 1, 63, 65, 1000), the
+    39-, 84-, 131- and 259-wide inputs, the 217-deep layer after the NeuS
+    skip, last layers of 1, 3 and 257 columns; f32 and bf16."""
+    from nunerf_tpu_torch.fields.mlp import Predictor
+    from nunerf_tpu_torch.fields.sdf import _sdf_chain
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    with torch.no_grad():
+        spec_full, flat_full = _sdf_chain(renderer.sdf_net, dev)
+        flat_full = [f.detach().contiguous() for f in flat_full]
+        head = Predictor(259, 3, dtype=torch.bfloat16, device=dev)
+        head.reset_parameters(gen)
+        spec_head, flat_head = head.chain()
+    nw = fm.n_weights(spec_full)
+    flat_val = list(flat_full)
+    flat_val[nw - 1] = flat_full[nw - 1][:, :1].contiguous()
+    flat_val[-1] = flat_full[-1][:, :1].contiguous()
+    spec_val = fm.ChainSpec(spec_full.dims[:-1] + (1,), spec_full.acts,
+                            spec_full.has_skip, spec_full.scales)
+    def random_chain(dims, skip):
+        n_l = len(dims) - 1
+        spec = fm.ChainSpec(dims, ("relu",) * (n_l - 1) + ("none" if dims[-1] == 3 else "relu",),
+                            skip, (1.0,) * n_l)
+        flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev)
+                for s in fm.flat_weight_shapes(spec)]
+        return spec, flat + [(torch.randn((1, d), generator=gen) * 0.1).to(dev)
+                             for d in dims[1:]]
+
+    # the trunk's 84-wide input and post-activation skip on a 3-layer cut (the
+    # full trunk is held at N = 131,072 by phase_kernels_heads)
+    chains = [("sdf value", spec_val, flat_val),
+              ("sdf full", spec_full, flat_full),
+              ("head 259", spec_head, flat_head),
+              ("relu 131", *random_chain((131, 256, 256, 256, 3), (False,) * 4)),
+              ("NeRF++ trunk cut", *random_chain((84, 256, 256, 256), (False, False, True)))]
+    worst, rows, own, failed = {}, {}, {}, []
+    for what, spec0, flat in chains:
+        flat = [f.detach().float().contiguous() for f in flat]
+        n_failed = len(failed)
+        for n in (1, 63, 65, 1000):
+            if spec0.dims[0] == 39:
+                pts = (torch.rand((n, 3), generator=gen) * 2 - 1).to(dev)
+                x = renderer.sdf_net.embed(pts).float().contiguous()
+            else:
+                x = torch.randn((n, spec0.dims[0]), generator=gen).to(dev)
+            g = torch.randn((n, spec0.dims[-1]), generator=gen).to(dev)
+            gj = torch.randn((n, spec0.dims[0]), generator=gen).to(dev)
+            for cd in ("float32", "bfloat16"):
+                spec = fm.ChainSpec(spec0.dims, spec0.acts, spec0.has_skip,
+                                    spec0.scales, compute_dtype=cd)
+                t_f, t_b = CHAIN_TOL[("fwd", cd)], CHAIN_TOL[("bwd", cd)]
+                y = fm.chain_fwd_cuda(spec, x, flat)
+                dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
+                torch.cuda.synchronize()
+                e = chain_errs(fm, spec, x, g, flat, (y, dx, dflat), t_b)
+                for k in ("flipped_rows", "outlier_rows", "stray_rows"):
+                    rows[(k, cd)] = rows.get((k, cd), 0) + e[k]
+                own[cd] = max(own.get(cd, 0.0), e["bwd_own_gates"])
+                errs = {"K1": (max(e["fwd"], e["hidden"]), t_f), "K2": (e["bwd"], t_b)}
+                if e["stray_rows"]:
+                    failed.append(f"K2 {what} {spec.dims} N={n} {cd}: dx of "
+                                  f"{e['stray_rows']} rows is off by more than {t_b:.0e} "
+                                  "and no relu gate differs in them")
+                if what == "sdf full":
+                    leaves = [x.clone().requires_grad_(True)] + [
+                        f.clone().requires_grad_(True) for f in flat]
+                    yr, jr = fm.chain_mlp_with_grad0_reference(spec, *leaves)
+                    ref5 = torch.autograd.grad(torch.sum(yr * g) + torch.sum(jr * gj), leaves)
+                    y4, j4 = fm.chain_jac_fwd_cuda(spec, x, flat)
+                    dx5, dflat5 = fm.chain_jac_bwd_cuda(spec, x, g, gj, flat)
+                    torch.cuda.synchronize()
+                    errs["K4"] = (max(rel_err(y4, yr.detach()) * t_b / t_f,
+                                      rel_err(j4, jr.detach())), t_b)
+                    errs["K5"] = (max(rel_err(a, b) for a, b in zip((dx5,) + dflat5, ref5)),
+                                  t_b)
+                for k, (e_k, t) in errs.items():
+                    worst[(k, cd)] = max(worst.get((k, cd), 0.0), e_k / t)
+                    if not e_k <= t:
+                        failed.append(f"{k} {what} {spec.dims} N={n} {cd}: rel err "
+                                      f"{e_k:.2e} over its tolerance {t:.0e}")
+        log(f"odd shapes, {what} {spec0.dims}, N=1/63/65/1000, f32 and bf16: "
+            f"{'ok' if len(failed) == n_failed else 'FAIL'}")
+    log("odd shapes: worst error as a share of its tolerance " +
+        ", ".join(f"{k} {cd} {v:.2f}" for (k, cd), v in sorted(worst.items())))
+    for cd in ("float32", "bfloat16"):
+        log(f"odd shapes, {cd}: a relu gate differs from the plain chain's in "
+            f"{rows[('flipped_rows', cd)]} rows; against autograd at the plain chain's "
+            f"own gates K2's worst rel err is {own[cd]:.2e} and dx is off by more than "
+            f"{CHAIN_TOL[('bwd', cd)]:.0e} in {rows[('outlier_rows', cd)]} rows, "
+            f"{rows[('stray_rows', cd)]} of them without a differing gate")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def phase_kernels_heads(dev):
@@ -413,25 +575,14 @@ def phase_kernels_heads(dev):
                  ("NeRF++ trunk", nerf, *nerf.trunk_chain(),
                   posenc(pts4, nerf.multires).contiguous())]
 
-    # Backward tolerances of these relu chains.  A relu gate whose
-    # pre-activation is within rounding of 0 flips with the order of the sums,
-    # and a flipped gate changes its row's whole contribution: at 131,072 rows
-    # x 2,048 units about 15 gates flip in f32 (the plain f32 version sits as
-    # far from a float64 evaluation as the kernel does: dx off by 8e-2 of its
-    # scale in 13-16 rows, the weight gradients by up to 7e-3).  So f32 holds
-    # dx at the 99.9th percentile of its rows to 1e-4 and every weight
-    # gradient to 1e-2; the strict f32 check of the same shapes is the card
-    # test's, at a few hundred rows (1e-4).  In bf16 most rows have a flipped
-    # gate: the 4-layer head holds 3e-2 on everything, the 8-layer trunk 1e-1.
-    bwd_tol = {"head 259": CHAIN_TOL[("bwd", "bfloat16")], "NeRF++ trunk": 1e-1}
-
-    def bwd_errs(got, ref, cd):
-        """(dx error, worst weight-gradient error) relative to each scale."""
-        row = (got[0] - ref[0]).abs().amax(dim=1) / (ref[0].abs().max() + 1e-30)
-        e_dx = float(torch.quantile(row, 0.999) if cd == "float32" else row.max())
-        return e_dx, max(rel_err(a, b) for a, b in zip(got[1:], ref[1:]))
-
-    out = []
+    # Backward errors of these relu chains are taken at the kernel's own gates
+    # (``chain_errs``).  At 131,072 rows x 768-2,048 units some gates always
+    # differ from the plain chain's: in f32 with the order of the sums (the
+    # plain f32 version sits as far from a float64 evaluation as the kernel
+    # does there), in bf16 also where a hidden activation rounds the other
+    # way.  Against the same gates every row of dx and every weight gradient
+    # is held by its largest error, to the chain tolerances of both dtypes.
+    out, failed = [], []
     for what, mod, spec16, flat, x in cases:
         flat = [f.detach().contiguous() for f in flat]
         x_in = x if mod is head else pts4
@@ -442,22 +593,19 @@ def phase_kernels_heads(dev):
             y = fm.chain_fwd_cuda(spec, x, flat)
             dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
             torch.cuda.synchronize()
-            leaves = [x.clone().requires_grad_(True)] + [f.clone().requires_grad_(True)
-                                                         for f in flat]
-            y_ref = fm.chain_mlp_reference(spec, *leaves)
-            ref = torch.autograd.grad(torch.sum(y_ref * g), leaves)
-            e_f = rel_err(y, y_ref.detach())
-            e_dx, e_w = bwd_errs((dx,) + dflat, ref, cd)
-            e_b = max(e_dx, e_w)
-            t_f = CHAIN_TOL[("fwd", cd)]
-            t_dx, t_w = (1e-4, 1e-2) if cd == "float32" else (bwd_tol[what],) * 2
-            ok = e_f <= t_f and e_dx <= t_dx and e_w <= t_w
-            log(f"K1/K2 {what} {spec.dims} {cd} N={n}: rel err fwd {e_f:.2e} (tol "
-                f"{t_f:.0e}), dx {e_dx:.2e} (tol {t_dx:.0e}), weight gradients "
-                f"{e_w:.2e} (tol {t_w:.0e}) {'ok' if ok else 'FAIL'}")
+            t_f, t_b = CHAIN_TOL[("fwd", cd)], CHAIN_TOL[("bwd", cd)]
+            e = chain_errs(fm, spec, x, g, flat, (y, dx, dflat), t_b)
+            e_f, e_b = max(e["fwd"], e["hidden"]), e["bwd"]
+            ok = e_f <= t_f and e_b <= t_b and e["stray_rows"] == 0
+            log(f"K1/K2 {what} {spec.dims} {cd} N={n}: rel err y {e['fwd']:.2e}, hidden "
+                f"activations {e['hidden']:.2e} (tol {t_f:.0e}); dx and weight gradients "
+                f"at the kernel's gates {e_b:.2e} (tol {t_b:.0e}); a gate differs from "
+                f"the plain chain's in {e['flipped_rows']} rows; against autograd at the "
+                f"plain chain's own gates {e['bwd_own_gates']:.2e}, dx off by more than "
+                f"{t_b:.0e} in {e['outlier_rows']} rows, {e['stray_rows']} of them "
+                f"without a differing gate {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"K1/K2 disagree with the plain chain at {what}")
-            del leaves, y_ref, ref
+                failed.append(f"{what} {cd}")
         # timed in bf16, the loop's last spec, as the step runs these chains
 
         def module_fwd():
@@ -482,6 +630,8 @@ def phase_kernels_heads(dev):
         log(f"K1 {what}: {k1:.3f} ms (bound {b1:.4f}), plain module forward {m1:.3f} "
             f"ms; K2: {k2:.3f} ms (bound {b2:.4f}), plain module forward+backward "
             f"{m2:.3f} ms")
+    if failed:
+        raise AssertionError(f"K1/K2 disagree with the plain chain at {failed}")
     return out
 
 
@@ -830,6 +980,7 @@ def main():
     renderer = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
     rec = phase_kernels(renderer, dev)
     rec.update(phase_kernels_jac(renderer, dev))
+    phase_kernels_odd(renderer, dev)
     del renderer
     head_shapes = phase_kernels_heads(dev)
     rec["K3"] = phase_kernel_k3(scene, dev)

@@ -9,34 +9,30 @@
 //
 // Layer model, per layer l:   z = (h @ W_h + x0 @ W_x) * scale + b,  h = act(z)
 // with act in {none, relu, softplus(beta=100)}.  Matmul operands are in the
-// compute dtype (f32, or bf16 values held in f32 registers: a product of two
-// bf16 values is exact in f32, so f32 FMAs give the same products as a bf16
-// tensor-core MMA with f32 accumulation).  Hidden activations are rounded to
+// compute dtype (f32, or bf16: a product of two bf16 values is exact in f32,
+// so f32 FMAs on bf16 values and a bf16 tensor-core MMA with f32 accumulation
+// form the same products).  Hidden activations are rounded to
 // the compute dtype after each layer, the last layer stays f32, rows >= n are
 // masked - as the TPU kernel's _forward_tile does.
 //
-// Bound on the H100: operations.  The value-only SDF chain does 459,008 MACs
-// a point and reads 39 floats and writes 1, so at 131,072 points it is ~120
-// GFLOP against ~21 MB of I/O: ~0.12 ms at the bf16 tensor-core peak, ~1.8 ms
-// at the 67 TFLOP/s f32 peak that these FMA loops can at best reach.
+// Two routes, chosen by round_bf16 (the wrapper's compute_dtype) and by
+// nothing else; a chain a route cannot take is refused, never sent to the
+// other one.
 //
-// Design.  The TPU kernel keeps whole activation stashes in 100 MiB of VMEM
-// and walks a sequential grid.  A Hopper block has at most 227 KB of shared
-// memory and blocks run in no order, so:
-//   * K1: one block per 64-row tile; the current activation tile [64, <=256]
-//     and x0 (for the skip) live in shared memory; weights stream from L2
-//     (a 256x256 f32 layer is 256 KB, the whole chain < 3 MB, L2 is 50 MB).
-//     Each thread owns a 16-row x 4-column register tile of the layer output
-//     and runs a plain FMA loop: the weight value it loads is reused across
-//     16 rows, the activation value is a shared-memory broadcast.
-//   * K2: a 9-layer f32 stash is ~9 KB a row - too large for shared memory at
-//     useful tile sizes - so the wrapper allocates a global scratch stash.
-//     Pass 1 (the K1 loop) recomputes the forward into it; pass 2 walks the
-//     layers downwards per tile (gz = g * act'(a), db per-tile partials, dx,
-//     and the rounded gz into a second stash); pass 3 computes every dW as
-//     per-split partials of H^T @ GZ over row ranges.  Nothing carries across
-//     blocks: the partials are summed afterwards (the TPU 'partial' mode, not
-//     its 'accum' mode).
+// The f32 route (round_bf16 == 0): plain FMA loops on f32 registers
+// (mm_tile), f32 weights streamed from L2, f32 scratch stashes.  It is bound
+// by the card's f32 rate outside the tensor cores and reaches about a
+// quarter of it; it is the exact route (no TF32 anywhere), the one that
+// small steps on the card are held against the CPU with.
+//   * K1: one block per 64-row tile; the activation tile [64, <=256] and x0
+//     (for the skip) live in shared memory; each thread owns a 16-row x
+//     4-column register tile of the layer output.
+//   * K2: pass 1 (the K1 loop) recomputes the forward into a global scratch
+//     stash; pass 2 walks the layers downwards per tile (gz = g * act'(a), db
+//     per-tile partials, dx, and the rounded gz into a second stash); pass 3
+//     computes every dW as per-split partials of H^T @ GZ over row ranges.
+//     Nothing carries across blocks: the partials are summed afterwards (the
+//     TPU 'partial' mode, not its 'accum' mode).
 //   * K4: y = chain(x) and j = d y[:,0] / dx.  Pass 1 is the K1 loop into the
 //     scratch stash (it also writes y); pass 2 (chain_jac_down_kernel) walks
 //     the layers down per tile with the channel-0 cotangent q in shared
@@ -48,9 +44,57 @@
 //     the rounded qbar.  Pass 4 is K2's pass 2 with
 //     zbar = hbar act' + dbar act'' (act'' of softplus100 = 100 d (1 - d)),
 //     writing the rounded zs over dbar.  Every dW is then an A^T B over row
-//     splits (chain_dw_kernel): h_prev^T zs and s qbar^T p.
-//     Bound: operations, 2x (K4) and 6x (K5) the forward's MACs.
-// mma.sync / wgmma tensor-core tiles are later work.
+//     splits (chain_dw_kernel): h_prev^T zs and s qbar^T p, a launch each.
+//
+// The bf16 route (round_bf16 == 1): the same passes on tensor-core tiles.
+// Every matrix operand is a bf16 value there (the weights rounded once by
+// the wrapper, x0, h, p, zs, qbar and gj rounded where the TPU kernel rounds
+// them), so mma.sync.m16n8k16 with f32 accumulation forms the same products
+// and only the order of the sums changes.  The matrix work itself is small
+// for this card (the value-only SDF chain at 131,072 points: 120 GFLOP,
+// 0.12 ms at the bf16 peak), so each pass is bound by what surrounds it, and
+// the design goes after that:
+//   * Weights are packed as real bf16, each matrix and its transpose,
+//     zero-padded so that every depth and width is a multiple of 16
+//     (MmaLayout in ops/fused_mlp.py): no masks inside a k-step, 16-byte
+//     cp.async pieces, aligned ldmatrix rows.
+//   * A block is 64 rows x 8 warps, each warp a [32, 64] piece of the layer
+//     output: 64 f32 accumulators a thread, the whole layer output in
+//     registers before the epilogue runs.  So one bf16 activation tile
+//     [64][256 + 8] (33 KB, rows 528 bytes apart: conflict-free ldmatrix)
+//     serves as input and output, a barrier between; with the weight stages
+//     a block takes 90-110 KB and two blocks share an SM.
+//   * The weights of a 64-row tile come from L2 (1.07 MB of bf16 for the SDF
+//     chain, every tile again): slices of 32 rows, cp.async into three
+//     stages, two slices in flight behind the one the tensor cores work on,
+//     one barrier a slice; the first two slices of the NEXT layer are started
+//     before the epilogue (scale, bias, activation, rounding, bf16 stores),
+//     so the softplus of 16,384 outputs hides their latency.
+//   * K1's floor is that epilogue (expf + log1pf on every hidden output) and
+//     the L2 stream, not the 0.12 ms of matrix work.
+//   * K4/K5 are bound by the scratch stashes that carry a layer's values
+//     from pass to pass through device memory.  They are stored in the
+//     narrowest exact type: h, p, zs and the stored qbar are bf16-exact and
+//     go as bf16 (padded rows, zero pad columns, so that the dW kernel reads
+//     them as they lie); q and dbar are unrounded and stay f32, which is why
+//     p and zs get stashes of their own here instead of overwriting them.
+//     The J-pass keeps only p in shared memory: q arrives in the
+//     accumulators and is stored and turned into p by the epilogue; the
+//     reverse pass and the data pass work the same way, and take their
+//     column sums (db, the seed's share of the last dW) from the
+//     accumulators by warp shuffles.
+//   * dW: one launch a chunk for every weight of the chain
+//     (chain_dw_mma_kernel), driven by a table of [128, 128] output tiles x
+//     row splits; a block sums both of K5's terms into one set of
+//     accumulators (s qbar^T p first, then the scale, then h_prev^T zs); both
+//     operands are row-major [rows, width] stashes, read by transposed
+//     ldmatrix from 64-row slices staged by cp.async (zero-filled past the
+//     split's end).  Per-split partials and one sum outside, no atomics: the
+//     result is the same from run to run.
+//   * K2's data pass multiplies by the UNROUNDED f32 W^T, as the TPU kernel
+//     does.  That product is not a bf16 product, so it stays on the f32 FMA
+//     kernel (reading the bf16 stash, writing a bf16 gz stash), between a
+//     tensor-core pass 1 and a tensor-core dW.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,6 +118,11 @@ struct Layer {
   int b;          // offset of the bias in the bias buffer
   int act;
   int stash;      // sum of the output widths of the layers before this one
+  // the bf16 route's padded layout (every width and depth a multiple of 16)
+  int inp, outp;  // padded input and output widths
+  int pwh, pwx;   // offsets of W_h [inp,outp] and W_x [Ep,outp] in the bf16 pack
+                  // (their transposes sit at the same offsets in the other pack)
+  int pstash;     // sum of the padded output widths of the layers before this one
   float scale;
 };
 
@@ -82,6 +131,10 @@ struct Chain {
   int x0_alias;   // no layer past the first reads x0: K1 keeps it in h's storage
   Layer l[MAXL];
 };
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __host__ __forceinline__ int pad16(int v) { return (v + 15) & ~15; }
 
 __device__ __forceinline__ float round_c(float v, int rb) {
   return rb ? __bfloat162float(__float2bfloat16_rn(v)) : v;
@@ -141,7 +194,9 @@ __device__ __forceinline__ void zero_acc(float (&acc)[RPT][CPT]) {
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 }
 
-// K1.  out [n, d_L] f32; stash (optional) gets every layer's activation.
+// K1 on the f32 route (nothing is rounded: the bf16 route has kernels of its
+// own below).  out [n, d_L] f32; stash (optional) gets every layer's
+// activation.
 // Shared memory: TR * (HW + E) floats, or TR * max(HW, E) when x0 is read by
 // the first layer only (x0_alias: every read of x0 precedes the first write
 // of h).  A 259-wide input of a skip-free head then takes 66 KB a block and
@@ -153,7 +208,7 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ W,
                  const float* __restrict__ Bs, float* __restrict__ out,
                  float* __restrict__ stash, int n, Chain ch) {
   extern __shared__ float smem[];
-  const int E = ch.E, HW = ch.hw, rb = ch.round_bf16;
+  const int E = ch.E, HW = ch.hw;
   float* h = smem;                                  // [TR][HW]
   float* x0 = ch.x0_alias ? smem : smem + TR * HW;  // [TR][E]
   const int t = threadIdx.x, tx = t & 63, ty = t >> 6;
@@ -162,7 +217,7 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ W,
   for (int idx = t; idx < TR * E; idx += NT) {
     const int r = idx / E, c = idx - r * E;
     const long g = row0 + r;
-    x0[idx] = g < n ? round_c(x[g * E + c], rb) : 0.f;
+    x0[idx] = g < n ? x[g * E + c] : 0.f;
   }
   __syncthreads();
 
@@ -186,7 +241,7 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ W,
         if (c >= Ly.out) continue;
         float z = acc[i][j];
         if (Ly.scale != 1.f) z *= Ly.scale;
-        const float a = round_c(act_f(Ly.act, z + Bs[Ly.b + c]), rb);
+        const float a = act_f(Ly.act, z + Bs[Ly.b + c]);
         h[r * HW + c] = a;
         if (st && g < n) st[g * Ly.out + c] = a;
       }
@@ -229,14 +284,18 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ W,
 // read and later written by one thread) they are rounded, and
 //   gz = g * act'(a_l) + dbar_l * act''(a_l).
 // dx is accumulated MAXW columns at a time (the input may be wider).
+// With round_bf16 (K2 on the bf16 route) the activation stash and gzs are bf16 in the
+// padded layout (row stride outp, pad columns zero: the dW kernel's operands)
+// and the last layer's f32 activation is read from ylast, the forward's
+// output; the product itself stays f32 here, W^T being unrounded.
 __global__ void __launch_bounds__(NT, 2)
-chain_bwd_data_kernel(const float* __restrict__ stash,
+chain_bwd_data_kernel(const void* __restrict__ stash,
                       const float* __restrict__ WT,
                       const float* __restrict__ gin, float* __restrict__ dx,
-                      float* gzs, const float* dbar, float* __restrict__ dbp,
-                      int n, Chain ch) {
+                      void* gzs, const float* dbar, float* __restrict__ dbp,
+                      const float* __restrict__ ylast, int n, Chain ch) {
   extern __shared__ float smem[];
-  const int E = ch.E, GW = ch.gw, rb = ch.round_bf16;
+  const int E = ch.E, GW = ch.gw, rb = ch.round_bf16, bf = rb;
   float* gb = smem;             // [TR][GW]
   float* dxs = smem + TR * GW;  // [TR][E]
   const int t = threadIdx.x, tx = t & 63, ty = t >> 6;
@@ -257,14 +316,20 @@ chain_bwd_data_kernel(const float* __restrict__ stash,
   for (int l = ch.L - 1; l >= 0; --l) {
     const Layer& Ly = ch.l[l];
     const int w = Ly.out;
-    const float* a = stash + (size_t)n * Ly.stash;
-    float* gz = gzs + (size_t)n * Ly.stash;
+    const int sw = bf ? Ly.outp : w;  // row stride of the stashes
+    const size_t sbase = (size_t)n * (bf ? Ly.pstash : Ly.stash);
+    const float* a = (const float*)stash + sbase;
+    const bf16* ab = (const bf16*)stash + sbase;
     const float* db2 =
         (dbar && Ly.act == ACT_SP100) ? dbar + (size_t)n * Ly.stash : nullptr;
     for (int idx = t; idx < TR * w; idx += NT) {
       const int r = idx / w, c = idx - r * w;
       const long g = row0 + r;
-      const float av = g < n ? a[g * w + c] : 0.f;
+      float av = 0.f;
+      if (g < n)
+        av = !bf ? a[g * w + c]
+                 : (l == ch.L - 1 ? ylast[g * w + c]
+                                  : __bfloat162float(ab[g * sw + c]));
       const float d = dact_from_a(Ly.act, av);
       float v = gb[r * GW + c] * d;
       if (db2 && g < n) v += db2[g * w + c] * d2act_from_d(Ly.act, d);
@@ -277,14 +342,19 @@ chain_bwd_data_kernel(const float* __restrict__ stash,
       dbp[(size_t)blockIdx.x * ch.bsum + Ly.b + c] = s;
     }
     __syncthreads();
-    for (int idx = t; idx < TR * w; idx += NT) {
-      const int r = idx / w, c = idx - r * w;
+    for (int idx = t; idx < TR * sw; idx += NT) {
+      const int r = idx / sw, c = idx - r * sw;
       const long g = row0 + r;
-      float v = gb[r * GW + c];
-      if (Ly.scale != 1.f) v *= Ly.scale;
-      v = round_c(v, rb);
-      gb[r * GW + c] = v;
-      if (g < n) gz[g * w + c] = v;
+      float v = 0.f;
+      if (c < w) {
+        v = gb[r * GW + c];
+        if (Ly.scale != 1.f) v *= Ly.scale;
+        v = round_c(v, rb);
+        gb[r * GW + c] = v;
+      }
+      if (g >= n) continue;
+      if (bf) ((bf16*)gzs)[sbase + g * sw + c] = __float2bfloat16_rn(v);
+      else ((float*)gzs)[sbase + g * w + c] = v;
     }
     __syncthreads();
     // dx += gz @ W_x^T (skip) and, at layer 0, gz @ W_h^T: both [w, E]
@@ -376,7 +446,8 @@ chain_dw_kernel(const float* __restrict__ H, const float* __restrict__ GZ,
     }
 }
 
-// K4 pass 2 (also K5 pass 2): the J-pass, the reverse sweep for output
+// K4 pass 2 (also K5 pass 2) on the f32 route, where round() below is the
+// identity: the J-pass, the reverse sweep for output
 // channel 0, from the last (linear) layer down.  q starts as the f32 column 0
 // of the last W_h times its scale (wl_h, the unrounded last W_h [in, out]; on
 // a last-layer skip column 0 of wl_x seeds j).  Below it, per layer:
@@ -391,7 +462,7 @@ chain_jac_down_kernel(const float* __restrict__ stash,
                       const float* __restrict__ wl_x, float* __restrict__ jout,
                       float* __restrict__ qst, int n, Chain ch) {
   extern __shared__ float smem[];
-  const int E = ch.E, HW = ch.hw, rb = ch.round_bf16;
+  const int E = ch.E, HW = ch.hw;
   float* qb = smem;            // [TR][HW]
   float* js = smem + TR * HW;  // [TR][E]
   const int t = threadIdx.x, tx = t & 63, ty = t >> 6;
@@ -422,7 +493,7 @@ chain_jac_down_kernel(const float* __restrict__ stash,
       const float q = qb[r * HW + c];
       const float av = g < n ? a[g * w + c] : 0.f;
       if (qs && g < n) qs[g * w + c] = q;
-      qb[r * HW + c] = round_c(q * dact_from_a(Ly.act, av), rb);
+      qb[r * HW + c] = q * dact_from_a(Ly.act, av);
     }
     __syncthreads();
     if (Ly.wx >= 0) {
@@ -457,7 +528,8 @@ chain_jac_down_kernel(const float* __restrict__ stash,
   }
 }
 
-// K5 pass 3: the reverse of the J-pass, from layer 0 up to the last hidden
+// K5 pass 3 on the f32 route (round() is the identity): the reverse of the
+// J-pass, from layer 0 up to the last hidden
 // layer.  qbar starts as gj (the cotangent of what layer 0's transposed
 // product put into j).  Per layer, with q_l from the q stash:
 //   pbar = s (round(qbar) W_h + round(gj) W_x);
@@ -473,7 +545,7 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
                     float* __restrict__ dbar, float* __restrict__ qbs,
                     float* __restrict__ colp, int n, Chain ch) {
   extern __shared__ float smem[];
-  const int E = ch.E, rb = ch.round_bf16;
+  const int E = ch.E;
   const int QW = ch.hw > E ? ch.hw : E;
   float* qb = smem;             // [TR][QW]
   float* gjs = smem + TR * QW;  // [TR][E]
@@ -485,7 +557,7 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
   for (int idx = t; idx < TR * E; idx += NT) {
     const int r = idx / E, c = idx - r * E;
     const long g = row0 + r;
-    const float v = g < n ? round_c(gj[g * E + c], rb) : 0.f;
+    const float v = g < n ? gj[g * E + c] : 0.f;
     qb[r * QW + c] = v;
     gjs[idx] = v;
   }
@@ -525,11 +597,10 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
           av = a[g * w + c];
         }
         const float d = dact_from_a(Ly.act, av);
-        float qn = pbar * d;
-        if (!top) qn = round_c(qn, rb);
+        const float qn = pbar * d;
         qb[r * QW + c] = qn;
         if (g < n) {
-          qs[g * w + c] = round_c(q * d, rb);
+          qs[g * w + c] = q * d;
           dbl[g * w + c] = pbar * q;
           if (!top) qbl[g * w + c] = qn;
         }
@@ -544,9 +615,1014 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
   }
 }
 
+// ===================================================================
+// The bf16 route: tensor-core tiles (mma.sync m16n8k16, f32 accumulation)
+// ===================================================================
+//
+// Every operand is a bf16 value, so the products are the ones the f32 FMA
+// loops above would form; only the order of the f32 sums differs.
+
+// Switches for timing alone, set with -D by tools/prof_chain_kernels.py
+// --variants and by nothing else: KS and NSTAGE give another pipeline shape;
+// PROF_NO_MMA, PROF_NO_CP_ASYNC, PROF_NO_LDMATRIX, PROF_NO_ACT and
+// PROF_NO_PREFETCH each compile one piece of this route out (such a build
+// computes nothing right: what the piece costs is the time that goes with it).
+#ifndef KS
+#define KS 32            // depth of a staged weight slice
+#endif
+#define AS (MAXW + 8)    // row stride (bf16) of an activation tile: 528 bytes,
+                         // so the 8 rows of an ldmatrix hit 8 different
+                         // 16-byte bank groups
+#define WSS (MAXW + 8)   // row stride of a staged weight slice
+#define WSTAGE (KS * WSS)
+#ifndef NSTAGE
+#define NSTAGE 3         // weight stages: NSTAGE - 1 slices in flight behind the one at work
+#endif
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared without passing through registers; with
+// bytes == 0 the destination is filled with zeros and src is not read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+#ifndef PROF_NO_CP_ASYNC
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most the N newest groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+#ifndef PROF_NO_LDMATRIX
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+#endif
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+#ifndef PROF_NO_LDMATRIX
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+#endif
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+#ifndef PROF_NO_MMA
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#endif
+}
+
+// The block's 8 warps tile a [64, 256] product as 2 x 4 warps of [32, 64]:
+// a warp owns 2 m-tiles x 8 n-tiles of m16n8, 64 f32 accumulators a thread.
+// Accumulator e of tile (mi, ni) sits at
+//   row 32 wr + 16 mi + 8 (e >> 1) + lane / 4,
+//   column 64 wc + 8 ni + 2 (lane % 4) + (e & 1).
+typedef float Acc[2][8][4];
+
+// The epilogues' activation math.  Every value they produce is rounded to
+// bf16 (relative 4e-3) or multiplied into a sum that is, so they evaluate the
+// same functions as act_f and dact_from_a through the hardware's ex2/lg2
+// units, to about 1e-6 relative, at a tenth of the instructions: with
+// expf + log1pf the softplus of a layer's 16,384 outputs costs more than the
+// layer's matrix product.  e = exp(-|t|) is in (0, 1]; log1p(e) is e - e^2/2
+// + e^3/3 below 2^-6 (where 1 + e would lose e's low bits) and log(1 + e)
+// above.  A last layer (f32 output) keeps act_f.
+__device__ __forceinline__ float act_mma(int a, float z) {
+#ifdef PROF_NO_ACT
+  return z;
+#endif
+  if (a == ACT_RELU) return fmaxf(z, 0.f);
+  if (a == ACT_SP100) {
+    // in base 2: u = 100 z log2(e), softplus = ln2 (max(u, 0) + log2(1 + 2^-|u|))
+    const float u = 144.26950408889634f * z;
+    const float e = exp2f(-fabsf(u));
+    const float l = e < 0.015625f
+                        ? e * (1.4426950408889634f -
+                               e * (0.7213475204444817f - e * 0.4808983469629878f))
+                        : __log2f(1.f + e);
+    return (fmaxf(u, 0.f) + l) * 0.006931471805599453f;
+  }
+  return z;
+}
+
+__device__ __forceinline__ float dact_mma(int a_kind, float a) {
+  if (a_kind == ACT_RELU) return a > 0.f ? 1.f : 0.f;
+  if (a_kind == ACT_SP100) return 1.f - exp2f(-144.26950408889634f * a);
+  return 1.f;
+}
+
+// Ask L2 for the rows [row0, row0 + 64) (those below n) of a stash layer
+// whose rows are row_bytes long, a 128-byte line a request: the epilogue
+// that reads them runs after a whole matrix product, and finds them there.
+__device__ __forceinline__ void prefetch_rows(const void* base, long row0,
+                                              int n, int row_bytes, int t) {
+  const int lpr = (row_bytes + 127) >> 7;
+  const char* p = reinterpret_cast<const char*>(base);
+  for (int idx = t; idx < TR * lpr; idx += NT) {
+    const int r = idx / lpr, c = idx - r * lpr;
+#ifndef PROF_NO_PREFETCH
+    if (row0 + r < n)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+          p + (size_t)(row0 + r) * row_bytes + c * 128));
+#endif
+  }
+}
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+struct WarpPos {
+  int wr, wc, g, t2;  // warp row and column, lane / 4, 2 (lane % 4)
+  __device__ WarpPos(int t) {
+    const int warp = t >> 5, lane = t & 31;
+    wr = warp >> 2; wc = warp & 3; g = lane >> 2; t2 = 2 * (lane & 3);
+  }
+  // n-tiles of this warp inside ncols columns (a multiple of 16), <= 0: none
+  __device__ int ntiles(int ncols) const {
+    const int nt = (ncols - 64 * wc) >> 3;
+    return nt > 8 ? 8 : nt;
+  }
+  __device__ int row(int mi, int half) const {
+    return 32 * wr + 16 * mi + 8 * half + g;
+  }
+  __device__ int col(int ni) const { return 64 * wc + 8 * ni + t2; }
+};
+
+__device__ __forceinline__ void stage_slice(bf16* ws,
+                                            const bf16* __restrict__ B,
+                                            int ldb, int k0, int krows,
+                                            int ncols, int t) {
+  // thread t copies the 16-byte piece t % 32 of rows t / 32, + 8, + 16, ...
+  // (a row has at most 32 pieces): no division, at most KS / 8 copies
+  const int c = t & 31;
+  if (c < (ncols >> 3)) {
+    const bf16* src = B + (size_t)k0 * ldb + c * 8;
+    bf16* dst = ws + c * 8;
+#pragma unroll
+    for (int r = t >> 5; r < KS; r += NT / 32)
+      if (r < krows) cp_async16(dst + r * WSS, src + (size_t)r * ldb, 16);
+  }
+  cp_async_commit();
+}
+
+// The B operand of a product: bf16 in global memory, [Kp, ncols] at row
+// stride ldb (padded: Kp, ncols and ldb are multiples of 16, ncols <= 256).
+struct GemmB {
+  const bf16* B;
+  int ldb, Kp, ncols;
+};
+
+// Start a product's first two weight slices on their way.  The caller has
+// passed a barrier since the last product's tensor-core work, so the stages
+// are free; it may run an epilogue while the slices travel.
+__device__ __forceinline__ void gemm_head(const GemmB& b, bf16* ws, int t) {
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    const int rest = b.Kp - s * KS;
+    if (rest > 0)
+      stage_slice(ws + s * WSTAGE, b.B, b.ldb, s * KS, rest < KS ? rest : KS,
+                  b.ncols, t);
+    else
+      cp_async_commit();
+  }
+}
+
+// acc += A[64, Kp] @ B.  A: bf16 in shared memory, row stride lda.  B is
+// streamed through the three-stage buffer ws in slices of KS rows with
+// cp.async: slices s + 1 and s + 2 are in flight while the tensor cores work
+// on slice s, one barrier a slice, one (possibly empty) group a slice so that
+// "all but the newest group" always means "slice s has landed".  Every thread
+// of the block calls it.  Without head_done it passes a barrier and starts
+// the head itself; either way the barrier of slice 0 orders the caller's
+// writes of A before the first read.
+__device__ __forceinline__ void mma_gemm(Acc& acc, const bf16* A, int lda,
+                                         const GemmB& b, bf16* ws, int t,
+                                         bool head_done = false) {
+  const int lane = t & 31;
+  const WarpPos wp(t);
+  const int Kp = b.Kp;
+  const int nt = wp.ntiles(b.ncols);
+  const int nsl = (Kp + KS - 1) / KS;
+  if (!head_done) {
+    __syncthreads();
+    gemm_head(b, ws, t);
+  }
+  // ldmatrix row addresses: lanes 8j..8j+7 give the rows of matrix j
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+  const bf16* a_base = A + (32 * wp.wr + lr) * lda + lc;
+  const int b_off = lr * WSS + 64 * wp.wc + lc;
+  int st = 0;  // s % NSTAGE
+  for (int s = 0; s < nsl; ++s) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();
+    const int k0 = s * KS;
+    if (s + NSTAGE - 1 < nsl) {  // into the stage slice s - 1 has left
+      const int rest = Kp - k0 - (NSTAGE - 1) * KS;
+      stage_slice(ws + (st == 0 ? NSTAGE - 1 : st - 1) * WSTAGE, b.B, b.ldb,
+                  k0 + (NSTAGE - 1) * KS, rest < KS ? rest : KS, b.ncols, t);
+    } else {
+      cp_async_commit();
+    }
+    const bf16* wst = ws + st * WSTAGE + b_off;
+    st = st == NSTAGE - 1 ? 0 : st + 1;
+    if (nt <= 0) continue;
+    const int nk = (Kp - k0 < KS ? Kp - k0 : KS) >> 4;
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      if (kk >= nk) break;
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4(a0, a_base + k0 + 16 * kk);
+      ldmatrix_x4(a1, a_base + 16 * lda + k0 + 16 * kk);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (2 * np < nt) {
+          uint32_t bb[4];  // B is [k][n] with n contiguous: transposed load
+          ldmatrix_x4_trans(bb, wst + 16 * kk * WSS + 16 * np);
+          mma_bf16(acc[0][2 * np], a0, bb[0], bb[1]);
+          mma_bf16(acc[1][2 * np], a1, bb[0], bb[1]);
+          mma_bf16(acc[0][2 * np + 1], a0, bb[2], bb[3]);
+          mma_bf16(acc[1][2 * np + 1], a1, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The epilogues that read or write global stashes work on the accumulators
+// in "row layout": lanes lane and lane ^ 1 swap halves of every pair of
+// n-tiles, after which a lane holds 4 CONSECUTIVE columns of a row,
+//   x[0..3] = acc[mi][2 np][2 hf], [2 np][2 hf + 1], [2 np + 1][2 hf],
+//             [2 np + 1][2 hf + 1]
+// at row WarpPos::row(mi, hf) and column rcol(np), and the 4 lanes of a row
+// cover 16 columns in a piece: 64 contiguous bytes of an f32 stash row, 32 of
+// a bf16 one, a load or store.  In the MMA's own layout a lane holds 2
+// columns and a warp's access touches 8 rows with 16 or 32 bytes each, twice
+// as many instructions on half-used sectors; measured on the H100 each such
+// access type cost 0.4 ms per 65,536 rows of the SDF chain.
+__device__ __forceinline__ void acc_to_rows(Acc& acc, int nt, int lane) {
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    if (2 * np >= nt) continue;  // warp-uniform
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float& a0 = acc[mi][2 * np][2 * hf];
+        float& a1 = acc[mi][2 * np][2 * hf + 1];
+        float& b0 = acc[mi][2 * np + 1][2 * hf];
+        float& b1 = acc[mi][2 * np + 1][2 * hf + 1];
+        // an even lane keeps its tile-2np pair and gets its neighbour's; an
+        // odd lane keeps its tile-(2np+1) pair, behind its neighbour's
+        const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+        if (odd) { a0 = r0; a1 = r1; }
+        else { b0 = r0; b1 = r1; }
+      }
+  }
+}
+
+// first of the 4 columns a lane holds of n-tile pair np, in row layout
+__device__ __forceinline__ int rcol(const WarpPos& wp, int np, int lane) {
+  return 64 * wp.wc + 16 * np + 8 * (lane & 1) + 4 * ((lane >> 1) & 1);
+}
+
+__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void st_bf16x4(bf16* p, float a, float b, float c,
+                                          float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Rows of a bf16 tile in shared memory -> a stash layer (row stride wq <=
+// 256, a multiple of 16), whole rows in 16-byte pieces: the values the tile
+// holds for the next product are the ones the stash wants.
+__device__ __forceinline__ void tile_to_stash(const bf16* tile, int ts,
+                                              bf16* dst, int wq, long row0,
+                                              int n, int t) {
+  const int c = t & 31;
+  if (c >= (wq >> 3)) return;
+#pragma unroll
+  for (int r = t >> 5; r < TR; r += NT / 32)
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * wq + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * ts + c * 8);
+}
+
+// Column sums over the block's 64 rows of accumulators in row layout -> dst[c],
+// c < w.  red: [2][MAXW] floats of shared memory.
+__device__ __forceinline__ void rows_colsum(const Acc& acc, int ncols, int w,
+                                            float* red, float* dst, int t) {
+  const WarpPos wp(t);
+  const int nt = wp.ntiles(ncols), lane = t & 31;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    if (2 * np >= nt) continue;  // warp-uniform
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ni = 2 * np + (i >> 1), e = i & 1;
+      float s = (acc[0][ni][e] + acc[0][ni][e + 2]) +
+                (acc[1][ni][e] + acc[1][ni][e + 2]);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (wp.g == 0) red[wp.wr * MAXW + rcol(wp, np, lane) + i] = s;
+    }
+  }
+  __syncthreads();
+  for (int c = t; c < w; c += NT) dst[c] = red[c] + red[MAXW + c];
+}
+
+// K1 on the bf16 route.  Shared memory: one bf16 activation tile [64][AS],
+// the weight stages, x0 [64][Ep + 8].  The layer's whole output sits in the
+// accumulators before the epilogue runs, so one tile is enough: a barrier,
+// then scale, bias, activation, rounding and the bf16 store over it (and to
+// the stash, in the padded layout with zero pad columns).  The last layer
+// goes out as f32, 256 columns at a time, and is not stashed.
+__global__ void __launch_bounds__(NT, 2)
+chain_fwd_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ W,
+                     const float* __restrict__ Bs, float* __restrict__ out,
+                     bf16* __restrict__ stash, int n, Chain ch) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int E = ch.E, Ep = pad16(E), ES = Ep + 8;
+  // x0 [TR][ES] shares the tile's storage when the first layer alone reads
+  // it (x0_alias: every read of x0 precedes the first write of the tile), so
+  // a 259-wide input of a skip-free head still leaves room for two blocks
+  const int tile = TR * (ch.x0_alias && ES > AS ? ES : AS);
+  bf16* hb = reinterpret_cast<bf16*>(smem_mma);  // [TR][AS]
+  bf16* ws = hb + tile;                          // [NSTAGE][KS][WSS]
+  bf16* x0 = ch.x0_alias ? hb : ws + NSTAGE * WSTAGE;
+  const int t = threadIdx.x;
+  const WarpPos wp(t);
+  const long row0 = (long)blockIdx.x * TR;
+
+  for (int idx = t; idx < TR * Ep; idx += NT) {
+    const int r = idx / Ep, c = idx - r * Ep;
+    const long g = row0 + r;
+    x0[r * ES + c] =
+        __float2bfloat16_rn((g < n && c < E) ? x[g * E + c] : 0.f);
+  }
+
+  const bf16* hin = x0;
+  int lda = ES;
+  bool head = false;
+  Acc acc;
+  for (int l = 0; l < ch.L - 1; ++l) {
+    const Layer& Ly = ch.l[l];
+    zero_acc(acc);
+    mma_gemm(acc, hin, lda, {W + Ly.pwh, Ly.outp, Ly.inp, Ly.outp}, ws, t,
+             head);
+    if (Ly.wx >= 0)
+      mma_gemm(acc, x0, ES, {W + Ly.pwx, Ly.outp, Ep, Ly.outp}, ws, t);
+    __syncthreads();  // every read of hb precedes its overwrite
+    {  // the next layer's first weight slices travel while the epilogue runs
+      const Layer& Ln = ch.l[l + 1];
+      gemm_head({W + Ln.pwh, Ln.outp, Ln.inp, Ln.outp < MAXW ? Ln.outp : MAXW},
+                ws, t);
+      head = true;
+    }
+    bf16* st = stash ? stash + (size_t)n * Ly.pstash : nullptr;
+    const int nt = wp.ntiles(Ly.outp);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      if (ni >= nt) continue;
+      const int c = wp.col(ni);
+      const float b0 = c < Ly.out ? Bs[Ly.b + c] : 0.f;
+      const float b1 = c + 1 < Ly.out ? Bs[Ly.b + c + 1] : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = wp.row(mi, hf);
+          float z0 = acc[mi][ni][2 * hf], z1 = acc[mi][ni][2 * hf + 1];
+          if (Ly.scale != 1.f) { z0 *= Ly.scale; z1 *= Ly.scale; }
+          const float v0 = c < Ly.out ? act_mma(Ly.act, z0 + b0) : 0.f;
+          const float v1 = c + 1 < Ly.out ? act_mma(Ly.act, z1 + b1) : 0.f;
+          st_bf16x2(hb + r * AS + c, v0, v1);
+        }
+    }
+    if (st) {  // the tile's rows are the stash's, whole rows at a time
+      __syncthreads();
+      tile_to_stash(hb, AS, st, Ly.outp, row0, n, t);
+    }
+    hin = hb;
+    lda = AS;
+  }
+  const Layer& Ly = ch.l[ch.L - 1];
+  for (int cb = 0; cb < Ly.outp; cb += MAXW) {
+    const int ncols = Ly.outp - cb < MAXW ? Ly.outp - cb : MAXW;
+    zero_acc(acc);
+    mma_gemm(acc, hin, lda, {W + Ly.pwh + cb, Ly.outp, Ly.inp, ncols}, ws, t,
+             head && cb == 0);
+    if (Ly.wx >= 0)
+      mma_gemm(acc, x0, ES, {W + Ly.pwx + cb, Ly.outp, Ep, ncols}, ws, t);
+    const int nt = wp.ntiles(ncols);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      if (ni >= nt) continue;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long g = row0 + wp.row(mi, e >> 1);
+          const int c = cb + wp.col(ni) + (e & 1);
+          if (c >= Ly.out || g >= n) continue;
+          float z = acc[mi][ni][e];
+          if (Ly.scale != 1.f) z *= Ly.scale;
+          out[g * Ly.out + c] = act_f(Ly.act, z + Bs[Ly.b + c]);
+        }
+    }
+  }
+}
+
+// K4 pass 2 on the bf16 route.  The tile holds p_l (bf16-exact); the product
+// q_{l-1} = s p_l W_h^T arrives in the accumulators, where the epilogue
+// stores it unrounded (K5's q stash, f32) and turns it into p_{l-1} =
+// round(q act'(a_{l-1})) for the tile.  j is summed in f32 shared memory.
+// All stashes share the padded layout (layer base n * pstash, row stride outp).
+__global__ void __launch_bounds__(NT, 2)
+chain_jac_down_mma_kernel(const bf16* __restrict__ stash,
+                          const bf16* __restrict__ WT,
+                          const float* __restrict__ wl_h,
+                          const float* __restrict__ wl_x,
+                          float* __restrict__ jout, float* __restrict__ qst,
+                          int n, Chain ch) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int E = ch.E, Ep = pad16(E);
+  bf16* pb = reinterpret_cast<bf16*>(smem_mma);           // [TR][AS]
+  bf16* ws = pb + TR * AS;                                // [NSTAGE][KS][WSS]
+  float* js = reinterpret_cast<float*>(ws + NSTAGE * WSTAGE);  // [TR][Ep]
+  const int t = threadIdx.x, lane = t & 31;
+  const WarpPos wp(t);
+  const long row0 = (long)blockIdx.x * TR;
+
+  {
+    const Layer& Ll = ch.l[ch.L - 1];
+    const Layer& Lt = ch.l[ch.L - 2];
+    const bf16* a = stash + (size_t)n * Lt.pstash;
+    float* qs = qst ? qst + (size_t)n * Lt.pstash : nullptr;
+    const int wq = Lt.outp;
+    for (int idx = t; idx < TR * wq; idx += NT) {
+      const int r = idx / wq, c = idx - r * wq;
+      const long g = row0 + r;
+      float q = 0.f, p = 0.f;
+      if (c < Lt.out) {
+        q = Ll.scale * wl_h[(size_t)c * Ll.out];
+        if (g < n) p = q * dact_mma(Lt.act, __bfloat162float(a[g * wq + c]));
+      }
+      if (qs && g < n) qs[g * wq + c] = q;
+      pb[r * AS + c] = __float2bfloat16_rn(p);
+    }
+    for (int idx = t; idx < TR * Ep; idx += NT) {
+      const int c = idx % Ep;
+      js[idx] = (wl_x && c < E) ? Ll.scale * wl_x[(size_t)c * Ll.out] : 0.f;
+    }
+  }
+
+  Acc acc;
+  bool head = false;
+  for (int l = ch.L - 2; l >= 0; --l) {
+    const Layer& Ly = ch.l[l];
+    if (Ly.wx >= 0) {
+      zero_acc(acc);
+      mma_gemm(acc, pb, AS, {WT + Ly.pwx, Ep, Ly.outp, Ep}, ws, t, head);
+      head = false;
+      const int nt = wp.ntiles(Ep);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        if (ni >= nt) continue;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            js[wp.row(mi, e >> 1) * Ep + wp.col(ni) + (e & 1)] +=
+                Ly.scale * acc[mi][ni][e];
+      }
+    }
+    if (l > 0)
+      prefetch_rows(stash + (size_t)n * ch.l[l - 1].pstash, row0, n,
+                    2 * Ly.inp, t);
+    zero_acc(acc);
+    mma_gemm(acc, pb, AS, {WT + Ly.pwh, Ly.inp, Ly.outp, Ly.inp}, ws, t, head);
+    __syncthreads();  // every read of pb precedes its overwrite
+    if (l > 0) {  // the layer below's first weight slices travel meanwhile
+      const Layer& Ln = ch.l[l - 1];
+      if (Ln.wx >= 0) gemm_head({WT + Ln.pwx, Ep, Ln.outp, Ep}, ws, t);
+      else gemm_head({WT + Ln.pwh, Ln.inp, Ln.outp, Ln.inp}, ws, t);
+      head = true;
+    }
+    const int nt = wp.ntiles(Ly.inp);
+    if (l == 0) {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        if (ni >= nt) continue;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            js[wp.row(mi, e >> 1) * Ep + wp.col(ni) + (e & 1)] +=
+                acc[mi][ni][e] * Ly.scale;
+      }
+      break;
+    }
+    const Layer& Lb = ch.l[l - 1];  // Lb.out == Ly.in, Lb.outp == Ly.inp
+    const int w = Lb.out, wq = Lb.outp;
+    const bf16* a = stash + (size_t)n * Lb.pstash;
+    float* qs = qst ? qst + (size_t)n * Lb.pstash : nullptr;
+    acc_to_rows(acc, nt, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt) continue;
+      const int c = rcol(wp, np, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = wp.row(mi, hf);
+          const long g = row0 + r;
+          const float q0 = acc[mi][2 * np][2 * hf] * Ly.scale;
+          const float q1 = acc[mi][2 * np][2 * hf + 1] * Ly.scale;
+          const float q2 = acc[mi][2 * np + 1][2 * hf] * Ly.scale;
+          const float q3 = acc[mi][2 * np + 1][2 * hf + 1] * Ly.scale;
+          float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+          if (g < n) {
+            const float4 av = ld_bf16x4(a + g * wq + c);
+            if (c < w) p0 = q0 * dact_mma(Lb.act, av.x);
+            if (c + 1 < w) p1 = q1 * dact_mma(Lb.act, av.y);
+            if (c + 2 < w) p2 = q2 * dact_mma(Lb.act, av.z);
+            if (c + 3 < w) p3 = q3 * dact_mma(Lb.act, av.w);
+            if (qs)
+              *reinterpret_cast<float4*>(qs + g * wq + c) =
+                  make_float4(q0, q1, q2, q3);
+          }
+          st_bf16x4(pb + r * AS + c, p0, p1, p2, p3);
+        }
+    }
+  }
+  __syncthreads();
+  for (int idx = t; idx < TR * E; idx += NT) {
+    const int r = idx / E, c = idx - r * E;
+    const long g = row0 + r;
+    if (g < n) jout[g * E + c] = js[r * Ep + c];
+  }
+}
+
+// K5 pass 3 on the bf16 route.  The tile holds the rounded qbar (bf16-exact;
+// layer 0 reads the rounded gj tile itself); pbar arrives in the
+// accumulators and the epilogue forms dbar = pbar q (f32 stash), p =
+// round(q act') (bf16 stash of its own: q stays f32, so p cannot overwrite
+// it), and the next qbar = round(pbar act'), which goes to the tile and from
+// there, whole rows at a time, to its bf16 stash.  The top qbar stays
+// unrounded: its column sums are taken from the accumulators.
+__global__ void __launch_bounds__(NT, 2)
+chain_jac_up_mma_kernel(const bf16* __restrict__ stash,
+                        const float* __restrict__ qst,
+                        const bf16* __restrict__ W,
+                        const float* __restrict__ gj, float* __restrict__ dbar,
+                        bf16* __restrict__ qbs, bf16* __restrict__ pst,
+                        float* __restrict__ colp, int n, Chain ch) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int E = ch.E, Ep = pad16(E), ES = Ep + 8;
+  bf16* qb = reinterpret_cast<bf16*>(smem_mma);  // [TR][AS]
+  bf16* ws = qb + TR * AS;                       // [NSTAGE][KS][WSS]
+  bf16* gjs = ws + NSTAGE * WSTAGE;              // [TR][ES]
+  float* red = reinterpret_cast<float*>(gjs + TR * ES);  // [2][MAXW]
+  const int t = threadIdx.x, lane = t & 31;
+  const WarpPos wp(t);
+  const long row0 = (long)blockIdx.x * TR;
+  const int wtop = ch.l[ch.L - 2].out;
+  float* cp = colp + (size_t)blockIdx.x * (wtop + E);
+
+  for (int idx = t; idx < TR * Ep; idx += NT) {
+    const int r = idx / Ep, c = idx - r * Ep;
+    const long g = row0 + r;
+    gjs[r * ES + c] =
+        __float2bfloat16_rn((g < n && c < E) ? gj[g * E + c] : 0.f);
+  }
+  for (int c = t; c < E; c += NT) {
+    float s = 0.f;
+    for (int r = 0; r < TR; ++r)
+      if (row0 + r < n) s += gj[(row0 + r) * E + c];
+    cp[wtop + c] = s;
+  }
+
+  Acc acc;
+  bool head = false;
+  for (int l = 0; l < ch.L - 1; ++l) {
+    const Layer& Ly = ch.l[l];
+    const int w = Ly.out, wq = Ly.outp;
+    const bool top = l == ch.L - 2;
+    const size_t base = (size_t)n * Ly.pstash;
+    prefetch_rows(qst + base, row0, n, 4 * wq, t);
+    prefetch_rows(stash + base, row0, n, 2 * wq, t);
+    zero_acc(acc);
+    mma_gemm(acc, l == 0 ? gjs : qb, l == 0 ? ES : AS,
+             {W + Ly.pwh, wq, Ly.inp, wq}, ws, t, head);
+    if (Ly.wx >= 0) mma_gemm(acc, gjs, ES, {W + Ly.pwx, wq, Ep, wq}, ws, t);
+    __syncthreads();  // every read of qb precedes its overwrite
+    head = !top;
+    if (head) {  // the next layer's first weight slices travel meanwhile
+      const Layer& Ln = ch.l[l + 1];
+      gemm_head({W + Ln.pwh, Ln.outp, Ln.inp, Ln.outp}, ws, t);
+    }
+    const int nt = wp.ntiles(wq);
+    acc_to_rows(acc, nt, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt) continue;
+      const int c = rcol(wp, np, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = wp.row(mi, hf);
+          const long g = row0 + r;
+          float& x0 = acc[mi][2 * np][2 * hf];
+          float& x1 = acc[mi][2 * np][2 * hf + 1];
+          float& x2 = acc[mi][2 * np + 1][2 * hf];
+          float& x3 = acc[mi][2 * np + 1][2 * hf + 1];
+          const float pb0 = Ly.scale * x0, pb1 = Ly.scale * x1;
+          const float pb2 = Ly.scale * x2, pb3 = Ly.scale * x3;
+          float4 q = make_float4(0.f, 0.f, 0.f, 0.f), av = q;
+          if (g < n) {
+            q = *reinterpret_cast<const float4*>(qst + base + g * wq + c);
+            av = ld_bf16x4(stash + base + g * wq + c);
+          }
+          const float d0 = c < w ? dact_mma(Ly.act, av.x) : 0.f;
+          const float d1 = c + 1 < w ? dact_mma(Ly.act, av.y) : 0.f;
+          const float d2 = c + 2 < w ? dact_mma(Ly.act, av.z) : 0.f;
+          const float d3 = c + 3 < w ? dact_mma(Ly.act, av.w) : 0.f;
+          x0 = pb0 * d0; x1 = pb1 * d1; x2 = pb2 * d2; x3 = pb3 * d3;
+          if (g < n) {
+            st_bf16x4(pst + base + g * wq + c, q.x * d0, q.y * d1, q.z * d2,
+                      q.w * d3);
+            *reinterpret_cast<float4*>(dbar + base + g * wq + c) =
+                make_float4(pb0 * q.x, pb1 * q.y, pb2 * q.z, pb3 * q.w);
+          }
+          if (!top) st_bf16x4(qb + r * AS + c, x0, x1, x2, x3);
+        }
+    }
+    if (top) {
+      rows_colsum(acc, wq, wtop, red, cp, t);
+    } else {
+      __syncthreads();
+      tile_to_stash(qb, AS, qbs + base, wq, row0, n, t);
+    }
+  }
+}
+
+// K5 pass 4 on the bf16 route: K2's data pass with
+// zbar = hbar act' + dbar act'', every product on the tensor cores (K5's
+// transposes are the rounded ones).  The tile holds the rounded zs_l; hbar of
+// the layer below arrives in the accumulators, where the epilogue forms zbar,
+// its column sums (db partials) and the next zs (the tile, and from there a
+// bf16 stash of its own: dbar is f32 and is only read).  a of the hidden
+// layers comes from the bf16 stash; the last layer is linear (K4/K5's
+// condition).
+__global__ void __launch_bounds__(NT, 2)
+chain_bwd_data_mma_kernel(const bf16* __restrict__ stash,
+                          const bf16* __restrict__ WT,
+                          const float* __restrict__ gin,
+                          float* __restrict__ dx, bf16* __restrict__ zst,
+                          const float* __restrict__ dbar,
+                          float* __restrict__ dbp, int n, Chain ch) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int E = ch.E, Ep = pad16(E);
+  const Layer& Ll = ch.l[ch.L - 1];
+  const int TS = (Ll.outp > MAXW ? Ll.outp : MAXW) + 8;
+  bf16* zb = reinterpret_cast<bf16*>(smem_mma);            // [TR][TS]
+  bf16* ws = zb + TR * TS;                                 // [NSTAGE][KS][WSS]
+  float* dxs = reinterpret_cast<float*>(ws + NSTAGE * WSTAGE);  // [TR][Ep]
+  float* red = dxs + TR * Ep;                              // [2][MAXW]
+  const int t = threadIdx.x, lane = t & 31;
+  const WarpPos wp(t);
+  const long row0 = (long)blockIdx.x * TR;
+  float* dbb = dbp + (size_t)blockIdx.x * ch.bsum;
+
+  {
+    const int w = Ll.out, wq = Ll.outp;
+    bf16* zs = zst + (size_t)n * Ll.pstash;
+    for (int idx = t; idx < TR * wq; idx += NT) {
+      const int r = idx / wq, c = idx - r * wq;
+      const long g = row0 + r;
+      float v = (g < n && c < w) ? gin[g * w + c] : 0.f;
+      if (Ll.scale != 1.f) v *= Ll.scale;
+      const bf16 vb = __float2bfloat16_rn(v);
+      zb[r * TS + c] = vb;
+      if (g < n) zs[g * wq + c] = vb;
+    }
+    for (int c = t; c < w; c += NT) {
+      float s = 0.f;
+      for (int r = 0; r < TR; ++r)
+        if (row0 + r < n) s += gin[(row0 + r) * w + c];
+      dbb[Ll.b + c] = s;
+    }
+    for (int idx = t; idx < TR * Ep; idx += NT) dxs[idx] = 0.f;
+  }
+
+  Acc acc;
+  bool head = false;
+  for (int l = ch.L - 1; l >= 0; --l) {
+    const Layer& Ly = ch.l[l];
+    // dx += zs @ W_x^T (skip) and, at layer 0, zs @ W_h^T: both [outp, Ep]
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass == 0 ? Ly.wx < 0 : l > 0) continue;
+      zero_acc(acc);
+      mma_gemm(acc, zb, TS,
+               {WT + (pass == 0 ? Ly.pwx : Ly.pwh), Ep, Ly.outp, Ep}, ws, t,
+               head);
+      head = false;
+      const int nt = wp.ntiles(Ep);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        if (ni >= nt) continue;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dxs[wp.row(mi, e >> 1) * Ep + wp.col(ni) + (e & 1)] +=
+                acc[mi][ni][e];
+      }
+    }
+    if (l == 0) break;
+    const Layer& Lb = ch.l[l - 1];  // Lb.out == Ly.in, Lb.outp == Ly.inp
+    const int w = Lb.out, wq = Lb.outp;
+    const size_t base = (size_t)n * Lb.pstash;
+    const bool sp = Lb.act == ACT_SP100;
+    prefetch_rows(stash + base, row0, n, 2 * wq, t);
+    if (sp) prefetch_rows(dbar + base, row0, n, 4 * wq, t);
+    zero_acc(acc);
+    mma_gemm(acc, zb, TS, {WT + Ly.pwh, Ly.inp, Ly.outp, Ly.inp}, ws, t, head);
+    __syncthreads();  // every read of zb precedes its overwrite
+    // the first weight slices of the layer below's first product travel
+    // while the epilogue runs: its skip's W_x^T, else its W_h^T
+    if (Lb.wx >= 0) gemm_head({WT + Lb.pwx, Ep, Lb.outp, Ep}, ws, t);
+    else gemm_head({WT + Lb.pwh, Lb.inp, Lb.outp, Lb.inp}, ws, t);
+    head = true;
+    const int nt = wp.ntiles(wq);
+    acc_to_rows(acc, nt, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt) continue;
+      const int c = rcol(wp, np, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const long g = row0 + wp.row(mi, hf);
+          float& x0 = acc[mi][2 * np][2 * hf];
+          float& x1 = acc[mi][2 * np][2 * hf + 1];
+          float& x2 = acc[mi][2 * np + 1][2 * hf];
+          float& x3 = acc[mi][2 * np + 1][2 * hf + 1];
+          float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+          if (g < n) {
+            const float4 av = ld_bf16x4(stash + base + g * wq + c);
+            const float d0 = dact_mma(Lb.act, av.x), d1 = dact_mma(Lb.act, av.y);
+            const float d2 = dact_mma(Lb.act, av.z), d3 = dact_mma(Lb.act, av.w);
+            v0 = x0 * d0; v1 = x1 * d1; v2 = x2 * d2; v3 = x3 * d3;
+            if (sp) {
+              const float4 db =
+                  *reinterpret_cast<const float4*>(dbar + base + g * wq + c);
+              v0 += db.x * d2act_from_d(Lb.act, d0);
+              v1 += db.y * d2act_from_d(Lb.act, d1);
+              v2 += db.z * d2act_from_d(Lb.act, d2);
+              v3 += db.w * d2act_from_d(Lb.act, d3);
+            }
+            if (c >= w) v0 = 0.f;
+            if (c + 1 >= w) v1 = 0.f;
+            if (c + 2 >= w) v2 = 0.f;
+            if (c + 3 >= w) v3 = 0.f;
+          }
+          x0 = v0; x1 = v1; x2 = v2; x3 = v3;
+        }
+    }
+    rows_colsum(acc, wq, w, red, dbb + Lb.b, t);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt) continue;
+      const int c = rcol(wp, np, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float s = Lb.scale;
+          st_bf16x4(zb + wp.row(mi, hf) * TS + c,
+                    acc[mi][2 * np][2 * hf] * s, acc[mi][2 * np][2 * hf + 1] * s,
+                    acc[mi][2 * np + 1][2 * hf] * s,
+                    acc[mi][2 * np + 1][2 * hf + 1] * s);
+        }
+    }
+    __syncthreads();
+    tile_to_stash(zb, TS, zst + base, wq, row0, n, t);
+  }
+  __syncthreads();
+  for (int idx = t; idx < TR * E; idx += NT) {
+    const int r = idx / E, c = idx - r * E;
+    const long g = row0 + r;
+    if (g < n) dx[g * E + c] = dxs[r * Ep + c];
+  }
+}
+
+// dW on the bf16 route, every weight of the chain in one launch.  A table row
+// a tile (14 int64: for each of A1, B1, A2, B2 the index of its buffer in
+// DwBuffers, -1 for none, and the element offset of the tile's first column
+// in it; the tile's element offset in a split's partial buffer; lda, ldb,
+// ldo; the tile's valid extents mext <= 128 and next <= 128) and a scale a
+// tile; the table depends on the chain and n alone, the buffers' addresses
+// are launch arguments.  Block (tile, split) forms
+//   part[split][tile] = A1^T B1 + scale * A2^T B2     over the split's rows,
+// both terms in the same accumulators (A2^T B2 first, then the scale, then
+// A1^T B1).  A and B are row-major [rows, width] bf16 stashes, so both MMA
+// operands are transposed ldmatrix loads of staged [64 rows][128] slices;
+// rows past the split's end are zero-filled by cp.async.  Partials, not
+// atomics: the sum over splits is one reduction outside, and the result is
+// the same from run to run.
+#define DT 128         // tile edge
+#define DKS 64         // rows a staged slice
+#define DS (DT + 8)
+#define DSTAGE (DKS * DS)
+#define DNSTAGE 3      // stages: two slices in flight behind the one at work
+
+__device__ __forceinline__ void dw_stage(bf16* dst, const bf16* __restrict__ S,
+                                         int lds, int ext, long r0, long r_end,
+                                         int t) {
+  // thread t copies the 16-byte piece t % 16 of rows t / 16, + 16, ...
+  const int c = t & 15;
+  if (c >= (ext >> 3)) return;
+#pragma unroll
+  for (int r = t >> 4; r < DKS; r += NT / 16) {
+    const bool v = r0 + r < r_end;
+    cp_async16(dst + r * DS + c * 8, v ? S + (r0 + r) * lds + c * 8 : S,
+               v ? 16 : 0);
+  }
+}
+
+#define DW_NBUF 6
+#define DW_ROW 14
+struct DwBuffers { const bf16* p[DW_NBUF]; };
+
+__global__ void __launch_bounds__(NT, 2)
+chain_dw_mma_kernel(const long long* __restrict__ table,
+                    const float* __restrict__ scales, DwBuffers bufs,
+                    float* __restrict__ part, long long part_stride, int n,
+                    int rps) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* as = reinterpret_cast<bf16*>(smem_mma);  // [DNSTAGE][DKS][DS]
+  bf16* bs = as + DNSTAGE * DSTAGE;              // [DNSTAGE][DKS][DS]
+  const long long* tb = table + DW_ROW * (size_t)blockIdx.x;
+  const int lda = (int)tb[9], ldb = (int)tb[10], ldo = (int)tb[11];
+  const int mext = (int)tb[12], next = (int)tb[13];
+  const float scale = scales[blockIdx.x];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int wr = warp >> 1, wc = warp & 1;  // 4 x 2 warps of [32 i][64 c]
+  const long r_begin = (long)blockIdx.y * rps;
+  long r_end = r_begin + rps;
+  if (r_end > n) r_end = n;
+  int nt = (next - 64 * wc) >> 3;
+  nt = nt > 8 ? 8 : nt;
+  const bool active = 32 * wr < mext && nt > 0;
+  // A is [k][m] with m contiguous: matrices (k lo, m lo), (k lo, m hi),
+  // (k hi, m lo), (k hi, m hi) give a0..a3
+  const int a_off = ((lane & 7) + (lane >> 4) * 8) * DS + 32 * wr +
+                    ((lane >> 3) & 1) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + 64 * wc +
+                    (lane >> 4) * 8;
+  Acc acc;
+  zero_acc(acc);
+  for (int term = 2; term >= 1; --term) {
+    const long long* op = tb + (term == 2 ? 4 : 0);
+    if (op[0] < 0) continue;
+    const bf16* A = nullptr;
+    const bf16* B = nullptr;
+#pragma unroll
+    for (int i = 0; i < DW_NBUF; ++i) {  // no runtime index into a parameter
+      if (op[0] == i) A = bufs.p[i] + op[1];
+      if (op[2] == i) B = bufs.p[i] + op[3];
+    }
+    const int nsl = r_end > r_begin ? (int)((r_end - r_begin + DKS - 1) / DKS) : 0;
+    __syncthreads();  // the last term's reads of the stages are done
+    // slices s + 1 and s + 2 in flight behind slice s, a group a slice
+    for (int s = 0; s < 2; ++s) {
+      if (s < nsl) {
+        dw_stage(as + s * DSTAGE, A, lda, mext, r_begin + s * DKS, r_end, t);
+        dw_stage(bs + s * DSTAGE, B, ldb, next, r_begin + s * DKS, r_end, t);
+      }
+      cp_async_commit();
+    }
+    int st = 0;  // s % NSTAGE
+    for (int s = 0; s < nsl; ++s) {
+      cp_async_wait<1>();
+      __syncthreads();
+      if (s + 2 < nsl) {
+        const long r0 = r_begin + (long)(s + 2) * DKS;
+        const int sn = st == 0 ? 2 : st - 1;
+        dw_stage(as + sn * DSTAGE, A, lda, mext, r0, r_end, t);
+        dw_stage(bs + sn * DSTAGE, B, ldb, next, r0, r_end, t);
+      }
+      cp_async_commit();
+      const int sc = st;
+      st = st == DNSTAGE - 1 ? 0 : st + 1;
+      if (!active) continue;
+      const bf16* ast = as + sc * DSTAGE + a_off;
+      const bf16* bst = bs + sc * DSTAGE + b_off;
+#pragma unroll
+      for (int kk = 0; kk < DKS / 16; ++kk) {
+        uint32_t a0[4], a1[4];
+        ldmatrix_x4_trans(a0, ast + 16 * kk * DS);
+        ldmatrix_x4_trans(a1, ast + 16 * kk * DS + 16);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (2 * np < nt) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, bst + 16 * kk * DS + 16 * np);
+            mma_bf16(acc[0][2 * np], a0, b[0], b[1]);
+            mma_bf16(acc[1][2 * np], a1, b[0], b[1]);
+            mma_bf16(acc[0][2 * np + 1], a0, b[2], b[3]);
+            mma_bf16(acc[1][2 * np + 1], a1, b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (term == 2) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] *= scale;
+    }
+  }
+  float* p = part + (size_t)blockIdx.y * part_stride + tb[8];
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = 64 * wc + 8 * ni + t2;
+    if (c >= next) continue;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 32 * wr + 16 * mi + 8 * hf + g;
+        if (i < mext)
+          *reinterpret_cast<float2*>(p + (size_t)i * ldo + c) =
+              make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
+      }
+  }
+}
+
 // ---------------------------------------------------------------- C interface
-// meta: 9 ints per layer (in, out, wh, wx, wht, wxt, b, act, stash);
-// scales: one float per layer.  Every function returns a cudaError_t.
+// meta: 12 ints per layer (in, out, wh, wx, wht, wxt, b, act, stash, and the
+// bf16 route's pwh, pwx, pstash); scales: one float per layer.  round_bf16
+// chooses the route: 0 the f32 FMA kernels, 1 the tensor-core kernels, whose
+// weight packs and stashes are bf16 in the padded layout.  Every function
+// returns a cudaError_t.
+
+#define META 12
 
 static int build_chain(Chain* ch, const int* meta, const float* scales, int L,
                        int E, int round_bf16) {
@@ -559,10 +1635,12 @@ static int build_chain(Chain* ch, const int* meta, const float* scales, int L,
   ch->bsum = 0;
   ch->x0_alias = 1;
   for (int l = 0; l < L; ++l) {
-    const int* m = meta + 9 * l;
+    const int* m = meta + META * l;
     Layer& y = ch->l[l];
     y.in = m[0]; y.out = m[1]; y.wh = m[2]; y.wx = m[3]; y.wht = m[4];
     y.wxt = m[5]; y.b = m[6]; y.act = m[7]; y.stash = m[8];
+    y.pwh = m[9]; y.pwx = m[10]; y.pstash = m[11];
+    y.inp = pad16(y.in); y.outp = pad16(y.out);
     y.scale = scales[l];
     if (y.in < 1 || y.in > (l == 0 ? MAXE : MAXW) || y.out < 1 ||
         y.out > (l == L - 1 ? MAXOUT : MAXW))
@@ -577,42 +1655,43 @@ static int build_chain(Chain* ch, const int* meta, const float* scales, int L,
 
 static int launch_check() { return (int)cudaGetLastError(); }
 
-extern "C" int nunerf_chain_fwd(const float* x, const float* W,
-                                const float* B, float* out, float* stash,
+template <typename K>
+static int set_smem(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// bytes of the tensor-core kernels' common part: a tile of TR rows, tw wide,
+// and the two weight stages
+static size_t mma_smem(int tw) {
+  return sizeof(bf16) * ((size_t)TR * (tw + 8) + NSTAGE * WSTAGE);
+}
+
+extern "C" int nunerf_chain_fwd(const float* x, const void* W,
+                                const float* B, float* out, void* stash,
                                 int n, const int* meta, const float* scales,
                                 int L, int E, int round_bf16, void* stream) {
   Chain ch;
   int err = build_chain(&ch, meta, scales, L, E, round_bf16);
   if (err) return err;
+  const unsigned grid = (unsigned)((n + TR - 1) / TR);
+  if (round_bf16) {
+    const int es = pad16(E) + 8;
+    const size_t smem = ch.x0_alias
+                            ? mma_smem(es > AS ? es - 8 : MAXW)
+                            : mma_smem(MAXW) + sizeof(bf16) * TR * es;
+    err = set_smem(chain_fwd_mma_kernel, smem);
+    if (err) return err;
+    chain_fwd_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        x, (const bf16*)W, B, out, (bf16*)stash, n, ch);
+    return launch_check();
+  }
   const size_t smem = sizeof(float) * TR *
       (size_t)(ch.x0_alias ? (ch.hw > E ? ch.hw : E) : ch.hw + E);
-  err = (int)cudaFuncSetAttribute(chain_fwd_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
+  err = set_smem(chain_fwd_kernel, smem);
   if (err) return err;
-  const unsigned grid = (unsigned)((n + TR - 1) / TR);
-  chain_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, W, B, out,
-                                                             stash, n, ch);
-  return launch_check();
-}
-
-extern "C" int nunerf_chain_bwd_data(const float* stash, const float* WT,
-                                     const float* g, float* dx, float* gzs,
-                                     const float* dbar, float* dbp, int n,
-                                     const int* meta,
-                                     const float* scales, int L, int E,
-                                     int round_bf16, void* stream) {
-  Chain ch;
-  int err = build_chain(&ch, meta, scales, L, E, round_bf16);
-  if (err) return err;
-  const size_t smem = (size_t)TR * (ch.gw + E) * sizeof(float);
-  err = (int)cudaFuncSetAttribute(chain_bwd_data_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
-  if (err) return err;
-  const unsigned grid = (unsigned)((n + TR - 1) / TR);
-  chain_bwd_data_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      stash, WT, g, dx, gzs, dbar, dbp, n, ch);
+  chain_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      x, (const float*)W, B, out, (float*)stash, n, ch);
   return launch_check();
 }
 
@@ -627,7 +1706,44 @@ static int build_jac_chain(Chain* ch, const int* meta, const float* scales,
   return 0;
 }
 
-extern "C" int nunerf_chain_jac_down(const float* stash, const float* WT,
+// K2's data pass (dbar null) and K5's (dbar given).  On the bf16 route K5's
+// runs on the tensor cores (WT: the bf16 pack of the rounded transposes; gzs:
+// the bf16 zs stash) and K2's stays on the f32 FMA kernel, its W^T being the
+// unrounded f32 one (stash and gzs bf16, the last activation from ylast).
+extern "C" int nunerf_chain_bwd_data(const void* stash, const void* WT,
+                                     const float* g, float* dx, void* gzs,
+                                     const float* dbar, float* dbp,
+                                     const float* ylast, int n,
+                                     const int* meta, const float* scales,
+                                     int L, int E, int round_bf16,
+                                     void* stream) {
+  Chain ch;
+  int err = dbar && round_bf16
+                ? build_jac_chain(&ch, meta, scales, L, E, round_bf16)
+                : build_chain(&ch, meta, scales, L, E, round_bf16);
+  if (err) return err;
+  const unsigned grid = (unsigned)((n + TR - 1) / TR);
+  if (dbar && round_bf16) {
+    const int lw = ch.l[L - 1].outp;
+    const size_t smem = mma_smem(lw > MAXW ? lw : MAXW) +
+                        sizeof(float) * ((size_t)TR * pad16(E) + 2 * MAXW);
+    err = set_smem(chain_bwd_data_mma_kernel, smem);
+    if (err) return err;
+    chain_bwd_data_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const bf16*)stash, (const bf16*)WT, g, dx, (bf16*)gzs, dbar, dbp, n,
+        ch);
+    return launch_check();
+  }
+  if (round_bf16 && !ylast) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)TR * (ch.gw + E) * sizeof(float);
+  err = set_smem(chain_bwd_data_kernel, smem);
+  if (err) return err;
+  chain_bwd_data_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      stash, (const float*)WT, g, dx, gzs, dbar, dbp, ylast, n, ch);
+  return launch_check();
+}
+
+extern "C" int nunerf_chain_jac_down(const void* stash, const void* WT,
                                      const float* wl_h, const float* wl_x,
                                      float* j, float* qst, int n,
                                      const int* meta, const float* scales,
@@ -638,34 +1754,52 @@ extern "C" int nunerf_chain_jac_down(const float* stash, const float* WT,
   if (err) return err;
   if ((ch.l[L - 1].wx >= 0) != (wl_x != nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TR * (ch.hw + E) * sizeof(float);
-  err = (int)cudaFuncSetAttribute(chain_jac_down_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
-  if (err) return err;
   const unsigned grid = (unsigned)((n + TR - 1) / TR);
+  if (round_bf16) {
+    const size_t smem = mma_smem(MAXW) + sizeof(float) * TR * pad16(E);
+    err = set_smem(chain_jac_down_mma_kernel, smem);
+    if (err) return err;
+    chain_jac_down_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const bf16*)stash, (const bf16*)WT, wl_h, wl_x, j, qst, n, ch);
+    return launch_check();
+  }
+  const size_t smem = (size_t)TR * (ch.hw + E) * sizeof(float);
+  err = set_smem(chain_jac_down_kernel, smem);
+  if (err) return err;
   chain_jac_down_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      stash, WT, wl_h, wl_x, j, qst, n, ch);
+      (const float*)stash, (const float*)WT, wl_h, wl_x, j, qst, n, ch);
   return launch_check();
 }
 
-extern "C" int nunerf_chain_jac_up(const float* stash, float* qst,
-                                   const float* W, const float* gj,
-                                   float* dbar, float* qbs, float* colp, int n,
-                                   const int* meta, const float* scales, int L,
-                                   int E, int round_bf16, void* stream) {
+// pst: the bf16 route's p stash (the f32 route writes p over q and takes none)
+extern "C" int nunerf_chain_jac_up(const void* stash, float* qst,
+                                   const void* W, const float* gj,
+                                   float* dbar, void* qbs, void* pst,
+                                   float* colp, int n, const int* meta,
+                                   const float* scales, int L, int E,
+                                   int round_bf16, void* stream) {
   Chain ch;
   int err = build_jac_chain(&ch, meta, scales, L, E, round_bf16);
   if (err) return err;
+  const unsigned grid = (unsigned)((n + TR - 1) / TR);
+  if (round_bf16) {
+    if (!pst) return (int)cudaErrorInvalidValue;
+    const size_t smem = mma_smem(MAXW) + sizeof(bf16) * TR * (pad16(E) + 8) +
+                        sizeof(float) * 2 * MAXW;
+    err = set_smem(chain_jac_up_mma_kernel, smem);
+    if (err) return err;
+    chain_jac_up_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const bf16*)stash, qst, (const bf16*)W, gj, dbar, (bf16*)qbs,
+        (bf16*)pst, colp, n, ch);
+    return launch_check();
+  }
   const size_t smem =
       (size_t)TR * ((ch.hw > E ? ch.hw : E) + E) * sizeof(float);
-  err = (int)cudaFuncSetAttribute(chain_jac_up_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem);
+  err = set_smem(chain_jac_up_kernel, smem);
   if (err) return err;
-  const unsigned grid = (unsigned)((n + TR - 1) / TR);
   chain_jac_up_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      stash, qst, W, gj, dbar, qbs, colp, n, ch);
+      (const float*)stash, qst, (const float*)W, gj, dbar, (float*)qbs, colp,
+      n, ch);
   return launch_check();
 }
 
@@ -677,6 +1811,27 @@ extern "C" int nunerf_chain_dw(const float* H, const float* GZ, float* part,
   dim3 grid((in + 63) / 64, (w + 63) / 64, splits);
   chain_dw_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(H, GZ, part, n, in,
                                                           w, rps);
+  return launch_check();
+}
+
+// Every dW of a chain in one launch (the bf16 route): ntiles table rows,
+// splits row ranges of rps rows (a multiple of 64), part [splits][part_stride].
+extern "C" int nunerf_chain_dw_grouped(const long long* table,
+                                       const float* tile_scales,
+                                       const void* const* buffers,
+                                       float* part, long long part_stride,
+                                       int ntiles, int n, int splits, int rps,
+                                       void* stream) {
+  if (ntiles < 1 || splits < 1 || splits > 65535 || rps < 1 || rps % DKS)
+    return (int)cudaErrorInvalidValue;
+  DwBuffers bufs;
+  for (int i = 0; i < DW_NBUF; ++i) bufs.p[i] = (const bf16*)buffers[i];
+  const size_t smem = sizeof(bf16) * 2 * DNSTAGE * DSTAGE;
+  int err = set_smem(chain_dw_mma_kernel, smem);
+  if (err) return err;
+  dim3 grid(ntiles, splits);
+  chain_dw_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      table, tile_scales, bufs, part, part_stride, n, rps);
   return launch_check();
 }
 

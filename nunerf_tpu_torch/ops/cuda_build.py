@@ -89,6 +89,15 @@ def build(name: str) -> str:
     return build_all([name])[name]
 
 
+def load_from(name: str, path: str) -> ctypes.CDLL:
+    """Load the library at ``path`` in the place of ``csrc/<name>.cu``'s own:
+    ``load(name)`` returns it from then on (a profiling build of the same
+    source with other ``-D`` flags)."""
+    with _lock:
+        _loaded[name] = ctypes.CDLL(path)
+        return _loaded[name]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     with _lock:

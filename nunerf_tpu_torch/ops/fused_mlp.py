@@ -20,9 +20,37 @@ covering plain layers, NeuS pre-concat skips (split kernel rows, scale
   hand-derived reverse of both sweeps, so a loss of ``j`` (the eikonal term)
   needs no second-order autograd.  On a CPU tensor, and only there, it runs
   ``chain_mlp_with_grad0_reference``, which autograd differentiates.
+* ``chain_hidden_cuda`` (K1 with its activation stash read back),
+  ``relu_gates`` and ``chain_hidden_reference`` (the plain chain with every
+  hidden activation, optionally at given relu gates) are what the card checks
+  hold a relu chain's backward with: against autograd at the kernel's own
+  gates, since a gate near 0 opens or closes with the order of the sums.
 * ``launches`` counts kernel launches per wrapper: ``chain_fwd`` adds one
   per K1 launch, ``chain_bwd`` one per K2 call, ``chain_jac_fwd`` one per K4
   call and ``chain_jac_bwd`` one per K5 call.
+
+Two routes, chosen by ``ChainSpec.compute_dtype`` alone (a CUDA tensor
+launches its route's kernels or raises; neither falls back to the other):
+
+* ``float32``: f32 FMA loops over f32 weights and f32 scratch stashes.  It is
+  bound by the card's f32 rate without tensor cores; it is the exact route
+  that small card steps are held against the CPU with, not the fast one.
+* ``bfloat16``: every matrix operand is a bf16 value (weights rounded once
+  by ``pack_mma``, activations and cotangents rounded where the TPU kernel
+  rounds them), so the products are exact in f32 and run on the tensor cores
+  (``mma.sync`` m16n8k16, f32 accumulation) in another summation order.
+  Weights are packed as real bf16, zero-padded to multiples of 16
+  (``MmaLayout``), as they are and transposed.  What bounds each pass here is
+  not the matrix work but what surrounds it: K1 the softplus epilogue and the
+  weight slices streamed from L2 for every 64-row tile; K4/K5 the scratch
+  stashes that carry h, q, p, dbar, qbar and zs between the passes through
+  device memory.  So the stashes are kept in the narrowest exact type (h, p,
+  zs, qbar are bf16-exact and stored as bf16; q and dbar are unrounded and
+  stay f32), and all dW of a chunk come from one launch over a work table
+  (``dw_work_table``), each block summing both of K5's terms, with per-split
+  partials reduced by one sum.  K2's data pass multiplies by the unrounded
+  f32 ``W^T`` (as the TPU kernel does), which is not a bf16 product: it stays
+  on the f32 FMA kernel, between a tensor-core forward and a tensor-core dW.
 
 Second-order differentiation through K1/K2 is not supported (as in the JAX
 package): without ``fused_sdf`` the SDF's eikonal path runs the plain module.
@@ -42,8 +70,9 @@ MAX_WIDTH = 256      # widest hidden layer the kernels take (K4/K5: input too)
 MAX_IN = 512         # widest input of K1/K2
 MAX_OUT = 512        # widest last layer
 MAX_LAYERS = 16
-# K4/K5 keep f32 scratch stashes of every layer's activation (about 9 KB a
-# row for the SDF chain, one for K4, four for K5): rows go through in chunks
+# K4/K5 keep scratch stashes of every layer's activation (K5 of the SDF chain:
+# 36 KB a row on the f32 route, 32 KB on the bf16 route, see
+# ``jac_bwd_scratch_bytes``): rows go through in chunks
 JAC_CHUNK_ROWS = 65536
 
 launches = {"chain_fwd": 0, "chain_bwd": 0, "chain_jac_fwd": 0,
@@ -161,6 +190,50 @@ def chain_mlp_reference(spec: ChainSpec, x, *flat):
     return h
 
 
+def chain_hidden_reference(spec: ChainSpec, x, *flat, gates=None):
+    """``(y, [h_1, ..., h_{L-1}])``: ``chain_mlp_reference`` with every hidden
+    activation beside the output, for holding a kernel's stash and gates.
+
+    A relu whose pre-activation lies within rounding of 0 opens or closes with
+    the order of the sums, and an open or closed gate decides its unit's whole
+    share of the row's gradients.  With ``gates`` (per layer a 0/1 tensor
+    [N, w_l], None where the layer is no relu) a relu layer's output is
+    ``z * gates[l]``: autograd then differentiates the chain at the gates
+    given (a kernel's, see ``relu_gates``) instead of its own.  With the
+    chain's own gates, or none, values and gradients are those of
+    ``chain_mlp_reference``."""
+    nw = n_weights(spec)
+    weights, biases = flat[:nw], flat[nw:]
+    cd = spec.compute_dtype
+    starts = _layer_starts(spec)
+    h = round_to(x.to(torch.float32), cd)
+    x0 = h
+    hidden = []
+    for l in range(spec.n_layers):
+        z = h @ round_to(weights[starts[l]], cd)
+        if spec.has_skip[l]:
+            z = z + x0 @ round_to(weights[starts[l] + 1], cd)
+        if spec.scales[l] != 1.0:
+            z = z * spec.scales[l]
+        z = z + biases[l]
+        if gates is not None and gates[l] is not None:
+            h = z * gates[l]
+        else:
+            h = _act(spec.acts[l], z)
+        if l < spec.n_layers - 1:
+            h = round_to(h, cd)
+            hidden.append(h)
+    return h, hidden
+
+
+def relu_gates(spec: ChainSpec, hidden, y):
+    """Per layer the 0/1 gate of a relu layer read off its activation (the
+    hidden layers' and, for a relu last layer, ``y``), None for other layers:
+    the ``gates`` of ``chain_hidden_reference``."""
+    return [(a > 0).to(torch.float32) if act == "relu" else None
+            for act, a in zip(spec.acts, list(hidden) + [y])]
+
+
 def _act_grad_from_a(name, a):
     """act'(z) recovered from the stored activation a = act(z)."""
     if name == "relu":
@@ -232,13 +305,70 @@ def _check_jac_spec(spec: ChainSpec):
 
 # ---------------------------------------------------------------- the kernels
 
+PAD = 16  # the bf16 route pads every width and depth to a multiple of this
+
+
+def _pad(v: int) -> int:
+    return -(-v // PAD) * PAD
+
+
+class MmaLayout:
+    """The bf16 route's padded layout of a chain.
+
+    Every depth and width is padded with zeros to a multiple of 16 (the depth
+    of an ``m16n8k16`` step, and two of its n-tiles), so the kernels never
+    mask inside a k-step.  ``layers[l]`` is ``(inp, outp, pwh, pwx, pstash)``:
+    padded input and output widths, the element offsets of ``W_h`` [inp,
+    outp] and ``W_x`` [ep, outp] (-1: none) in the bf16 weight pack (their
+    transposes sit at the same offsets of the transposed pack, and the dW
+    partials use the offsets too), and the sum of the padded output widths of
+    the layers before (a layer's base in a stash is ``n * pstash``, its row
+    stride ``outp``).  ``wtot``: elements of a pack; ``psum``: padded stash
+    columns of all layers, ``psum_hidden`` of all but the last; ``ep``: the
+    padded input width."""
+
+    def __init__(self, spec: ChainSpec):
+        self.ep = _pad(spec.dims[0])
+        self.layers, off, sbase = [], 0, 0
+        for l in range(spec.n_layers):
+            ip, wp = _pad(spec.dims[l]), _pad(spec.dims[l + 1])
+            pwh = off
+            off += ip * wp
+            pwx = -1
+            if spec.has_skip[l]:
+                pwx = off
+                off += self.ep * wp
+            self.layers.append((ip, wp, pwh, pwx, sbase))
+            sbase += wp
+        self.wtot = off
+        self.psum = sbase
+        self.psum_hidden = sbase - self.layers[-1][1]
+
+    def weight_slots(self, spec: ChainSpec):
+        """Per flat weight, in ``flat``'s order: (offset, padded rows, padded
+        columns, rows, columns)."""
+        slots = []
+        for l, (ip, wp, pwh, pwx, _) in enumerate(self.layers):
+            slots.append((pwh, ip, wp, spec.dims[l], spec.dims[l + 1]))
+            if pwx >= 0:
+                slots.append((pwx, self.ep, wp, spec.dims[0], spec.dims[l + 1]))
+        return slots
+
+
+@lru_cache(maxsize=None)
+def mma_layout(spec: ChainSpec) -> MmaLayout:
+    return MmaLayout(spec)
+
+
 @lru_cache(maxsize=None)
 def _layout(spec: ChainSpec):
     """(meta ints, scales, widths sum) for the C interface: per layer
     in, out, W_h offset, W_x offset (-1: none), their transposes' offsets,
-    bias offset, activation code, stash column base."""
+    bias offset, activation code, stash column base, and the padded layout's
+    W_h offset, W_x offset and stash column base (``MmaLayout``)."""
     meta, off, boff, sbase = [], 0, 0, 0
     e = spec.dims[0]
+    lay = mma_layout(spec)
     for l in range(spec.n_layers):
         i, w = spec.dims[l], spec.dims[l + 1]
         wh = off
@@ -247,7 +377,9 @@ def _layout(spec: ChainSpec):
         if spec.has_skip[l]:
             wx = off
             off += e * w
-        meta += [i, w, wh, wx, wh, wx, boff, ACT_CODES[spec.acts[l]], sbase]
+        _, _, pwh, pwx, pstash = lay.layers[l]
+        meta += [i, w, wh, wx, wh, wx, boff, ACT_CODES[spec.acts[l]], sbase,
+                 pwh, pwx, pstash]
         boff += w
         sbase += w
     return tuple(meta), spec.scales, sbase
@@ -257,20 +389,22 @@ def _lib():
     from nunerf_tpu_torch.ops.cuda_build import load
     lib = load("fused_mlp")
     if not getattr(lib, "_nunerf_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
         lib.nunerf_chain_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ip, fp, ci,
                                          ci, ci, vp]
-        lib.nunerf_chain_bwd_data.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
-                                              ip, fp, ci, ci, ci, vp]
+        lib.nunerf_chain_bwd_data.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                              ci, ip, fp, ci, ci, ci, vp]
         lib.nunerf_chain_jac_down.argtypes = [vp, vp, vp, vp, vp, vp, ci, ip,
                                               fp, ci, ci, ci, vp]
-        lib.nunerf_chain_jac_up.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+        lib.nunerf_chain_jac_up.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                             ip, fp, ci, ci, ci, vp]
         lib.nunerf_chain_dw.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.nunerf_chain_dw_grouped.argtypes = [vp, vp, vp, vp, cl, ci, ci, ci,
+                                                ci, vp]
         for fn in (lib.nunerf_chain_fwd, lib.nunerf_chain_bwd_data,
                    lib.nunerf_chain_jac_down, lib.nunerf_chain_jac_up,
-                   lib.nunerf_chain_dw):
+                   lib.nunerf_chain_dw, lib.nunerf_chain_dw_grouped):
             fn.restype = ci
         lib.nunerf_error_string.argtypes = [ci]
         lib.nunerf_error_string.restype = ctypes.c_char_p
@@ -285,7 +419,9 @@ def _check(lib, err, what):
 
 
 def check_limits(spec: ChainSpec, max_in: int = MAX_IN):
-    """Raise unless the kernels take the chain's depth and widths."""
+    """Raise unless the kernels take the chain's depth and widths (the same
+    limits on both routes: a chain beyond them raises, whatever its
+    ``compute_dtype``)."""
     if (spec.n_layers > MAX_LAYERS or spec.dims[0] > max_in
             or max(spec.dims[1:-1], default=0) > MAX_WIDTH
             or spec.dims[-1] > MAX_OUT):
@@ -314,8 +450,14 @@ def _validate(spec: ChainSpec, x, flat, g=None, max_in=MAX_IN):
         raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype}")
 
 
+def _is_mma(spec: ChainSpec) -> bool:
+    """The route is chosen by ``compute_dtype`` alone: bfloat16 takes the
+    tensor-core kernels, float32 the f32 FMA kernels."""
+    return spec.compute_dtype == "bfloat16"
+
+
 def _pack(spec: ChainSpec, flat, transposed: bool = False, rounded: bool = True):
-    """The weights in one buffer, in the order of ``_layout``'s offsets:
+    """The weights in one f32 buffer, in the order of ``_layout``'s offsets:
     rounded to the compute dtype or the f32 originals, as they are or each
     transposed."""
     ws = flat[:n_weights(spec)]
@@ -324,6 +466,35 @@ def _pack(spec: ChainSpec, flat, transposed: bool = False, rounded: bool = True)
     if transposed:
         ws = [w.t() for w in ws]
     return torch.cat([w.reshape(-1) for w in ws]).contiguous()
+
+
+def pack_mma(spec: ChainSpec, flat, transposed: bool = False):
+    """The bf16 route's weight pack: every weight rounded to real
+    ``torch.bfloat16`` (round to nearest even, as ``round_to``), zero-padded
+    to ``MmaLayout``'s [inp, outp] and laid at its offset; with ``transposed``
+    each matrix is stored as its transpose [outp, inp] at the same offset."""
+    lay = mma_layout(spec)
+    out = torch.zeros(lay.wtot, dtype=torch.bfloat16, device=flat[0].device)
+    for w, (off, rp, cp, r, c) in zip(flat, lay.weight_slots(spec)):
+        if transposed:
+            out[off:off + rp * cp].view(cp, rp)[:c, :r].copy_(w.t())
+        else:
+            out[off:off + rp * cp].view(rp, cp)[:r, :c].copy_(w)
+    return out
+
+
+def unpack_mma(spec: ChainSpec, buf):
+    """Per flat weight, the [rows, columns] view of its slot in a buffer laid
+    out as ``pack_mma`` lays the weights (a pack, or summed dW partials)."""
+    return [buf[off:off + rp * cp].view(rp, cp)[:r, :c]
+            for off, rp, cp, r, c in mma_layout(spec).weight_slots(spec)]
+
+
+def _pad_bf16(t, width: int):
+    """[n, width] bf16: ``t`` rounded, zero columns on the right."""
+    out = torch.zeros((t.shape[0], width), dtype=torch.bfloat16, device=t.device)
+    out[:, :t.shape[1]].copy_(t)
+    return out
 
 
 def _pack_biases(spec: ChainSpec, flat):
@@ -340,13 +511,19 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _ptr(t):
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
 def _fwd_launch(lib, spec, x, W, B, out, stash):
+    """The K1 loop.  ``W``: ``_pack`` (f32 route) or ``pack_mma`` (bf16
+    route); ``stash`` likewise f32 in ``_layout``'s columns, or bf16 in
+    ``MmaLayout``'s and without the last layer."""
     meta, scales = _c_meta(spec)
     err = lib.nunerf_chain_fwd(
-        x.data_ptr(), W.data_ptr(), B.data_ptr(), out.data_ptr(),
-        stash.data_ptr() if stash is not None else None, x.shape[0], meta,
-        scales, spec.n_layers, spec.dims[0],
-        int(spec.compute_dtype == "bfloat16"), _stream())
+        x.data_ptr(), W.data_ptr(), B.data_ptr(), out.data_ptr(), _ptr(stash),
+        x.shape[0], meta, scales, spec.n_layers, spec.dims[0],
+        int(_is_mma(spec)), _stream())
     _check(lib, err, "chain_fwd")
 
 
@@ -359,29 +536,152 @@ def chain_fwd_cuda(spec: ChainSpec, x, flat):
     if n == 0:
         return out
     lib = _lib()
-    _fwd_launch(lib, spec, x, _pack(spec, flat), _pack_biases(spec, flat), out, None)
+    W = pack_mma(spec, flat) if _is_mma(spec) else _pack(spec, flat)
+    _fwd_launch(lib, spec, x, W, _pack_biases(spec, flat), out, None)
     launches["chain_fwd"] += 1
     return out
 
 
-def _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, dbar, dbp):
+def chain_hidden_cuda(spec: ChainSpec, x, flat):
+    """K1 with its activation stash read back: ``(y, [h_1, ..., h_{L-1}])``,
+    each f32 [N, w_l]: the stash from which K2, K4 and K5 take ``act'`` (pass
+    1 of each is this launch on the same inputs).  For holding the kernels'
+    hidden activations and relu gates against the plain version's."""
+    _validate(spec, x, flat)
+    x = x.contiguous()
+    n = x.shape[0]
+    out = torch.empty((n, spec.dims[-1]), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out, [out.new_empty((0, w)) for w in spec.dims[1:-1]]
+    lib = _lib()
+    B = _pack_biases(spec, flat)
+    if _is_mma(spec):
+        lay = mma_layout(spec)
+        stash = torch.empty(n * lay.psum_hidden, dtype=torch.bfloat16, device=x.device)
+        _fwd_launch(lib, spec, x, pack_mma(spec, flat), B, out, stash)
+        hidden = [stash[n * base:n * (base + wp)].view(n, wp)[:, :spec.dims[l + 1]].float()
+                  for l, (_, wp, _, _, base) in enumerate(lay.layers[:-1])]
+    else:
+        stash = torch.empty(n * _layout(spec)[2], dtype=torch.float32, device=x.device)
+        _fwd_launch(lib, spec, x, _pack(spec, flat), B, out, stash)
+        hidden, base = [], 0
+        for w in spec.dims[1:-1]:
+            hidden.append(stash[n * base:n * (base + w)].view(n, w))
+            base += w
+    launches["chain_fwd"] += 1
+    return out, hidden
+
+
+def _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, dbar, dbp, ylast=None):
     meta, scales = _c_meta(spec)
     err = lib.nunerf_chain_bwd_data(
-        stash.data_ptr(), WT.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        gzs.data_ptr(), dbar.data_ptr() if dbar is not None else None,
-        dbp.data_ptr(), n, meta, scales, spec.n_layers, spec.dims[0],
-        int(spec.compute_dtype == "bfloat16"), _stream())
+        _ptr(stash), WT.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        gzs.data_ptr(), _ptr(dbar), dbp.data_ptr(), _ptr(ylast), n, meta,
+        scales, spec.n_layers, spec.dims[0], int(_is_mma(spec)), _stream())
     _check(lib, err, "chain_bwd_data")
 
 
 def _dw(lib, h, gz, n, hi, w):
-    """``h^T @ gz`` over ``n`` rows ([n, hi] and [n, w], contiguous): per-split
-    partials from the kernel, summed here."""
+    """``h^T @ gz`` over ``n`` rows ([n, hi] and [n, w], contiguous, f32):
+    per-split partials from the f32 kernel, summed here."""
     splits = max(1, min(128, -(-n // 512)))
     part = torch.empty((splits, hi, w), dtype=torch.float32, device=h.device)
     err = lib.nunerf_chain_dw(h.data_ptr(), gz.data_ptr(), part.data_ptr(), n,
                               hi, w, splits, _stream())
     _check(lib, err, "chain_dw")
+    return part.sum(0)
+
+
+DW_TILE = 128  # DT in csrc/fused_mlp.cu: a dW block's output tile edge
+
+
+def dw_work_table(spec: ChainSpec, jac: bool):
+    """The grouped dW launch's work, one entry an output tile (a block per
+    entry and row split).  Entry: ``(slot, i0, mext, c0, next, a1, b1, a2, b2,
+    scale)``: the tile [i0:i0+mext, c0:c0+next] of flat weight ``slot``'s
+    padded [inp, outp] matrix is ``a1^T b1 + scale * a2^T b2`` over the rows.
+    An operand is ``(name, layer)``: 'x0' and 'gj' (the rounded input and its
+    cotangent, [n, ep]) or a stash's layer, 'h', 'zs', 'qbar', 'p' ([n,
+    outp]).  ``jac`` (K5) adds the J-pass's term ``s_l qbar_{l-1}^T p_l`` to
+    every layer but the last (whose column 0 gets the seed's share outside);
+    without it (K2) ``a2`` is None."""
+    lay = mma_layout(spec)
+    table, slot = [], 0
+    for l, (ip, wp, _, pwx, _) in enumerate(lay.layers):
+        second = jac and l < spec.n_layers - 1
+        srcs = [(("x0", None) if l == 0 else ("h", l - 1),
+                 ("gj", None) if l == 0 else ("qbar", l - 1), ip)]
+        if pwx >= 0:
+            srcs.append((("x0", None), ("gj", None), lay.ep))
+        for a1, a2, rows in srcs:
+            for i0 in range(0, rows, DW_TILE):
+                for c0 in range(0, wp, DW_TILE):
+                    table.append((slot, i0, min(DW_TILE, rows - i0), c0,
+                                  min(DW_TILE, wp - c0), a1, ("zs", l),
+                                  a2 if second else None,
+                                  ("p", l) if second else None,
+                                  spec.scales[l] if second else 0.0))
+            slot += 1
+    return table
+
+
+DW_BUFFERS = ("x0", "gj", "h", "zs", "qbar", "p")  # operand names, in the kernel's order
+
+
+@lru_cache(maxsize=64)
+def _dw_plan(spec: ChainSpec, n: int, jac: bool, device):
+    """The grouped dW launch over ``n`` rows: the work table on the device
+    and the row splits.  A table row a tile, 14 int64: per operand a1, b1,
+    a2, b2 its buffer's index in ``DW_BUFFERS`` (-1: none) and the element
+    offset of the tile's first column in it; the tile's offset in a split's
+    partials; the row strides of a, b and the output; the tile's extents.  It
+    depends on the chain and ``n`` alone (the buffers' addresses go in at the
+    launch), so it is built and copied to the device once."""
+    lay = mma_layout(spec)
+    slots = lay.weight_slots(spec)
+    work = dw_work_table(spec, jac)
+
+    def operand(op, col):
+        """(buffer index, offset of column ``col`` of row 0, row stride)."""
+        if op is None:
+            return -1, 0, 0
+        name, l = op
+        base, ld = (0, lay.ep) if l is None else (n * lay.layers[l][4],
+                                                  lay.layers[l][1])
+        return DW_BUFFERS.index(name), base + col, ld
+
+    rows, tile_scales = [], []
+    for slot, i0, mext, c0, next_, a1, b1, a2, b2, scale in work:
+        off, _, cp, _, _ = slots[slot]
+        (ia1, oa1, lda), (ib1, ob1, ldb) = operand(a1, i0), operand(b1, c0)
+        (ia2, oa2, _), (ib2, ob2, _) = operand(a2, i0), operand(b2, c0)
+        rows.append([ia1, oa1, ib1, ob1, ia2, oa2, ib2, ob2,
+                     off + i0 * cp + c0, lda, ldb, cp, mext, next_])
+        tile_scales.append(scale)
+    # about four blocks an SM slot (132 SMs x 2), and at least 512 rows a split
+    splits = max(1, min(-(-n // 512), -(-1056 // len(work))))
+    rps = -(-(-(-n // splits)) // 64) * 64
+    splits = -(-n // rps)
+    return dict(table=torch.tensor(rows, dtype=torch.int64, device=device),
+                scales=torch.tensor(tile_scales, dtype=torch.float32, device=device),
+                wtot=lay.wtot, ntiles=len(work), n=n, splits=splits, rps=rps)
+
+
+def _dw_grouped(lib, spec: ChainSpec, n: int, bufs: dict, jac: bool):
+    """Every dW of the chain over ``n`` rows in one launch: [wtot] f32 in
+    ``pack_mma``'s layout.  ``bufs`` maps an operand name to its bf16 buffer
+    ('x0', 'gj': [n, ep]; stashes: ``MmaLayout`` columns).  The kernel writes
+    per-split partials; one sum over the splits reduces all layers."""
+    dev = bufs["zs"].device
+    plan = _dw_plan(spec, n, jac, dev)
+    part = torch.empty((plan["splits"], plan["wtot"]), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * len(DW_BUFFERS))(
+        *[bufs[k].data_ptr() if k in bufs else None for k in DW_BUFFERS])
+    err = lib.nunerf_chain_dw_grouped(
+        plan["table"].data_ptr(), plan["scales"].data_ptr(), ptrs,
+        part.data_ptr(), plan["wtot"], plan["ntiles"], n, plan["splits"],
+        plan["rps"], _stream())
+    _check(lib, err, "chain_dw_grouped")
     return part.sum(0)
 
 
@@ -391,7 +691,10 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat):
     Pass 1 recomputes the forward into a scratch stash, pass 2 walks the
     layers down per row tile (dx, db partials, the rounded gz stash), pass 3
     forms each dW as per-split partials; the partials are summed here, as
-    the JAX wrapper sums the Pallas kernel's per-tile partials."""
+    the JAX wrapper sums the Pallas kernel's per-tile partials.  On the bf16
+    route pass 1 and pass 3 run on the tensor cores (bf16 stashes, one dW
+    launch); pass 2 multiplies by the unrounded f32 ``W^T`` and stays on the
+    f32 FMA kernel."""
     _validate(spec, x, flat, g)
     x, g = x.contiguous(), g.contiguous()
     n, e = x.shape
@@ -403,30 +706,42 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat):
                 tuple(torch.zeros(s, **f32) for s in flat_weight_shapes(spec))
                 + tuple(torch.zeros((1, d), **f32) for d in spec.dims[1:]))
     lib = _lib()
-    W = _pack(spec, flat)
     # f32 originals, as the TPU kernel's precomputed transposes
     WT = _pack(spec, flat, transposed=True, rounded=False)
     B = _pack_biases(spec, flat)
-    stash = torch.empty(n * wsum, **f32)
-    gzs = torch.empty(n * wsum, **f32)
     out = torch.empty((n, spec.dims[-1]), **f32)
     dx = torch.empty((n, e), **f32)
     n_blocks = -(-n // ROWS_PER_BLOCK)
     dbp = torch.empty((n_blocks, wsum), **f32)
-
-    _fwd_launch(lib, spec, x, W, B, out, stash)
-    _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, None, dbp)
-
-    x0 = round_to(x, spec.compute_dtype).contiguous()
-    dws, dbs, base = [], [], 0
-    for l in range(spec.n_layers):
-        i, w = spec.dims[l], spec.dims[l + 1]
-        gz = gzs[n * base:n * (base + w)]
-        h_prev = x0 if l == 0 else stash[n * (base - i):n * base]
-        srcs = [(h_prev, i)] + ([(x0, e)] if spec.has_skip[l] else [])
-        for h, hi in srcs:
-            dws.append(_dw(lib, h, gz, n, hi, w))
-        dbs.append(dbp[:, base:base + w].sum(0, keepdim=True))
+    if _is_mma(spec):
+        lay = mma_layout(spec)
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        stash = torch.empty(n * lay.psum_hidden, **bf)
+        gzs = torch.empty(n * lay.psum, **bf)
+        _fwd_launch(lib, spec, x, pack_mma(spec, flat), B, out, stash)
+        _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, None, dbp, ylast=out)
+        dw = _dw_grouped(lib, spec, n, {"x0": _pad_bf16(x, lay.ep), "h": stash,
+                                        "zs": gzs}, jac=False)
+        dws = [d.contiguous() for d in unpack_mma(spec, dw)]
+    else:
+        stash = torch.empty(n * wsum, **f32)
+        gzs = torch.empty(n * wsum, **f32)
+        _fwd_launch(lib, spec, x, _pack(spec, flat), B, out, stash)
+        _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, None, dbp)
+        x0 = x
+        dws, base = [], 0
+        for l in range(spec.n_layers):
+            i, w = spec.dims[l], spec.dims[l + 1]
+            gz = gzs[n * base:n * (base + w)]
+            h_prev = x0 if l == 0 else stash[n * (base - i):n * base]
+            srcs = [(h_prev, i)] + ([(x0, e)] if spec.has_skip[l] else [])
+            for h, hi in srcs:
+                dws.append(_dw(lib, h, gz, n, hi, w))
+            base += w
+    db = dbp.sum(0)
+    dbs, base = [], 0
+    for w in spec.dims[1:]:
+        dbs.append(db[base:base + w].reshape(1, w))
         base += w
     launches["chain_bwd"] += 1
     return dx, tuple(dws) + tuple(dbs)
@@ -448,19 +763,25 @@ def _jac_down_launch(lib, spec, n, stash, WT, flat, j, qst):
     wl_x = flat[last + 1].contiguous() if spec.has_skip[-1] else None
     meta, scales = _c_meta(spec)
     err = lib.nunerf_chain_jac_down(
-        stash.data_ptr(), WT.data_ptr(), wl_h.data_ptr(),
-        wl_x.data_ptr() if wl_x is not None else None, j.data_ptr(),
-        qst.data_ptr() if qst is not None else None, n, meta, scales,
-        spec.n_layers, spec.dims[0], int(spec.compute_dtype == "bfloat16"),
-        _stream())
+        stash.data_ptr(), WT.data_ptr(), wl_h.data_ptr(), _ptr(wl_x),
+        j.data_ptr(), _ptr(qst), n, meta, scales, spec.n_layers, spec.dims[0],
+        int(_is_mma(spec)), _stream())
     _check(lib, err, "chain_jac_down")
+
+
+def _jac_packs(spec: ChainSpec, flat):
+    """(W, WT) of the rounded weights for K4/K5, in the route's packing."""
+    if _is_mma(spec):
+        return pack_mma(spec, flat), pack_mma(spec, flat, transposed=True)
+    return _pack(spec, flat), _pack(spec, flat, transposed=True)
 
 
 def chain_jac_fwd_cuda(spec: ChainSpec, x, flat):
     """K4: ``(y [N, out_dim], j [N, in_dim])``, ``j = d y[:, 0] / dx``.
 
-    Per chunk of rows: the K1 loop writes ``y`` and the activation stash,
-    then the J-pass walks the layers down from the stash."""
+    Per chunk of rows: the K1 loop writes ``y`` and the activation stash
+    (bf16 on the bf16 route), then the J-pass walks the layers down from the
+    stash."""
     _validate_jac(spec, x, flat)
     x = x.contiguous()
     n, e = x.shape
@@ -470,10 +791,14 @@ def chain_jac_fwd_cuda(spec: ChainSpec, x, flat):
     if n == 0:
         return y, j
     lib = _lib()
-    W, B = _pack(spec, flat), _pack_biases(spec, flat)
-    WT = _pack(spec, flat, transposed=True)
-    _, _, wsum = _layout(spec)
-    stash = torch.empty(min(n, JAC_CHUNK_ROWS) * wsum, **f32)
+    B = _pack_biases(spec, flat)
+    W, WT = _jac_packs(spec, flat)
+    rows = min(n, JAC_CHUNK_ROWS)
+    if _is_mma(spec):
+        stash = torch.empty(rows * mma_layout(spec).psum_hidden,
+                            dtype=torch.bfloat16, device=x.device)
+    else:
+        stash = torch.empty(rows * _layout(spec)[2], **f32)
     for c0 in range(0, n, JAC_CHUNK_ROWS):
         c1 = min(n, c0 + JAC_CHUNK_ROWS)
         _fwd_launch(lib, spec, x[c0:c1], W, B, y[c0:c1], stash)
@@ -482,33 +807,108 @@ def chain_jac_fwd_cuda(spec: ChainSpec, x, flat):
     return y, j
 
 
+def jac_bwd_scratch_bytes(spec: ChainSpec, rows: int) -> int:
+    """Bytes of K5's stashes for a chunk of ``rows`` rows: four f32 stashes
+    on the f32 route; on the bf16 route h, p, qbar (bf16) and q, dbar (f32)
+    of the hidden layers and zs (bf16) of all layers, in the padded layout."""
+    if _is_mma(spec):
+        lay = mma_layout(spec)
+        return rows * (lay.psum_hidden * (3 * 2 + 2 * 4) + lay.psum * 2)
+    return rows * _layout(spec)[2] * 4 * 4
+
+
 def chain_jac_bwd_cuda(spec: ChainSpec, x, gy, gj, flat):
     """K5: (dx, (dW..., db...)) of ``sum(y * gy) + sum(j * gj)``.
 
     Per chunk of rows: passes 1 and 2 recompute the forward and the J-pass
     into scratch stashes (h, q); pass 3 reverses the J-pass upwards (dbar,
-    the rounded qbar, p over q); pass 4 is K2's data pass with
-    ``zbar = hbar act' + dbar act''`` (dx, db partials, the rounded zs over
-    dbar); every dW is ``h_prev^T zs + s qbar^T p``, and the J-pass's seed
-    puts ``s_L * colsum(qbar_top)`` into column 0 of the last dW_h.  Partials
-    are summed here; nothing is carried across blocks."""
+    the rounded qbar, p); pass 4 is K2's data pass with
+    ``zbar = hbar act' + dbar act''`` (dx, db partials, the rounded zs);
+    every dW is ``h_prev^T zs + s qbar^T p``, and the J-pass's seed puts
+    ``s_L * colsum(qbar_top)`` into column 0 of the last dW_h.  Partials are
+    summed here; nothing is carried across blocks.  The bf16 route keeps the
+    bf16-exact stashes (h, p, zs, qbar) as bf16 and q and dbar as f32, and
+    forms every dW of a chunk in one launch."""
     _validate_jac(spec, x, flat, gy, gj)
     x, gy, gj = x.contiguous(), gy.contiguous(), gj.contiguous()
+    n, e = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if n == 0:
+        return torch.empty((n, e), **f32), tuple(
+            [torch.zeros(s, **f32) for s in flat_weight_shapes(spec)]
+            + [torch.zeros((1, d), **f32) for d in spec.dims[1:]])
+    run = _jac_bwd_mma if _is_mma(spec) else _jac_bwd_f32
+    dx, dws, dbs = run(_lib(), spec, x, gy, gj, flat)
+    launches["chain_jac_bwd"] += 1
+    return dx, tuple(dws) + tuple(dbs)
+
+
+def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
+    n, e = x.shape
+    n_l = spec.n_layers
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    lay = mma_layout(spec)
+    _, _, wsum = _layout(spec)
+    starts = _layer_starts(spec)
+    B = _pack_biases(spec, flat)
+    W, WT = _jac_packs(spec, flat)
+    wtop = spec.dims[-2]
+    rows = min(n, JAC_CHUNK_ROWS)
+    hst, pst, qbs = (torch.empty(rows * lay.psum_hidden, **bf) for _ in range(3))
+    qst, dbar = (torch.empty(rows * lay.psum_hidden, **f32) for _ in range(2))
+    zst = torch.empty(rows * lay.psum, **bf)
+    y = torch.empty((rows, spec.dims[-1]), **f32)
+    j = torch.empty((rows, e), **f32)
+    dx = torch.empty((n, e), **f32)
+    dw = torch.zeros(lay.wtot, **f32)
+    db = torch.zeros(wsum, **f32)
+    col = torch.zeros(wtop + e, **f32)
+    meta, scales = _c_meta(spec)
+    chunks = [(c0, min(n, c0 + JAC_CHUNK_ROWS)) for c0 in range(0, n, JAC_CHUNK_ROWS)]
+    x0b, gjb = _pad_bf16(x, lay.ep), _pad_bf16(gj, lay.ep)
+    for c0, c1 in chunks:
+        nc = c1 - c0
+        n_blocks = -(-nc // ROWS_PER_BLOCK)
+        colp = torch.empty((n_blocks, wtop + e), **f32)
+        dbp = torch.empty((n_blocks, wsum), **f32)
+        _fwd_launch(lib, spec, x[c0:c1], W, B, y, hst)
+        _jac_down_launch(lib, spec, nc, hst, WT, flat, j, qst)
+        err = lib.nunerf_chain_jac_up(
+            hst.data_ptr(), qst.data_ptr(), W.data_ptr(), gj[c0:c1].data_ptr(),
+            dbar.data_ptr(), qbs.data_ptr(), pst.data_ptr(), colp.data_ptr(),
+            nc, meta, scales, n_l, e, 1, _stream())
+        _check(lib, err, "chain_jac_up")
+        _bwd_data_launch(lib, spec, nc, hst, WT, gy[c0:c1], dx[c0:c1], zst,
+                         dbar, dbp)
+        dw += _dw_grouped(lib, spec, nc, {"x0": x0b[c0:c1], "gj": gjb[c0:c1], "h": hst,
+                                          "zs": zst, "qbar": qbs, "p": pst}, jac=True)
+        db += dbp.sum(0)
+        col += colp.sum(0)
+    dws = [d.contiguous() for d in unpack_mma(spec, dw)]
+    col = col * spec.scales[-1]
+    dws[starts[-1]][:, 0] += col[:wtop]
+    if spec.has_skip[-1]:
+        dws[starts[-1] + 1][:, 0] += col[wtop:]
+    dbs, base = [], 0
+    for w in spec.dims[1:]:
+        dbs.append(db[base:base + w].reshape(1, w))
+        base += w
+    return dx, dws, dbs
+
+
+def _jac_bwd_f32(lib, spec, x, gy, gj, flat):
     n, e = x.shape
     n_l = spec.n_layers
     f32 = dict(dtype=torch.float32, device=x.device)
     dws = [torch.zeros(s, **f32) for s in flat_weight_shapes(spec)]
     dbs = [torch.zeros((1, d), **f32) for d in spec.dims[1:]]
     dx = torch.empty((n, e), **f32)
-    if n == 0:
-        return dx, tuple(dws) + tuple(dbs)
-    lib = _lib()
-    W, B = _pack(spec, flat), _pack_biases(spec, flat)
-    WT = _pack(spec, flat, transposed=True)
+    B = _pack_biases(spec, flat)
+    W, WT = _jac_packs(spec, flat)
     _, _, wsum = _layout(spec)
     starts = _layer_starts(spec)
-    x0 = round_to(x, spec.compute_dtype)
-    gjr = round_to(gj, spec.compute_dtype)
     wtop = spec.dims[-2]
     rows = min(n, JAC_CHUNK_ROWS)
     stash, qst, dbar, qbs = (torch.empty(rows * wsum, **f32) for _ in range(4))
@@ -523,16 +923,16 @@ def chain_jac_bwd_cuda(spec: ChainSpec, x, gy, gj, flat):
         dbp = torch.empty((n_blocks, wsum), **f32)
         _fwd_launch(lib, spec, x[c0:c1], W, B, y, stash)
         _jac_down_launch(lib, spec, nc, stash, WT, flat, j, qst)
+        # p overwrites q and zs overwrites dbar in place
         err = lib.nunerf_chain_jac_up(
             stash.data_ptr(), qst.data_ptr(), W.data_ptr(),
-            gj[c0:c1].data_ptr(), dbar.data_ptr(), qbs.data_ptr(),
-            colp.data_ptr(), nc, meta, scales, n_l, e,
-            int(spec.compute_dtype == "bfloat16"), _stream())
+            gj[c0:c1].data_ptr(), dbar.data_ptr(), qbs.data_ptr(), None,
+            colp.data_ptr(), nc, meta, scales, n_l, e, 0, _stream())
         _check(lib, err, "chain_jac_up")
         _bwd_data_launch(lib, spec, nc, stash, WT, gy[c0:c1], dx[c0:c1], dbar,
                          dbar, dbp)
 
-        x0c, gjc = x0[c0:c1].contiguous(), gjr[c0:c1].contiguous()
+        x0c, gjc = x[c0:c1], gj[c0:c1]
         col = colp.sum(0) * spec.scales[-1]
         base = 0
         for l in range(n_l):
@@ -555,8 +955,7 @@ def chain_jac_bwd_cuda(spec: ChainSpec, x, gy, gj, flat):
                     dws[starts[l] + 1][:, 0] += col[wtop:]
             dbs[l] += dbp[:, base:base + w].sum(0, keepdim=True)
             base += w
-    launches["chain_jac_bwd"] += 1
-    return dx, tuple(dws) + tuple(dbs)
+    return dx, dws, dbs
 
 
 class FusedChainMLP(torch.autograd.Function):

@@ -36,6 +36,9 @@ SPECS = {
                 (False,) * 4, (1.0,) * 4),
     # the NeRF++ trunk's shape: a post-activation skip, every layer relu
     "trunk": ((84, 256, 256, 256), ("relu",) * 3, (False, False, True), (1.0,) * 3),
+    # the value-only SDF chain: the last layer sliced to its first column
+    "sdf_value": ((39, 256, 217, 256, 1), ("softplus100",) * 3 + ("none",),
+                  (False, False, True, False), (1.0, 1.0, 1 / math.sqrt(2), 1.0)),
     # a skip on layer 1 and on the last layer, a relu among the activations
     "jac_skips": ((20, 64, 64, 64, 5), ("softplus100", "relu", "softplus100", "none"),
                   (False, True, False, True), (1.0, 0.5, 1.0, 0.7)),
@@ -74,21 +77,56 @@ def _assert_close(a, e, rtol, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name,n", [("sdf", 1000), ("relu", 333), ("relu259", 333),
-                                    ("trunk", 200)])
+                                    ("trunk", 200),
+                                    # shapes that can break a tiled MMA: ragged
+                                    # and single-row tiles, the 259- and 84-wide
+                                    # inputs, the 217-deep layer, last layers of
+                                    # 1, 3 and 257
+                                    ("sdf", 1), ("sdf", 63), ("sdf", 65),
+                                    ("sdf_value", 1000), ("sdf_value", 1),
+                                    ("relu259", 65), ("relu259", 1000),
+                                    ("trunk", 63), ("trunk", 1000), ("relu", 1)])
 def test_kernels_match_plain_version(cuda, name, n, compute_dtype):
+    """K1 (y and every hidden activation of its stash) and K2 (dx, every dW,
+    every db, by the largest error over all rows).
+
+    A relu whose pre-activation is within rounding of 0 opens or closes with
+    the order of the sums, and in bf16 also where an activation before it
+    rounds the other way; its unit's whole share of the row's gradients then
+    comes or goes.  So a relu chain in bf16 is held against autograd through
+    the plain chain at the kernel's own gates, at the same tolerance; the
+    hidden activations hold the gates themselves (one that differs where the
+    plain pre-activation is not small shows there), and a row of dx that is
+    off against plain autograd has to be one in which a gate differs."""
     spec, x, g, flat = _make(name, n, compute_dtype, cuda)
+    t_f, t_b = TOL[("fwd", compute_dtype)], TOL[("bwd", compute_dtype)]
     leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
-    y_ref = fm.chain_mlp_reference(spec, *leaves)
-    torch.sum(y_ref * g).backward()
+    y_ref, h_ref = fm.chain_hidden_reference(spec, *leaves)
+    assert torch.equal(y_ref, fm.chain_mlp_reference(spec, x, *flat))
+    ref = torch.autograd.grad(torch.sum(y_ref * g), leaves)
 
     fm.reset_launches()
     y = fm.chain_fwd_cuda(spec, x, flat)
     dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
     torch.cuda.synchronize()
     assert fm.launches["chain_fwd"] == 1 and fm.launches["chain_bwd"] == 1
-    _assert_close(y, y_ref.detach(), TOL[("fwd", compute_dtype)], "K1")
-    for i, (a, r) in enumerate(zip((dx,) + dflat, leaves)):
-        _assert_close(a, r.grad, TOL[("bwd", compute_dtype)], f"K2 grad {i}")
+    y_k, h_k = fm.chain_hidden_cuda(spec, x, flat)
+    _assert_close(y, y_ref.detach(), t_f, "K1")
+    assert torch.equal(y_k, y)
+    for i, (a, r) in enumerate(zip(h_k, h_ref)):
+        _assert_close(a, r.detach(), t_f, f"K1 hidden {i}")
+    if compute_dtype == "bfloat16" and "relu" in spec.acts:
+        gates = fm.relu_gates(spec, h_k, y_k)
+        flipped = torch.zeros(n, dtype=torch.bool, device=cuda)
+        for gate, a in zip(gates, h_ref + [y_ref]):
+            if gate is not None:
+                flipped |= ((a.detach() > 0) != (gate > 0)).any(dim=1)
+        row = (dx - ref[0]).abs().amax(dim=1) / ref[0].abs().max()
+        assert not ((row > t_b) & ~flipped).any(), "a row of dx is off and no gate differs"
+        y_g, _ = fm.chain_hidden_reference(spec, *leaves, gates=gates)
+        ref = torch.autograd.grad(torch.sum(y_g * g), leaves)
+    for i, (a, r) in enumerate(zip((dx,) + dflat, ref)):
+        _assert_close(a, r, t_b, f"K2 grad {i}")
 
 
 @pytest.mark.cuda
@@ -109,7 +147,9 @@ def test_autograd_function_runs_the_kernels(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name,n", [("sdf", 1000), ("jac_skips", 333), ("sdf", 64)])
+@pytest.mark.parametrize("name,n", [("sdf", 1000), ("jac_skips", 333), ("sdf", 64),
+                                    ("sdf", 1), ("sdf", 63), ("sdf", 65),
+                                    ("jac_skips", 1000), ("jac_skips", 1)])
 def test_jacobian_kernels_match_plain_version(cuda, monkeypatch, name, n, compute_dtype):
     """K4 (y, j) and K5 (dx, every dW, every db); 40 rows a chunk, so that
     the ragged cases also cross chunks whose last one is short."""
@@ -131,6 +171,88 @@ def test_jacobian_kernels_match_plain_version(cuda, monkeypatch, name, n, comput
     _assert_close(j, j_ref.detach(), TOL[("bwd", compute_dtype)], "K4 j")
     for i, (a, r) in enumerate(zip((dx,) + dflat, leaves)):
         _assert_close(a, r.grad, TOL[("bwd", compute_dtype)], f"K5 grad {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_jacobian_backward_is_the_same_from_run_to_run(cuda, monkeypatch, compute_dtype):
+    """dW comes from per-split partials summed in a fixed order, with no
+    atomics: two runs give equal bits, across chunks too."""
+    monkeypatch.setattr(fm, "JAC_CHUNK_ROWS", 2048)
+    spec, x, gy, flat = _make("sdf", 5000, compute_dtype, cuda)
+    gj = torch.as_tensor(np.random.RandomState(9).randn(*x.shape).astype(np.float32),
+                         device=cuda)
+    runs = []
+    for _ in range(2):
+        dx, dflat = fm.chain_jac_bwd_cuda(spec, x, gy, gj, flat)
+        torch.cuda.synchronize()
+        runs.append((dx,) + dflat)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,jac", [
+    ("sdf", 1000, False), ("sdf", 1000, True), ("sdf", 65, False), ("sdf", 65, True),
+    ("relu259", 333, False), ("jac_skips", 5000, False), ("jac_skips", 5000, True),
+    ("sdf_value", 1, False), ("sdf_value", 1, True)])
+def test_grouped_dw_kernel_matches_matmul(cuda, name, n, jac):
+    """The one-launch dW kernel alone, on random bf16 stashes: every tile is
+    ``a1^T b1 + s a2^T b2`` of exact bf16 products, so it agrees with f32
+    matmuls of the same stashes to the order of the sums (1e-5), whatever
+    rounding the passes before it would have done."""
+    spec = fm.ChainSpec(*SPECS[name], compute_dtype="bfloat16")
+    lay = fm.mma_layout(spec)
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    sizes = {"x0": lay.ep, "gj": lay.ep, "h": lay.psum_hidden, "qbar": lay.psum_hidden,
+             "p": lay.psum_hidden, "zs": lay.psum}
+    bufs = {k: torch.randn(n * w, generator=gen).to(cuda).to(torch.bfloat16)
+            for k, w in sizes.items() if jac or k in ("x0", "h", "zs")}
+    got = fm._dw_grouped(fm._lib(), spec, n, bufs, jac)
+    torch.cuda.synchronize()
+
+    def operand(op):
+        name_, l = op
+        if l is None:
+            return bufs[name_].view(n, lay.ep).float()
+        _, wp, _, _, base = lay.layers[l]
+        return bufs[name_][n * base:n * (base + wp)].view(n, wp).float()
+
+    want = torch.zeros(lay.wtot, device=cuda)
+    slots = lay.weight_slots(spec)
+    for slot, i0, mext, c0, next_, a1, b1, a2, b2, scale in fm.dw_work_table(spec, jac):
+        off, rp, cp, _, _ = slots[slot]
+        tile = operand(a1)[:, i0:i0 + mext].t() @ operand(b1)[:, c0:c0 + next_]
+        if a2 is not None:
+            tile = tile + scale * (operand(a2)[:, i0:i0 + mext].t()
+                                   @ operand(b2)[:, c0:c0 + next_])
+        want[off:off + rp * cp].view(rp, cp)[i0:i0 + mext, c0:c0 + next_] = tile
+    _assert_close(got, want, 1e-5, "grouped dW")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_chain_beyond_the_limits_raises(cuda, compute_dtype):
+    """No route takes a hidden layer wider than 256, an input wider than 512
+    (256 for K4/K5) or more than 16 layers, and neither falls back."""
+    rs = np.random.RandomState(0)
+    for dims, jac_only in (((39, 272, 272, 1), False), ((520, 256, 3), False),
+                           ((39,) + (64,) * 16 + (1,), False),
+                           ((259, 256, 256, 3), True)):
+        n_l = len(dims) - 1
+        spec = fm.ChainSpec(dims, ("softplus100",) * (n_l - 1) + ("none",),
+                            (False,) * n_l, (1.0,) * n_l, compute_dtype=compute_dtype)
+        flat = [torch.as_tensor(rs.randn(*s).astype(np.float32), device=cuda)
+                for s in fm.flat_weight_shapes(spec)]
+        flat += [torch.zeros((1, d), device=cuda) for d in dims[1:]]
+        x = torch.zeros((8, dims[0]), device=cuda)
+        fm.reset_launches()
+        with pytest.raises(ValueError):
+            fm.chain_mlp_with_grad0(spec, x, *flat)
+        if not jac_only:
+            with pytest.raises(ValueError):
+                fm.fused_chain_mlp(spec, x, *flat)
+        assert not any(fm.launches.values())
 
 
 @pytest.mark.cuda

@@ -141,5 +141,7 @@ def test_kernel_limits_take_a_259_wide_input():
     with pytest.raises(ValueError, match="the kernels take"):
         tfm.check_limits(spec((259, 256, 3)), max_in=tfm.MAX_WIDTH)
     meta, _, wsum = tfm._layout(spec((259, 256, 256, 256, 3)))
-    assert meta[:4] == (259, 256, 0, -1) and meta[9:12] == (256, 256, 259 * 256)
+    # 12 ints a layer; the bf16 route's packing pads the 259 rows to 272
+    assert meta[:4] == (259, 256, 0, -1) and meta[12:15] == (256, 256, 259 * 256)
+    assert meta[9:12] == (0, -1, 0) and meta[12 + 9:12 + 12] == (272 * 256, -1, 256)
     assert wsum == 3 * 256 + 3

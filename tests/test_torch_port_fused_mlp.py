@@ -98,9 +98,11 @@ def test_wrapper_dispatch_and_layout():
     with pytest.raises(ValueError):
         tfm.chain_fwd_cuda(tspec, t(x), [t(f) for f in flat])
     meta, scales, wsum = tfm._layout(tspec)
-    # per layer: in, out, W_h, W_x, W_h^T, W_x^T, bias, act, stash offsets
-    assert meta[9 * 2:9 * 3] == (25, 64, 39 * 64 + 64 * 25, 39 * 64 + 64 * 25 + 25 * 64,
-                                 39 * 64 + 64 * 25, 39 * 64 + 64 * 25 + 25 * 64,
-                                 64 + 25, tfm.ACT_CODES["softplus100"], 64 + 25)
+    # per layer: in, out, W_h, W_x, W_h^T, W_x^T, bias, act, stash offsets, and
+    # the bf16 route's W_h, W_x and stash offsets in the layout padded to 16s
+    assert meta[12 * 2:12 * 3] == (25, 64, 39 * 64 + 64 * 25, 39 * 64 + 64 * 25 + 25 * 64,
+                                   39 * 64 + 64 * 25, 39 * 64 + 64 * 25 + 25 * 64,
+                                   64 + 25, tfm.ACT_CODES["softplus100"], 64 + 25,
+                                   48 * 64 + 64 * 32, 48 * 64 + 64 * 32 + 32 * 64, 64 + 32)
     assert wsum == 64 + 25 + 64 + 1 and scales == tspec.scales
 

@@ -1,0 +1,151 @@
+"""Where the time of the chain kernels (K1, K2, K4, K5) goes, on one GPU.
+
+    python3 tools/prof_chain_kernels.py [--variants] [--n 131072]
+
+Without ``--variants``: each wrapper at the SDF chain's full width (and K1 at
+a 259-input head), bf16, random weights from a seed; CUDA-event time of the
+whole call (packing, padding and the sums of partials included) and, from
+``torch.profiler``, the device time of every kernel the call launches.
+
+With ``--variants``: builds ``csrc/fused_mlp.cu`` with one piece of the
+tensor-core route compiled out at a time by the source's ``-DPROF_NO_*``
+switches (the ``mma.sync``, the ``cp.async`` weight staging, the epilogues'
+activation math, the ``ldmatrix`` loads, the L2 prefetch of the epilogues'
+inputs; such a build computes nothing right and is only timed), and with other
+pipeline shapes (``-DKS`` rows a weight slice, ``-DNSTAGE`` stages), one
+``nvcc`` each, all started together, into
+``nunerf_tpu_torch/build/variants/``; then times K1, K4 and K5 through each.
+What a piece costs is the base time less the time without it; if the pieces'
+costs add up to the whole, nothing overlaps.
+"""
+
+import argparse
+import math
+import os
+import subprocess
+import sys
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from nunerf_tpu_torch.ops import cuda_build  # noqa: E402
+from nunerf_tpu_torch.ops import fused_mlp as fm  # noqa: E402
+
+SQ2 = 1 / math.sqrt(2)
+SDF = ((39, 256, 256, 256, 217, 256, 256, 256, 256), ("softplus100",) * 8 + ("none",),
+       (False,) * 4 + (True,) + (False,) * 4, (1.0,) * 4 + (SQ2,) + (1.0,) * 4)
+HEAD = ((259, 256, 256, 256, 3), ("relu",) * 3 + ("none",), (False,) * 4, (1.0,) * 4)
+
+# -D flags of csrc/fused_mlp.cu: a piece compiled out, or another pipeline shape
+VARIANTS = {"base": [],
+            "no mma.sync": ["-DPROF_NO_MMA"],
+            "no cp.async": ["-DPROF_NO_CP_ASYNC"],
+            "no activation math": ["-DPROF_NO_ACT"],
+            "no L2 prefetch": ["-DPROF_NO_PREFETCH"],
+            "no ldmatrix": ["-DPROF_NO_LDMATRIX"],
+            "KS=64 NSTAGE=2": ["-DKS=64", "-DNSTAGE=2"],
+            "KS=32 NSTAGE=2": ["-DKS=32", "-DNSTAGE=2"]}
+
+
+def make_chain(dims, acts, skip, scales, dev, gen):
+    spec = fm.ChainSpec(dims, acts, skip, scales, "bfloat16")
+    flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev)
+            for s in fm.flat_weight_shapes(spec)]
+    flat += [(torch.randn((1, d), generator=gen) * 0.1).to(dev) for d in dims[1:]]
+    return spec, flat
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def by_kernel(what, fn, reps):
+    ms = cuda_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / reps, e.count / reps)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    print(f"== {what}: {ms:.3f} ms a call; device time of its kernels "
+          f"{sum(r[1] for r in rows) / 1e3:.3f} ms")
+    for key, us, count in rows[:8]:
+        print(f"   {us / 1e3:8.3f} ms  x{count:5.1f}  {key[:88]}")
+
+
+def build_variants():
+    """{name: library path} of the variant builds."""
+    src = os.path.join(cuda_build.CSRC_DIR, "fused_mlp.cu")
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    flags = [a for a in cuda_build.NVCC_FLAGS if a not in ("-Xptxas", "-v")]
+    procs, libs = {}, {}
+    for i, (name, defs) in enumerate(VARIANTS.items()):
+        libs[name] = os.path.join(out_dir, f"variant_{i}.so")
+        procs[name] = subprocess.Popen(
+            [cuda_build.find_nvcc(), *defs, *flags, "-o", libs[name], src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name!r}:\n{out[-3000:]}")
+    return libs
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--n", type=int, default=131072)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("prof_chain_kernels: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    n = args.n
+    dims, acts, skip, scales = SDF
+    val = make_chain(dims + (1,), acts, skip, scales, dev, gen)
+    full = make_chain(dims + (257,), acts, skip, scales, dev, gen)
+    head = make_chain(*HEAD, dev, gen)
+    x = (torch.randn((n, 39), generator=gen) * 0.5).to(dev)
+    xh = torch.randn((n, 259), generator=gen).to(dev)
+    gy = torch.randn((n, 257), generator=gen).to(dev)
+    gj = torch.randn((n, 39), generator=gen).to(dev)
+    half = n // 2
+    g1 = torch.randn((half, 1), generator=gen).to(dev)
+    xhalf = x[:half].contiguous()
+    calls = {
+        "K1 value": (lambda: fm.chain_fwd_cuda(val[0], x, val[1]), 10),
+        "K1 head": (lambda: fm.chain_fwd_cuda(head[0], xh, head[1]), 10),
+        "K4": (lambda: fm.chain_jac_fwd_cuda(full[0], x, full[1]), 5),
+        "K5": (lambda: fm.chain_jac_bwd_cuda(full[0], x, gy, gj, full[1]), 3),
+    }
+    if not args.variants:
+        calls[f"K2 value, N={half}"] = (
+            lambda: fm.chain_bwd_cuda(val[0], xhalf, g1, val[1]), 3)
+        for what, (fn, reps) in calls.items():
+            by_kernel(f"{what}, N={n}, bf16" if "N=" not in what else what, fn, reps)
+        return 0
+    for name, lib in build_variants().items():
+        # the wrappers load the library by name: hand them this build
+        cuda_build.load_from("fused_mlp", lib)
+        print(f"{name:20s} " + "   ".join(f"{what} {cuda_ms(fn, reps):.3f} ms"
+                                           for what, (fn, reps) in calls.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
