@@ -13,10 +13,15 @@ Phases (any failure exits non-zero):
      shapes, with times after warm-up (CUDA events) beside each kernel's
      bound; K1/K2 also at a shading head's shape (259 inputs) and at the
      NeRF++ trunk's, beside the plain modules; K1, K2, K4 and K5 at the shapes
-     that can break a tiled MMA (N = 1, 63, 65, 1000; inputs of 39, 84, 131
-     and 259; the 217-deep layer; last layers of 1, 3 and 257), f32 and bf16;
-     K3 on the full-width mesh,
-     beside the port's brute sweep and tile-culled descent on the same rays;
+     that can break a tiled MMA (N = 1, 63, 65, 1000; inputs of 39, 84, 131,
+     259 and 512; the 217-deep layer; last layers of 1, 3, 64 and 257 with
+     no activation, a relu or a softplus), f32 and bf16; K2's bf16 data pass
+     also against f32 products of its own stashes, and on one-layer probes
+     whose dx is the f32 weights to the last bit; K3, tile-culled over the
+     scene's index, on the full-width mesh at 1024, 5000 and 131,072 rays
+     (its pair counts and the bound of its culled work beside the brute
+     sweep's), beside the port's brute sweep and tile-culled descent, and on
+     an adversarial box mesh;
   4. correctness: a small stage-1 step and a small stage-2 step on the card
      (kernels on) against the same steps on the CPU (plain versions), plain
      and with the ``fused_sdf`` / ``fused_mlp`` gates on;
@@ -198,6 +203,51 @@ def chain_errs(fm, spec, x, g, flat, got, t_b):
     return e
 
 
+def data_pass_check(fm, spec, x, g, flat, what):
+    """K2's bf16 data pass against f32 ``torch.matmul`` (TF32 off) of its own
+    stashes: dx within 1e-5 of its scale and every rounded gz within one
+    bf16 unit (``data_pass_errors``).  ``CHAIN_TOL``'s 3e-2 cannot tell the
+    exact three-piece split of ``W^T`` from one with a piece dropped.  This
+    sees a dropped ``mid`` (about 1e-3 of dx's scale); a dropped ``lo`` (at
+    most 2^-16 of a weight) moves dx by a few 1e-6, under the limit, and only
+    ``split_probe_check`` sees it.  Returns (dx error, gz units)."""
+    kept = {}
+    dx, _ = fm.chain_bwd_cuda(spec, x, g, flat, keep=kept)
+    torch.cuda.synchronize()
+    dx_err, ulps = fm.data_pass_errors(spec, g, flat, kept, dx)
+    if not (dx_err <= 1e-5 and ulps <= 1.0):
+        raise AssertionError(f"K2 data pass {what}: dx {dx_err:.2e} (tol 1e-5), gz off by "
+                             f"{ulps:.2f} bf16 units (tol 1) against f32 products of its stashes")
+    return dx_err, ulps
+
+
+# (input, last layer) widths of the split probes: one 16-deep k-block and
+# many, the data pass's dx tile in shared memory and, past 256 inputs, in
+# two column blocks written from the accumulators
+SPLIT_PROBES = ((39, 1), (39, 257), (84, 256), (259, 3), (512, 512))
+
+
+def split_probe_check(fm, dev):
+    """K2's bf16 data pass on ``split_probe`` cases, whose dx is the f32
+    weights times powers of two in any order of the sums: within one unit
+    of the last place of the exact value (``split_probe_units``; the unit
+    allows for the tensor cores' alignment of a sum that ends just under a
+    power of two).  A build that leaves ``lo`` out is off by tens of units
+    (``tools/prof_chain_kernels.py --split-faults``).  Returns the largest
+    reading."""
+    worst = 0.0
+    for k, m in SPLIT_PROBES:
+        spec, x, g, flat = fm.split_probe(k, m, 1000, seed=k + m, device=dev)
+        dx, _ = fm.chain_bwd_cuda(spec, x, g, flat)
+        torch.cuda.synchronize()
+        units = fm.split_probe_units(g, flat, dx)
+        if not units <= 1.0:
+            raise AssertionError(f"K2 split probe {k}->{m}: dx off by {units:.0f} units of "
+                                 "the last place of the f32 weights (tol 1)")
+        worst = max(worst, units)
+    return worst
+
+
 def batch_for(cfg, dev):
     rn = cfg["train_ray_num"]
     rs = np.random.RandomState(0)
@@ -337,6 +387,12 @@ def phase_kernels(renderer, dev):
         if not ok:
             raise AssertionError("K2 disagrees with autograd through its plain version")
         if what == "sdf bf16":
+            dx_err, ulps = data_pass_check(fm, spec, x, g, flat, what)
+            log(f"K2 {what} N={n}: data pass against f32 products of its own stashes: "
+                f"dx {dx_err:.2e} (tol 1e-5), gz within {ulps:.2f} bf16 units (tol 1)")
+            probe = split_probe_check(fm, dev)
+            log(f"K2 split probes {SPLIT_PROBES}, N=1000: dx within {probe:.0f} units of the "
+                "last place of the f32 weights (tol 1)")
             ms = cuda_ms(lambda: fm.chain_bwd_cuda(spec, x, g, flat), 5)
             plain = cuda_ms(plain_grads, 5)
             nbytes = 4 * (2 * x.numel() + g.numel()) + 2 * chain_bytes(spec, 0)
@@ -345,6 +401,8 @@ def phase_kernels(renderer, dev):
                                              for a, r in zip((dx,) + dflat, ref)),
                              max_rel_err=max(errs), tol=t,
                              ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                             data_pass_dx_err=dx_err, data_pass_gz_ulps=ulps,
+                             split_probe_f32_units=probe,
                              shape=f"SDF value-only chain, N={n}, bf16")
             log(f"K2 N={n} bf16: {ms:.3f} ms, plain (autograd fwd+bwd) "
                 f"{plain:.3f} ms, bound {b:.4f} ms ({by})")
@@ -457,8 +515,10 @@ def stash_floor_ms(spec, n):
 def phase_kernels_odd(renderer, dev):
     """K1, K2, K4 and K5 against their plain versions at the shapes that can
     break a tiled MMA: ragged and single-row tiles (N = 1, 63, 65, 1000), the
-    39-, 84-, 131- and 259-wide inputs, the 217-deep layer after the NeuS
-    skip, last layers of 1, 3 and 257 columns; f32 and bf16."""
+    39-, 84-, 131-, 259- and 512-wide inputs, the 217-deep layer after the
+    NeuS skip, last layers of 1, 3, 64 and 257 columns with no activation, a
+    relu or a softplus; f32 and bf16, and K2's bf16 data pass against f32
+    products of its own stashes."""
     from nunerf_tpu_torch.fields.mlp import Predictor
     from nunerf_tpu_torch.fields.sdf import _sdf_chain
     from nunerf_tpu_torch.ops import fused_mlp as fm
@@ -476,23 +536,34 @@ def phase_kernels_odd(renderer, dev):
     flat_val[-1] = flat_full[-1][:, :1].contiguous()
     spec_val = fm.ChainSpec(spec_full.dims[:-1] + (1,), spec_full.acts,
                             spec_full.has_skip, spec_full.scales)
-    def random_chain(dims, skip):
+    def random_chain(dims, skip, last=None, scale=1.0, rng=gen):
         n_l = len(dims) - 1
-        spec = fm.ChainSpec(dims, ("relu",) * (n_l - 1) + ("none" if dims[-1] == 3 else "relu",),
-                            skip, (1.0,) * n_l)
-        flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev)
+        last = last or ("none" if dims[-1] == 3 else "relu")
+        spec = fm.ChainSpec(dims, ("relu",) * (n_l - 1) + (last,), skip,
+                            (1.0,) * (n_l - 1) + (scale,))
+        flat = [(torch.randn(s, generator=rng) / math.sqrt(s[0])).to(dev)
                 for s in fm.flat_weight_shapes(spec)]
-        return spec, flat + [(torch.randn((1, d), generator=gen) * 0.1).to(dev)
+        return spec, flat + [(torch.randn((1, d), generator=rng) * 0.1).to(dev)
                              for d in dims[1:]]
 
+    # the last two chains draw from a generator of their own, so that the
+    # chains before them keep their inputs
+    gen7 = torch.Generator(device="cpu").manual_seed(7)
+
     # the trunk's 84-wide input and post-activation skip on a 3-layer cut (the
-    # full trunk is held at N = 131,072 by phase_kernels_heads)
+    # full trunk is held at N = 131,072 by phase_kernels_heads); the widest
+    # input K1/K2 take; a softplus last layer (relu: the trunk cut and the
+    # 512-wide chain; none: the rest)
     chains = [("sdf value", spec_val, flat_val),
               ("sdf full", spec_full, flat_full),
               ("head 259", spec_head, flat_head),
               ("relu 131", *random_chain((131, 256, 256, 256, 3), (False,) * 4)),
-              ("NeRF++ trunk cut", *random_chain((84, 256, 256, 256), (False, False, True)))]
+              ("NeRF++ trunk cut", *random_chain((84, 256, 256, 256), (False, False, True))),
+              ("input 512", *random_chain((512, 256, 256, 64), (False,) * 3, rng=gen7)),
+              ("softplus out", *random_chain((259, 256, 257), (False,) * 2, "softplus100",
+                                             0.5, rng=gen7))]
     worst, rows, own, failed = {}, {}, {}, []
+    data_pass = [0.0, 0.0]
     for what, spec0, flat in chains:
         flat = [f.detach().float().contiguous() for f in flat]
         n_failed = len(failed)
@@ -516,6 +587,10 @@ def phase_kernels_odd(renderer, dev):
                     rows[(k, cd)] = rows.get((k, cd), 0) + e[k]
                 own[cd] = max(own.get(cd, 0.0), e["bwd_own_gates"])
                 errs = {"K1": (max(e["fwd"], e["hidden"]), t_f), "K2": (e["bwd"], t_b)}
+                if cd == "bfloat16":
+                    dx_err, ulps = data_pass_check(fm, spec, x, g, flat,
+                                                   f"{what} {spec.dims} N={n}")
+                    data_pass = [max(data_pass[0], dx_err), max(data_pass[1], ulps)]
                 if e["stray_rows"]:
                     failed.append(f"K2 {what} {spec.dims} N={n} {cd}: dx of "
                                   f"{e['stray_rows']} rows is off by more than {t_b:.0e} "
@@ -539,6 +614,8 @@ def phase_kernels_odd(renderer, dev):
                                       f"{e_k:.2e} over its tolerance {t:.0e}")
         log(f"odd shapes, {what} {spec0.dims}, N=1/63/65/1000, f32 and bf16: "
             f"{'ok' if len(failed) == n_failed else 'FAIL'}")
+    log(f"odd shapes, K2 bf16 data pass against f32 products of its own stashes: dx "
+        f"{data_pass[0]:.2e} (tol 1e-5), gz within {data_pass[1]:.2f} bf16 units (tol 1)")
     log("odd shapes: worst error as a share of its tolerance " +
         ", ".join(f"{k} {cd} {v:.2f}" for (k, cd), v in sorted(worst.items())))
     for cd in ("float32", "bfloat16"):
@@ -597,6 +674,10 @@ def phase_kernels_heads(dev):
             e = chain_errs(fm, spec, x, g, flat, (y, dx, dflat), t_b)
             e_f, e_b = max(e["fwd"], e["hidden"]), e["bwd"]
             ok = e_f <= t_f and e_b <= t_b and e["stray_rows"] == 0
+            if cd == "bfloat16":
+                dx_err, ulps = data_pass_check(fm, spec, x, g, flat, what)
+                log(f"K2 {what} bf16 data pass against f32 products of its own stashes: "
+                    f"dx {dx_err:.2e} (tol 1e-5), gz within {ulps:.2f} bf16 units (tol 1)")
             log(f"K1/K2 {what} {spec.dims} {cd} N={n}: rel err y {e['fwd']:.2e}, hidden "
                 f"activations {e['hidden']:.2e} (tol {t_f:.0e}); dx and weight gradients "
                 f"at the kernel's gates {e_b:.2e} (tol {t_b:.0e}); a gate differs from "
@@ -635,35 +716,63 @@ def phase_kernels_heads(dev):
     return out
 
 
+def k3_bound(ri, index, rn, stats):
+    """The least time of the culled work this run's rays needed, and what
+    bounds it: every (ray, tile) box test and every ray-triangle pair swept
+    (the kernel's own counts) at the f32 peak without tensor cores, against
+    the rays, the index and the outputs (t, index, hit) moved once."""
+    n_tiles = index.box.shape[0]
+    flops = rn * n_tiles * ri.OPS_PER_BOX + int(stats[1]) * ri.OPS_PER_PAIR
+    nbytes = 24 * rn + 40 * index.v0.shape[0] + 24 * n_tiles + 9 * rn
+    return bound_ms(flops, nbytes, "float32")
+
+
 def phase_kernel_k3(scene, dev):
-    """K3 against its plain version on the full-width mesh: exact ``t``,
-    index and ``hit`` (the kernel multiplies and adds without FMA
-    contraction, one rounding an operation as the plain version)."""
+    """K3, tile-culled over the scene's index, against its plain version on
+    the full-width mesh: exact ``t``, index and ``hit`` (the kernel multiplies
+    and adds without FMA contraction, one rounding an operation as the plain
+    version) at R = 1024 and 5000, on a fixed 8,192-ray subset of R =
+    131,072 (a ray's answer does not depend on the other rays), and on an
+    adversarial box mesh; the kernel's lists against the plain box test; the
+    pairs it tested and the bound of that culled work beside the brute
+    sweep's."""
     from nunerf_tpu_torch.ops import ray_intersect as ri
     from nunerf_tpu_torch.tracing import intersect as ti
+    from nunerf_tpu_torch.tracing.probes import adversarial_rays, box_mesh
 
     n_tris = len(scene.tris_np)
     tri = (scene.v0, scene.e1, scene.e2)
+    index = scene.kernel_index
     # the tile index the scene would build with the kernel off, to time the
     # culled descent beside K3
     cull_tile, group = ti.auto_tile_params(n_tris)
-    index = ti.build_tile_index(scene.verts_np, scene.tris_np, tile=cull_tile,
-                                group=group, device=dev)
+    descent_index = ti.build_tile_index(scene.verts_np, scene.tris_np, tile=cull_tile,
+                                        group=group, device=dev)
     rec = None
-    for rn in (1024, 5000):
+    for rn in (1024, 5000, 131072):
         ro, rd, kind = intersect_rays(rn, rn, dev)
-        t, idx, hit = ri.closest_hit_cuda(ro, rd, *tri)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        t, idx, hit = ri.closest_hit_cuda(ro, rd, index, stats=stats)
         torch.cuda.synchronize()
-        rt, ridx, rhit = ri.closest_hit_reference(ro, rd, *tri)
+        sub = (torch.arange(rn, device=dev) if rn <= 5000 else
+               torch.as_tensor(np.random.RandomState(5).choice(rn, 8192, replace=False),
+                               device=dev))
+        rt, ridx, rhit = ri.closest_hit_reference(ro[sub], rd[sub], *tri)
         kind = torch.as_tensor(kind, device=dev)
         share = [float(hit[kind == j].double().mean()) for j in range(3)]
-        same = torch.equal(t, rt) and torch.equal(idx, ridx) and torch.equal(hit, rhit)
-        err = float((t - rt).abs().max())
-        log(f"K3 closest hit R={rn} T={n_tris}: hit share outside/inside/away "
+        same = (torch.equal(t[sub], rt) and torch.equal(idx[sub], ridx)
+                and torch.equal(hit[sub], rhit))
+        err = float((t[sub] - rt).abs().max())
+        pairs, tests = int(stats[0]), int(stats[1])
+        log(f"K3 culled closest hit R={rn} T={n_tris} ({index.box.shape[0]} tiles of "
+            f"{index.tile}): {len(sub)} rays held, hit share outside/inside/away "
             f"{share[0]:.3f}/{share[1]:.3f}/{share[2]:.3f}, max |t - plain| {err:.1e}, "
-            f"index and hit {'equal' if same else 'DIFFER'} (held exactly)")
+            f"index and hit {'equal' if same else 'DIFFER'} (held exactly); (ray, tile) "
+            f"pairs passed {pairs} ({pairs / rn:.1f} a ray), ray-triangle pairs tested "
+            f"{tests} ({tests / rn:.0f} a ray, brute {n_tris})")
         if not same:
-            bad = int((idx != ridx).sum()), int((hit != rhit).sum()), int((t != rt).sum())
+            bad = (int((idx[sub] != ridx).sum()), int((hit[sub] != rhit).sum()),
+                   int((t[sub] != rt).sum()))
             raise AssertionError(f"K3 disagrees with its plain version: {bad} "
                                  "(index, hit, t) rays differ")
         if not (share[0] > 0.9 and bool(hit[kind == 1].all())
@@ -672,37 +781,74 @@ def phase_kernel_k3(scene, dev):
                                  "and inside, none pointing away")
         if not (bool((idx[~hit] == 0).all()) and bool((t[~hit] == ri.MISS_T).all())):
             raise AssertionError("K3 missed lanes do not carry (MISS_T, 0)")
-        # the brute sweep and the culled descent answer the same query with a
-        # barycentric tolerance: equal t wherever all agree on the hit
-        brute = ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile)
-        rounds = []
-        culled = ti.ray_mesh_intersect_culled(ro, rd, index, group=group,
-                                              rounds_out=rounds)
-        both = hit & brute.hit & culled.hit
-        for name, other in (("brute sweep", brute), ("culled descent", culled)):
-            if int((other.hit != hit).sum()) > rn // 500:
-                raise AssertionError(f"{name} and K3 disagree on hit for "
-                                     f"{int((other.hit != hit).sum())} of {rn} rays")
-            if not torch.allclose(other.t[both], t[both], rtol=1e-5):
-                raise AssertionError(f"{name} and K3 disagree on t")
+        if rn == 5000:
+            cand = ri.cull_candidates_cuda(ro, rd, index)
+            plain = ri.cull_candidates_reference(ro, rd, index)
+            torch.cuda.synchronize()
+            if (plain & ~cand).any() or int(cand.sum()) != pairs:
+                raise AssertionError("K3's lists miss a pair of the plain box test, or "
+                                     "its count disagrees with them")
+            log(f"K3 R={rn}: the kernel's lists hold all {int(plain.sum())} pairs of the "
+                f"plain box test ({int(cand.sum())} listed)")
         if rn == 1024:
-            ms = cuda_ms(lambda: ri.closest_hit_cuda(ro, rd, *tri), 20)
-            plain = cuda_ms(lambda: ri.closest_hit_reference(ro, rd, *tri), 2)
-            brute_ms = cuda_ms(lambda: ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile), 2)
-            culled_ms = cuda_ms(lambda: ti.ray_mesh_intersect_culled(
-                ro, rd, index, group=group), 2)
-            # pairs x the kernel's f32 operations a pair against the f32
-            # peak without tensor cores; rays and triangles read once, three
-            # outputs (t, index, hit) written once
-            flops = rn * n_tris * ri.OPS_PER_PAIR
-            nbytes = 4 * (6 * rn + 9 * n_tris) + 9 * rn  # the mesh's own triangles
-            b, by = bound_ms(flops, nbytes, "float32")
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                       brute_ms=brute_ms, culled_ms=culled_ms, culled_rounds=rounds[0],
-                       shape=f"R={rn} rays x T={n_tris} triangles, f32")
-            log(f"K3 R={rn}: {ms:.3f} ms, plain {plain:.1f} ms, brute sweep "
-                f"{brute_ms:.1f} ms, culled descent {culled_ms:.1f} ms "
-                f"({rounds[0]} rounds, one host sync each), bound {b:.4f} ms ({by})")
+            # the brute sweep and the culled descent answer the same query
+            # with a barycentric tolerance: equal t wherever all agree on the hit
+            brute = ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile)
+            rounds = []
+            culled = ti.ray_mesh_intersect_culled(ro, rd, descent_index, group=group,
+                                                  rounds_out=rounds)
+            both = hit & brute.hit & culled.hit
+            for name, other in (("brute sweep", brute), ("culled descent", culled)):
+                if int((other.hit != hit).sum()) > rn // 500:
+                    raise AssertionError(f"{name} and K3 disagree on hit for "
+                                         f"{int((other.hit != hit).sum())} of {rn} rays")
+                if not torch.allclose(other.t[both], t[both], rtol=1e-5):
+                    raise AssertionError(f"{name} and K3 disagree on t")
+        if rn in (1024, 131072):
+            ms = cuda_ms(lambda: ri.closest_hit_cuda(ro, rd, index), 20)
+            plain_ms = cuda_ms(lambda: ri.closest_hit_reference(ro, rd, *tri), 2) \
+                if rn == 1024 else None
+            # the brute sweep's bound: every pair at 46 f32 ops a pair, the
+            # mesh's own triangles and the rays read once
+            brute_b, _ = bound_ms(rn * n_tris * ri.OPS_PER_PAIR,
+                                  4 * (6 * rn + 9 * n_tris) + 9 * rn, "float32")
+            b, by = k3_bound(ri, index, rn, stats)
+            log(f"K3 R={rn}: {ms:.4f} ms, bound of the culled work {b:.4f} ms ({by}), "
+                f"bound of the brute sweep {brute_b:.4f} ms"
+                + (f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
+            if rn == 1024:
+                brute_ms = cuda_ms(lambda: ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile), 2)
+                culled_ms = cuda_ms(lambda: ti.ray_mesh_intersect_culled(
+                    ro, rd, descent_index, group=group), 2)
+                log(f"K3 R={rn}: port's brute sweep {brute_ms:.1f} ms, culled descent "
+                    f"{culled_ms:.1f} ms ({rounds[0]} rounds, one host sync each)")
+                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                           box_pairs_passed=pairs, tri_pairs_tested=tests,
+                           brute_ms=brute_ms, culled_ms=culled_ms, culled_rounds=rounds[0],
+                           shape=f"R={rn} rays x T={n_tris} triangles, f32, tile-culled "
+                                 f"({index.box.shape[0]} tiles of {index.tile})")
+            else:
+                rec.update(ms_r131072=ms, box_pairs_passed_r131072=pairs,
+                           tri_pairs_tested_r131072=tests)
+
+    # the adversarial box: rays along its faces, through its edges and
+    # vertices, with zero direction components, from the tile boxes' planes
+    verts, tris = box_mesh()
+    tv = verts[tris]
+    btri = [torch.as_tensor(a, device=dev)
+            for a in (tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])]
+    for tile in (8, 32):
+        bindex = ri.build_cull_index(*btri, tile=tile)
+        o, d = (torch.as_tensor(a, device=dev)
+                for a in adversarial_rays(verts, bindex.box.cpu().numpy()))
+        got = ri.closest_hit_cuda(o, d, bindex)
+        torch.cuda.synchronize()
+        ref = ri.closest_hit_reference(o, d, *btri)
+        if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+            raise AssertionError(f"K3 disagrees with its plain version on the "
+                                 f"adversarial box (tile {tile})")
+        log(f"K3 adversarial box ({len(tris)} triangles, tiles of {tile}): {len(o)} rays, "
+            f"{int(got[2].sum())} hits, t, index and hit equal (held exactly)")
     return rec
 
 
@@ -849,7 +995,7 @@ def phase_main_path_stage2(scene, dev, fused_sdf=False):
     # the plain inner SDF launch no chain kernel; with fused_sdf the inner
     # SDF's one call a step is K4 forward and K5 backward
     jac = n_steps if fused_sdf else 0
-    want = {"closest_hit": 3 * n_steps, "chain_fwd": 0, "chain_bwd": 0,
+    want = {"closest_hit": 3 * n_steps, "cull_bin": 0, "chain_fwd": 0, "chain_bwd": 0,
             "chain_jac_fwd": jac, "chain_jac_bwd": jac}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
@@ -1008,15 +1154,23 @@ def main():
                                      "(chain_mlp_with_grad0 fwd)"),
              "K5": ("chain_jac_bwd", "backward of K4 from (gy, gj) "
                                      "(chain_mlp_with_grad0 VJP)")}
+    # beside the contract's keys, only numbers this run measured or counted:
+    # the bounds of other shapes and other ray counts stay in the log
+    measured = ("max_rel_err", "tol", "data_pass_dx_err", "data_pass_gz_ulps",
+                "split_probe_f32_units", "scratch_gib", "brute_ms", "culled_ms",
+                "culled_rounds", "box_pairs_passed", "tri_pairs_tested", "ms_r131072",
+                "box_pairs_passed_r131072", "tri_pairs_tested_r131072")
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
         counter, desc = names[k]
         r = rec[k]
-        extra = {x: r[x] for x in ("max_rel_err", "tol", "brute_ms", "culled_ms",
-                                   "culled_rounds", "scratch_gib") if x in r}
+        extra = {x: r[x] for x in measured if x in r}
         by_path = {p: c.get(counter, 0) for p, c in paths.items()}
         if k in ("K1", "K2"):
-            extra["other_shapes"] = head_shapes
+            extra["other_shapes"] = [
+                {x: h[x] for x in ("shape", "k1_ms", "module_fwd_ms", "k2_ms",
+                                   "module_fwd_bwd_ms", "fwd_rel_err", "bwd_rel_err")}
+                for h in head_shapes]
         # library_ms: no single PyTorch call computes a whole chain, its
         # backward, a Jacobian with its double backward, or a closest hit
         kernels.append({"name": f"{k} {desc}", "route": "cuda", "source": SOURCE[k],

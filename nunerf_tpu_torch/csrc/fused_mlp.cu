@@ -92,9 +92,10 @@
 //     split's end).  Per-split partials and one sum outside, no atomics: the
 //     result is the same from run to run.
 //   * K2's data pass multiplies by the UNROUNDED f32 W^T, as the TPU kernel
-//     does.  That product is not a bf16 product, so it stays on the f32 FMA
-//     kernel (reading the bf16 stash, writing a bf16 gz stash), between a
-//     tensor-core pass 1 and a tensor-core dW.
+//     does.  Each f32 weight is split into three bf16 pieces whose sum is the
+//     weight (mma_gemm_split), so the pass runs on the tensor cores too: three
+//     MMAs a k-step from one A fragment of the rounded gz, one f32
+//     accumulator, the products of the f32 W^T summed in another order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -135,10 +136,6 @@ struct Chain {
 typedef __nv_bfloat16 bf16;
 
 __device__ __host__ __forceinline__ int pad16(int v) { return (v + 15) & ~15; }
-
-__device__ __forceinline__ float round_c(float v, int rb) {
-  return rb ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
 
 __device__ __forceinline__ float act_f(int a, float z) {
   if (a == ACT_RELU) return fmaxf(z, 0.f);
@@ -275,27 +272,23 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ W,
   }
 }
 
-// K2 pass 2.  Per 64-row tile, from the last layer down:
+// K2 pass 2 on the f32 route (K5's pass 4 there too).  Per 64-row tile, from
+// the last layer down:
 //   gz = g * act'(a_l);  db partial = column sums of gz;
-//   gz = round(gz * scale) -> gzs stash;  dx += gz @ W_x^T (skip);
-//   g = gz @ W_h^T (f32), or dx += it at layer 0.
-// For K2 the transposed weights are the f32 originals, as the TPU kernel's
-// are.  For K5 (dbar given: it may be the same buffer as gzs, each element is
-// read and later written by one thread) they are rounded, and
+//   gz = gz * scale -> gzs stash;  dx += gz @ W_x^T (skip);
+//   g = gz @ W_h^T, or dx += it at layer 0.
+// For K5 (dbar given: it may be the same buffer as gzs, each element is
+// read and later written by one thread)
 //   gz = g * act'(a_l) + dbar_l * act''(a_l).
 // dx is accumulated MAXW columns at a time (the input may be wider).
-// With round_bf16 (K2 on the bf16 route) the activation stash and gzs are bf16 in the
-// padded layout (row stride outp, pad columns zero: the dW kernel's operands)
-// and the last layer's f32 activation is read from ylast, the forward's
-// output; the product itself stays f32 here, W^T being unrounded.
 __global__ void __launch_bounds__(NT, 2)
-chain_bwd_data_kernel(const void* __restrict__ stash,
+chain_bwd_data_kernel(const float* __restrict__ stash,
                       const float* __restrict__ WT,
                       const float* __restrict__ gin, float* __restrict__ dx,
-                      void* gzs, const float* dbar, float* __restrict__ dbp,
-                      const float* __restrict__ ylast, int n, Chain ch) {
+                      float* gzs, const float* dbar, float* __restrict__ dbp,
+                      int n, Chain ch) {
   extern __shared__ float smem[];
-  const int E = ch.E, GW = ch.gw, rb = ch.round_bf16, bf = rb;
+  const int E = ch.E, GW = ch.gw;
   float* gb = smem;             // [TR][GW]
   float* dxs = smem + TR * GW;  // [TR][E]
   const int t = threadIdx.x, tx = t & 63, ty = t >> 6;
@@ -316,21 +309,14 @@ chain_bwd_data_kernel(const void* __restrict__ stash,
   for (int l = ch.L - 1; l >= 0; --l) {
     const Layer& Ly = ch.l[l];
     const int w = Ly.out;
-    const int sw = bf ? Ly.outp : w;  // row stride of the stashes
-    const size_t sbase = (size_t)n * (bf ? Ly.pstash : Ly.stash);
-    const float* a = (const float*)stash + sbase;
-    const bf16* ab = (const bf16*)stash + sbase;
+    const size_t sbase = (size_t)n * Ly.stash;
+    const float* a = stash + sbase;
     const float* db2 =
-        (dbar && Ly.act == ACT_SP100) ? dbar + (size_t)n * Ly.stash : nullptr;
+        (dbar && Ly.act == ACT_SP100) ? dbar + sbase : nullptr;
     for (int idx = t; idx < TR * w; idx += NT) {
       const int r = idx / w, c = idx - r * w;
       const long g = row0 + r;
-      float av = 0.f;
-      if (g < n)
-        av = !bf ? a[g * w + c]
-                 : (l == ch.L - 1 ? ylast[g * w + c]
-                                  : __bfloat162float(ab[g * sw + c]));
-      const float d = dact_from_a(Ly.act, av);
+      const float d = dact_from_a(Ly.act, g < n ? a[g * w + c] : 0.f);
       float v = gb[r * GW + c] * d;
       if (db2 && g < n) v += db2[g * w + c] * d2act_from_d(Ly.act, d);
       gb[r * GW + c] = v;
@@ -342,19 +328,13 @@ chain_bwd_data_kernel(const void* __restrict__ stash,
       dbp[(size_t)blockIdx.x * ch.bsum + Ly.b + c] = s;
     }
     __syncthreads();
-    for (int idx = t; idx < TR * sw; idx += NT) {
-      const int r = idx / sw, c = idx - r * sw;
+    for (int idx = t; idx < TR * w; idx += NT) {
+      const int r = idx / w, c = idx - r * w;
       const long g = row0 + r;
-      float v = 0.f;
-      if (c < w) {
-        v = gb[r * GW + c];
-        if (Ly.scale != 1.f) v *= Ly.scale;
-        v = round_c(v, rb);
-        gb[r * GW + c] = v;
-      }
-      if (g >= n) continue;
-      if (bf) ((bf16*)gzs)[sbase + g * sw + c] = __float2bfloat16_rn(v);
-      else ((float*)gzs)[sbase + g * w + c] = v;
+      float v = gb[r * GW + c];
+      if (Ly.scale != 1.f) v *= Ly.scale;
+      gb[r * GW + c] = v;
+      if (g < n) gzs[sbase + g * w + c] = v;
     }
     __syncthreads();
     // dx += gz @ W_x^T (skip) and, at layer 0, gz @ W_h^T: both [w, E]
@@ -626,7 +606,13 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
 // --variants and by nothing else: KS and NSTAGE give another pipeline shape;
 // PROF_NO_MMA, PROF_NO_CP_ASYNC, PROF_NO_LDMATRIX, PROF_NO_ACT and
 // PROF_NO_PREFETCH each compile one piece of this route out (such a build
-// computes nothing right: what the piece costs is the time that goes with it).
+// computes nothing right: what the piece costs is the time that goes with it);
+// PROF_SPLIT_UNROLLED unrolls K2's split gemm over its three pieces,
+// NSTAGE3 gives that gemm another number of stages, and PROF_DX_GLOBAL sends
+// the data passes' dx to device memory from the accumulators.  One switch
+// plants a fault instead, for tools/prof_chain_kernels.py --split-faults
+// alone: PROF_SPLIT_SKIP=p leaves piece p of K2's split out (2: lo, 1: mid),
+// to show which checks see it.
 #ifndef KS
 #define KS 32            // depth of a staged weight slice
 #endif
@@ -777,18 +763,19 @@ struct WarpPos {
   __device__ int col(int ni) const { return 64 * wc + 8 * ni + t2; }
 };
 
+template <int ROWS = KS>
 __device__ __forceinline__ void stage_slice(bf16* ws,
                                             const bf16* __restrict__ B,
                                             int ldb, int k0, int krows,
                                             int ncols, int t) {
   // thread t copies the 16-byte piece t % 32 of rows t / 32, + 8, + 16, ...
-  // (a row has at most 32 pieces): no division, at most KS / 8 copies
+  // (a row has at most 32 pieces): no division, at most ROWS / 8 copies
   const int c = t & 31;
   if (c < (ncols >> 3)) {
     const bf16* src = B + (size_t)k0 * ldb + c * 8;
     bf16* dst = ws + c * 8;
 #pragma unroll
-    for (int r = t >> 5; r < KS; r += NT / 32)
+    for (int r = t >> 5; r < ROWS; r += NT / 32)
       if (r < krows) cp_async16(dst + r * WSS, src + (size_t)r * ldb, 16);
   }
   cp_async_commit();
@@ -872,6 +859,93 @@ __device__ __forceinline__ void mma_gemm(Acc& acc, const bf16* A, int lda,
           mma_bf16(acc[0][2 * np + 1], a0, bb[2], bb[3]);
           mma_bf16(acc[1][2 * np + 1], a1, bb[2], bb[3]);
         }
+      }
+    }
+  }
+}
+
+// K2's transposes are the unrounded f32 weights, each split into three bf16
+// pieces hi = bf16(W), mid = bf16(W - hi), lo = bf16(W - hi - mid), whose
+// sum is W (a 24-bit significand in three 8-bit ones; exact for |W| >=
+// 2^-110, below that within 2^-134, bf16's subnormal grain).  gz is
+// bf16-exact, so gz hi, gz mid and gz lo are exact products and three MMAs
+// into one f32 accumulator form the products of the f32 W^T; only the order
+// of the sums changes.  The split pack (pack_mma_split in ops/fused_mlp.py)
+// stores every transposed matrix as 16-deep k-blocks [kb][piece][16][ncols]
+// at 3x its pack_mma offset, so one staged slice of KS3 = 48 rows is one
+// k-block with all three pieces: one cp.async stage, one barrier a k-block.
+#define KS3 48
+#define WSTAGE3 (KS3 * WSS)
+#ifndef NSTAGE3
+#define NSTAGE3 2        // split slices: one in flight behind the one at work
+#endif
+
+__device__ __forceinline__ void gemm_head_split(const GemmB& b, bf16* ws,
+                                                int t) {
+  const int nkb = b.Kp >> 4;
+#pragma unroll
+  for (int s = 0; s < NSTAGE3 - 1; ++s) {
+    if (s < nkb)
+      stage_slice<KS3>(ws + s * WSTAGE3, b.B, b.ldb, s * KS3, KS3, b.ncols, t);
+    else
+      cp_async_commit();
+  }
+}
+
+// acc += A[64, Kp] @ (hi + mid + lo) with B the split pack [3 Kp, ncols]:
+// mma_gemm's pipeline over k-blocks, NSTAGE3 stages; each k-block's A
+// fragments meet the lo, mid and hi fragments in that order (the small
+// pieces are summed before the large one), one piece at a time: unrolling
+// the three spills registers and measured 0.7 ms slower per 65,536 rows of
+// the SDF chain (H100, tools/prof_chain_kernels.py --variants).
+__device__ __forceinline__ void mma_gemm_split(Acc& acc, const bf16* A,
+                                               int lda, const GemmB& b,
+                                               bf16* ws, int t,
+                                               bool head_done = false) {
+  const int lane = t & 31;
+  const WarpPos wp(t);
+  const int nt = wp.ntiles(b.ncols);
+  const int nsl = b.Kp >> 4;
+  if (!head_done) {
+    __syncthreads();
+    gemm_head_split(b, ws, t);
+  }
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+  const bf16* a_base = A + (32 * wp.wr + lr) * lda + lc;
+  const int b_off = lr * WSS + 64 * wp.wc + lc;
+  int st = 0;
+  for (int s = 0; s < nsl; ++s) {
+    cp_async_wait<NSTAGE3 - 2>();
+    __syncthreads();
+    if (s + NSTAGE3 - 1 < nsl)
+      stage_slice<KS3>(ws + (st == 0 ? NSTAGE3 - 1 : st - 1) * WSTAGE3, b.B,
+                       b.ldb, (s + NSTAGE3 - 1) * KS3, KS3, b.ncols, t);
+    else
+      cp_async_commit();
+    const bf16* wst = ws + st * WSTAGE3 + b_off;
+    st = st == NSTAGE3 - 1 ? 0 : st + 1;
+    if (nt <= 0) continue;
+    uint32_t a0[4], a1[4];
+    ldmatrix_x4(a0, a_base + 16 * s);
+    ldmatrix_x4(a1, a_base + 16 * lda + 16 * s);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt) continue;
+#ifdef PROF_SPLIT_UNROLLED
+#pragma unroll
+#else
+#pragma unroll 1
+#endif
+      for (int piece = 2; piece >= 0; --piece) {
+#ifdef PROF_SPLIT_SKIP
+        if (piece == PROF_SPLIT_SKIP) continue;
+#endif
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, wst + 16 * piece * WSS + 16 * np);
+        mma_bf16(acc[0][2 * np], a0, bb[0], bb[1]);
+        mma_bf16(acc[1][2 * np], a1, bb[0], bb[1]);
+        mma_bf16(acc[0][2 * np + 1], a0, bb[2], bb[3]);
+        mma_bf16(acc[1][2 * np + 1], a1, bb[2], bb[3]);
       }
     }
   }
@@ -1316,41 +1390,65 @@ chain_jac_up_mma_kernel(const bf16* __restrict__ stash,
   }
 }
 
-// K5 pass 4 on the bf16 route: K2's data pass with
-// zbar = hbar act' + dbar act'', every product on the tensor cores (K5's
-// transposes are the rounded ones).  The tile holds the rounded zs_l; hbar of
-// the layer below arrives in the accumulators, where the epilogue forms zbar,
-// its column sums (db partials) and the next zs (the tile, and from there a
+// The data pass on the bf16 route, K5's pass 4 (SPLIT false) and K2's pass 2
+// (SPLIT true), every product on the tensor cores.  The tile holds the
+// rounded zs_l; hbar of the layer below arrives in the accumulators, where
+// the epilogue forms zbar = hbar act' (+ dbar act'' for K5), its column sums
+// (db partials) and the next zs = round(zbar s) (the tile, and from there a
 // bf16 stash of its own: dbar is f32 and is only read).  a of the hidden
-// layers comes from the bf16 stash; the last layer is linear (K4/K5's
-// condition).
+// layers comes from the bf16 stash.  K5's transposes are the bf16 pack of the
+// rounded weights and its last layer is linear (K4/K5's condition); K2's are
+// the split pack of the unrounded ones (mma_gemm_split), and its last layer
+// may carry an activation, read off the forward's f32 output ylast as the
+// f32 kernel reads it.  dx is summed 256 columns a product (the input may be
+// 512 wide) into an f32 tile [64][Ep] in shared memory when the wrapper finds
+// room for it beside two blocks an SM (DXS), and written out in whole
+// rows at the end; otherwise (K2's wide inputs) it goes to device memory from
+// the accumulators, the first product writing it and later ones adding to
+// it, every element by the thread that owns it.  The accumulators' own
+// layout makes that access slow (see acc_to_rows), so the tile is the rule.
+template <bool SPLIT>
+__device__ __forceinline__ void data_gemm(Acc& acc, const bf16* A, int lda,
+                                          const GemmB& b, bf16* ws, int t,
+                                          bool head_done) {
+  if (SPLIT) mma_gemm_split(acc, A, lda, b, ws, t, head_done);
+  else mma_gemm(acc, A, lda, b, ws, t, head_done);
+}
+
+template <bool SPLIT, bool DXS>
 __global__ void __launch_bounds__(NT, 2)
 chain_bwd_data_mma_kernel(const bf16* __restrict__ stash,
                           const bf16* __restrict__ WT,
                           const float* __restrict__ gin,
+                          const float* __restrict__ ylast,
                           float* __restrict__ dx, bf16* __restrict__ zst,
                           const float* __restrict__ dbar,
                           float* __restrict__ dbp, int n, Chain ch) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int E = ch.E, Ep = pad16(E);
+  const int wm = SPLIT ? 3 : 1;  // a matrix's offset in WT: wm x its pack offset
   const Layer& Ll = ch.l[ch.L - 1];
   const int TS = (Ll.outp > MAXW ? Ll.outp : MAXW) + 8;
   bf16* zb = reinterpret_cast<bf16*>(smem_mma);            // [TR][TS]
-  bf16* ws = zb + TR * TS;                                 // [NSTAGE][KS][WSS]
-  float* dxs = reinterpret_cast<float*>(ws + NSTAGE * WSTAGE);  // [TR][Ep]
-  float* red = dxs + TR * Ep;                              // [2][MAXW]
+  bf16* ws = zb + TR * TS;         // [NSTAGE or NSTAGE3][KS or KS3][WSS]
+  float* red = reinterpret_cast<float*>(ws + (SPLIT ? NSTAGE3 * WSTAGE3 : NSTAGE * WSTAGE));
+  float* dxs = red + 2 * MAXW;                            // [TR][Ep] (DXS)
   const int t = threadIdx.x, lane = t & 31;
   const WarpPos wp(t);
   const long row0 = (long)blockIdx.x * TR;
   float* dbb = dbp + (size_t)blockIdx.x * ch.bsum;
 
-  {
+  {  // the last layer: gz = g act'(y), db from it, zs = round(gz s)
     const int w = Ll.out, wq = Ll.outp;
     bf16* zs = zst + (size_t)n * Ll.pstash;
     for (int idx = t; idx < TR * wq; idx += NT) {
       const int r = idx / wq, c = idx - r * wq;
       const long g = row0 + r;
-      float v = (g < n && c < w) ? gin[g * w + c] : 0.f;
+      float v = 0.f;
+      if (g < n && c < w) {
+        v = gin[g * w + c];
+        if (SPLIT) v *= dact_from_a(Ll.act, ylast[g * w + c]);
+      }
       if (Ll.scale != 1.f) v *= Ll.scale;
       const bf16 vb = __float2bfloat16_rn(v);
       zb[r * TS + c] = vb;
@@ -1358,51 +1456,72 @@ chain_bwd_data_mma_kernel(const bf16* __restrict__ stash,
     }
     for (int c = t; c < w; c += NT) {
       float s = 0.f;
-      for (int r = 0; r < TR; ++r)
-        if (row0 + r < n) s += gin[(row0 + r) * w + c];
+      for (int r = 0; r < TR; ++r) {
+        const long g = row0 + r;
+        if (g < n)
+          s += SPLIT ? gin[g * w + c] * dact_from_a(Ll.act, ylast[g * w + c])
+                     : gin[g * w + c];
+      }
       dbb[Ll.b + c] = s;
     }
-    for (int idx = t; idx < TR * Ep; idx += NT) dxs[idx] = 0.f;
+    if (DXS)
+      for (int idx = t; idx < TR * Ep; idx += NT) dxs[idx] = 0.f;
   }
 
   Acc acc;
-  bool head = false;
+  bool head = false, dx_first = true;
   for (int l = ch.L - 1; l >= 0; --l) {
     const Layer& Ly = ch.l[l];
     // dx += zs @ W_x^T (skip) and, at layer 0, zs @ W_h^T: both [outp, Ep]
     for (int pass = 0; pass < 2; ++pass) {
       if (pass == 0 ? Ly.wx < 0 : l > 0) continue;
-      zero_acc(acc);
-      mma_gemm(acc, zb, TS,
-               {WT + (pass == 0 ? Ly.pwx : Ly.pwh), Ep, Ly.outp, Ep}, ws, t,
-               head);
-      head = false;
-      const int nt = wp.ntiles(Ep);
+      const bf16* wt = WT + wm * (pass == 0 ? Ly.pwx : Ly.pwh);
+      for (int cb = 0; cb < Ep; cb += MAXW) {
+        const int ncols = Ep - cb < MAXW ? Ep - cb : MAXW;
+        zero_acc(acc);
+        data_gemm<SPLIT>(acc, zb, TS, {wt + cb, Ep, Ly.outp, ncols}, ws, t, head);
+        head = false;
+        const int nt = wp.ntiles(ncols);
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        if (ni >= nt) continue;
+        for (int ni = 0; ni < 8; ++ni) {
+          if (ni >= nt) continue;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+          for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dxs[wp.row(mi, e >> 1) * Ep + wp.col(ni) + (e & 1)] +=
-                acc[mi][ni][e];
+            for (int e = 0; e < 4; ++e) {
+              const int r = wp.row(mi, e >> 1), c = cb + wp.col(ni) + (e & 1);
+              if (DXS) {
+                dxs[r * Ep + c] += acc[mi][ni][e];
+                continue;
+              }
+              const long g = row0 + r;
+              if (g >= n || c >= E) continue;
+              float* p = dx + g * E + c;
+              *p = dx_first ? acc[mi][ni][e] : *p + acc[mi][ni][e];
+            }
+        }
       }
+      dx_first = false;
     }
     if (l == 0) break;
     const Layer& Lb = ch.l[l - 1];  // Lb.out == Ly.in, Lb.outp == Ly.inp
     const int w = Lb.out, wq = Lb.outp;
     const size_t base = (size_t)n * Lb.pstash;
-    const bool sp = Lb.act == ACT_SP100;
+    const bool sp = dbar && Lb.act == ACT_SP100;
     prefetch_rows(stash + base, row0, n, 2 * wq, t);
     if (sp) prefetch_rows(dbar + base, row0, n, 4 * wq, t);
     zero_acc(acc);
-    mma_gemm(acc, zb, TS, {WT + Ly.pwh, Ly.inp, Ly.outp, Ly.inp}, ws, t, head);
+    data_gemm<SPLIT>(acc, zb, TS, {WT + wm * Ly.pwh, Ly.inp, Ly.outp, Ly.inp},
+                     ws, t, head);
     __syncthreads();  // every read of zb precedes its overwrite
-    // the first weight slices of the layer below's first product travel
-    // while the epilogue runs: its skip's W_x^T, else its W_h^T
-    if (Lb.wx >= 0) gemm_head({WT + Lb.pwx, Ep, Lb.outp, Ep}, ws, t);
-    else gemm_head({WT + Lb.pwh, Lb.inp, Lb.outp, Lb.inp}, ws, t);
+    {  // the first weight slices of the layer below's first product travel
+       // while the epilogue runs: its skip's W_x^T, else its W_h^T
+      const GemmB nb = Lb.wx >= 0
+          ? GemmB{WT + wm * Lb.pwx, Ep, Lb.outp, Ep < MAXW ? Ep : MAXW}
+          : GemmB{WT + wm * Lb.pwh, Lb.inp, Lb.outp, Lb.inp < MAXW ? Lb.inp : MAXW};
+      if (SPLIT) gemm_head_split(nb, ws, t);
+      else gemm_head(nb, ws, t);
+    }
     head = true;
     const int nt = wp.ntiles(wq);
     acc_to_rows(acc, nt, lane);
@@ -1460,11 +1579,13 @@ chain_bwd_data_mma_kernel(const bf16* __restrict__ stash,
     __syncthreads();
     tile_to_stash(zb, TS, zst + base, wq, row0, n, t);
   }
-  __syncthreads();
-  for (int idx = t; idx < TR * E; idx += NT) {
-    const int r = idx / E, c = idx - r * E;
-    const long g = row0 + r;
-    if (g < n) dx[g * E + c] = dxs[r * Ep + c];
+  if (DXS) {
+    __syncthreads();
+    for (int idx = t; idx < TR * E; idx += NT) {
+      const int r = idx / E, c = idx - r * E;
+      const long g = row0 + r;
+      if (g < n) dx[g * E + c] = dxs[r * Ep + c];
+    }
   }
 }
 
@@ -1706,10 +1827,11 @@ static int build_jac_chain(Chain* ch, const int* meta, const float* scales,
   return 0;
 }
 
-// K2's data pass (dbar null) and K5's (dbar given).  On the bf16 route K5's
-// runs on the tensor cores (WT: the bf16 pack of the rounded transposes; gzs:
-// the bf16 zs stash) and K2's stays on the f32 FMA kernel, its W^T being the
-// unrounded f32 one (stash and gzs bf16, the last activation from ylast).
+// K2's data pass (dbar null) and K5's (dbar given).  On the bf16 route both
+// run on the tensor cores: K5's with WT the bf16 pack of the rounded
+// transposes, K2's with WT the split pack of the f32 ones and the last
+// activation from ylast; stash and gzs are bf16 in the padded layout.  On the
+// f32 route both run the f32 FMA kernel (ylast unused).
 extern "C" int nunerf_chain_bwd_data(const void* stash, const void* WT,
                                      const float* g, float* dx, void* gzs,
                                      const float* dbar, float* dbp,
@@ -1718,28 +1840,44 @@ extern "C" int nunerf_chain_bwd_data(const void* stash, const void* WT,
                                      int L, int E, int round_bf16,
                                      void* stream) {
   Chain ch;
-  int err = dbar && round_bf16
-                ? build_jac_chain(&ch, meta, scales, L, E, round_bf16)
-                : build_chain(&ch, meta, scales, L, E, round_bf16);
+  int err = dbar ? build_jac_chain(&ch, meta, scales, L, E, round_bf16)
+                 : build_chain(&ch, meta, scales, L, E, round_bf16);
   if (err) return err;
   const unsigned grid = (unsigned)((n + TR - 1) / TR);
-  if (dbar && round_bf16) {
+  if (round_bf16) {
+    const bool split = dbar == nullptr;
+    if (split && !ylast) return (int)cudaErrorInvalidValue;
     const int lw = ch.l[L - 1].outp;
-    const size_t smem = mma_smem(lw > MAXW ? lw : MAXW) +
-                        sizeof(float) * ((size_t)TR * pad16(E) + 2 * MAXW);
-    err = set_smem(chain_bwd_data_mma_kernel, smem);
+    const size_t base =
+        sizeof(bf16) * ((size_t)TR * ((lw > MAXW ? lw : MAXW) + 8) +
+                        (split ? NSTAGE3 * (size_t)WSTAGE3 : NSTAGE * (size_t)WSTAGE)) +
+        sizeof(float) * 2 * MAXW;
+    // the f32 dx tile goes into shared memory where two blocks still fit on
+    // an SM (its 228 KB less 1 KB a block)
+    const size_t with_dx = base + sizeof(float) * TR * (size_t)pad16(E);
+#ifdef PROF_DX_GLOBAL
+    const int dx_smem = 0;
+#else
+    const int dx_smem = with_dx <= (228 - 2) * 1024 / 2;
+#endif
+    const size_t smem = dx_smem ? with_dx : base;
+    auto kernel = split ? (dx_smem ? chain_bwd_data_mma_kernel<true, true>
+                                   : chain_bwd_data_mma_kernel<true, false>)
+                        : (dx_smem ? chain_bwd_data_mma_kernel<false, true>
+                                   : chain_bwd_data_mma_kernel<false, false>);
+    err = set_smem(kernel, smem);
     if (err) return err;
-    chain_bwd_data_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const bf16*)stash, (const bf16*)WT, g, dx, (bf16*)gzs, dbar, dbp, n,
-        ch);
+    kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const bf16*)stash, (const bf16*)WT, g, split ? ylast : nullptr, dx,
+        (bf16*)gzs, dbar, dbp, n, ch);
     return launch_check();
   }
-  if (round_bf16 && !ylast) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)TR * (ch.gw + E) * sizeof(float);
   err = set_smem(chain_bwd_data_kernel, smem);
   if (err) return err;
   chain_bwd_data_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      stash, (const float*)WT, g, dx, gzs, dbar, dbp, ylast, n, ch);
+      (const float*)stash, (const float*)WT, g, dx, (float*)gzs, dbar, dbp, n,
+      ch);
   return launch_check();
 }
 

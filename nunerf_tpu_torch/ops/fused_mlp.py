@@ -25,6 +25,13 @@ covering plain layers, NeuS pre-concat skips (split kernel rows, scale
   hidden activation, optionally at given relu gates) are what the card checks
   hold a relu chain's backward with: against autograd at the kernel's own
   gates, since a gate near 0 opens or closes with the order of the sums.
+* ``data_pass_reference`` and ``data_pass_errors`` hold K2's bf16 data pass
+  to f32 ``torch.matmul`` of its own stashes (``chain_bwd_cuda(keep=...)``);
+  ``split_probe`` and ``split_probe_units`` hold it, on a case whose dx is
+  exact in any order of the sums, to the f32 weights to the last bit.  The
+  chain tolerance cannot tell the exact split of ``W^T`` from one with a
+  piece dropped: the first sees a dropped ``mid``, the second a dropped
+  ``lo`` too.
 * ``launches`` counts kernel launches per wrapper: ``chain_fwd`` adds one
   per K1 launch, ``chain_bwd`` one per K2 call, ``chain_jac_fwd`` one per K4
   call and ``chain_jac_bwd`` one per K5 call.
@@ -49,8 +56,10 @@ launches its route's kernels or raises; neither falls back to the other):
   stay f32), and all dW of a chunk come from one launch over a work table
   (``dw_work_table``), each block summing both of K5's terms, with per-split
   partials reduced by one sum.  K2's data pass multiplies by the unrounded
-  f32 ``W^T`` (as the TPU kernel does), which is not a bf16 product: it stays
-  on the f32 FMA kernel, between a tensor-core forward and a tensor-core dW.
+  f32 ``W^T`` (as the TPU kernel does): each f32 weight is split into three
+  bf16 pieces whose sum is the weight (``split_bf16``, ``pack_mma_split``),
+  so that pass runs on the tensor cores as well, three MMAs a k-step into one
+  f32 accumulator, forming the products of the f32 ``W^T``.
 
 Second-order differentiation through K1/K2 is not supported (as in the JAX
 package): without ``fused_sdf`` the SDF's eikonal path runs the plain module.
@@ -62,6 +71,7 @@ import ctypes
 import os
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 ACT_CODES = {"none": 0, "relu": 1, "softplus100": 2}
@@ -483,6 +493,67 @@ def pack_mma(spec: ChainSpec, flat, transposed: bool = False):
     return out
 
 
+def split_bf16(w):
+    """``(hi, mid, lo)``, three bf16 tensors with ``hi + mid + lo == w``: hi =
+    bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), each residual
+    formed exactly in f32.  A 24-bit significand goes into three 8-bit ones,
+    and bf16 has f32's exponent range, so the sum is ``w`` for every finite
+    ``|w| >= 2**-110`` below bf16's largest value; under 2**-110 the last bits
+    fall under bf16's subnormal grain and the sum is within 2**-134 of ``w``."""
+    w = w.to(torch.float32)
+    hi = w.to(torch.bfloat16)
+    r = w - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+@lru_cache(maxsize=64)
+def _split_index(spec: ChainSpec, device):
+    """Where each element of ``pack_mma_split``'s buffer comes from: an index
+    into the three pieces of the flat weights, ``[3, wsum + 1]`` flattened
+    (``wsum`` the weights' elements; the last column is a zero for the
+    pads).  It depends on the chain alone: built once, kept on the device."""
+    lay = mma_layout(spec)
+    wsum = sum(a * b for a, b in flat_weight_shapes(spec))
+    idx = np.empty(3 * lay.wtot, np.int64)
+    src = 0
+    for off, rp, cp, r, c in lay.weight_slots(spec):
+        k = np.arange(cp)[:, None]                 # row of W^T: W's column
+        col = np.arange(rp)[None, :]               # column of W^T: W's row
+        at = np.where((k < c) & (col < r), src + col * c + k, wsum)   # [cp, rp]
+        blocks = at.reshape(cp // PAD, 1, PAD, rp)
+        pieces = np.arange(3).reshape(1, 3, 1, 1) * (wsum + 1)
+        idx[3 * off:3 * (off + rp * cp)] = (blocks + pieces).reshape(-1)
+        src += r * c
+    return torch.as_tensor(idx, device=device)
+
+
+def pack_mma_split(spec: ChainSpec, flat):
+    """K2's transposed weights on the bf16 route: every f32 weight's
+    transpose [outp, inp] (zero-padded as ``pack_mma(transposed=True)``) in
+    three bf16 pieces (``split_bf16``), stored as 16-deep k-blocks
+    ``[outp / 16][piece: hi, mid, lo][16][inp]`` at three times its
+    ``pack_mma`` offset: one staged slice of 48 rows is one k-block with all
+    three pieces.  One split of the flat weights and one gather."""
+    ws = flat[:n_weights(spec)]
+    dev = ws[0].device
+    w = torch.cat([x.reshape(-1).to(torch.float32) for x in ws]
+                  + [torch.zeros(1, device=dev)])
+    return torch.stack(split_bf16(w)).view(-1)[_split_index(spec, dev)]
+
+
+def unpack_mma_split(spec: ChainSpec, buf):
+    """Per flat weight, its three pieces from a ``pack_mma_split`` buffer:
+    f32 ``[3, rows, columns]`` (hi, mid, lo of the weight, untransposed)."""
+    out = []
+    for off, rp, cp, r, c in mma_layout(spec).weight_slots(spec):
+        blk = buf[3 * off:3 * (off + rp * cp)].view(cp // PAD, 3, PAD, rp)
+        out.append(blk.transpose(0, 1).reshape(3, cp, rp)[:, :c, :r]
+                   .transpose(1, 2).float())
+    return out
+
+
 def unpack_mma(spec: ChainSpec, buf):
     """Per flat weight, the [rows, columns] view of its slot in a buffer laid
     out as ``pack_mma`` lays the weights (a pack, or summed dW partials)."""
@@ -685,16 +756,28 @@ def _dw_grouped(lib, spec: ChainSpec, n: int, bufs: dict, jac: bool):
     return part.sum(0)
 
 
-def chain_bwd_cuda(spec: ChainSpec, x, g, flat):
+def _stash_layers(spec: ChainSpec, buf, n, layers):
+    """The f32 [n, w_l] views of the given layers of a bf16 stash laid out as
+    ``MmaLayout`` (layer base ``n * pstash``, row stride ``outp``)."""
+    lay = mma_layout(spec)
+    return [buf[n * lay.layers[l][4]:n * (lay.layers[l][4] + lay.layers[l][1])]
+            .view(n, lay.layers[l][1])[:, :spec.dims[l + 1]].float() for l in layers]
+
+
+def chain_bwd_cuda(spec: ChainSpec, x, g, flat, keep: dict = None):
     """K2: (dx [N, in_dim], (dW..., db...)) of ``sum(chain(x) * g)``.
 
     Pass 1 recomputes the forward into a scratch stash, pass 2 walks the
     layers down per row tile (dx, db partials, the rounded gz stash), pass 3
     forms each dW as per-split partials; the partials are summed here, as
     the JAX wrapper sums the Pallas kernel's per-tile partials.  On the bf16
-    route pass 1 and pass 3 run on the tensor cores (bf16 stashes, one dW
-    launch); pass 2 multiplies by the unrounded f32 ``W^T`` and stays on the
-    f32 FMA kernel."""
+    route all three run on the tensor cores (bf16 stashes, pass 2 on the split
+    pack of the f32 ``W^T``, one dW launch).
+
+    ``keep``, a dict, receives on the bf16 route what the data pass worked
+    from and wrote, for holding it to f32 products (``data_pass_reference``):
+    ``"y"`` (the forward's f32 output), ``"hidden"`` (the activation stash)
+    and ``"gzs"`` (every layer's rounded, scaled gz), each f32 [N, w_l]."""
     _validate(spec, x, flat, g)
     x, g = x.contiguous(), g.contiguous()
     n, e = x.shape
@@ -706,8 +789,6 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat):
                 tuple(torch.zeros(s, **f32) for s in flat_weight_shapes(spec))
                 + tuple(torch.zeros((1, d), **f32) for d in spec.dims[1:]))
     lib = _lib()
-    # f32 originals, as the TPU kernel's precomputed transposes
-    WT = _pack(spec, flat, transposed=True, rounded=False)
     B = _pack_biases(spec, flat)
     out = torch.empty((n, spec.dims[-1]), **f32)
     dx = torch.empty((n, e), **f32)
@@ -719,11 +800,18 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat):
         stash = torch.empty(n * lay.psum_hidden, **bf)
         gzs = torch.empty(n * lay.psum, **bf)
         _fwd_launch(lib, spec, x, pack_mma(spec, flat), B, out, stash)
-        _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, None, dbp, ylast=out)
+        _bwd_data_launch(lib, spec, n, stash, pack_mma_split(spec, flat), g, dx,
+                         gzs, None, dbp, ylast=out)
         dw = _dw_grouped(lib, spec, n, {"x0": _pad_bf16(x, lay.ep), "h": stash,
                                         "zs": gzs}, jac=False)
         dws = [d.contiguous() for d in unpack_mma(spec, dw)]
+        if keep is not None:
+            n_l = spec.n_layers
+            keep.update(y=out, hidden=_stash_layers(spec, stash, n, range(n_l - 1)),
+                        gzs=_stash_layers(spec, gzs, n, range(n_l)))
     else:
+        # f32 originals, as the TPU kernel's precomputed transposes
+        WT = _pack(spec, flat, transposed=True, rounded=False)
         stash = torch.empty(n * wsum, **f32)
         gzs = torch.empty(n * wsum, **f32)
         _fwd_launch(lib, spec, x, _pack(spec, flat), B, out, stash)
@@ -745,6 +833,89 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat):
         base += w
     launches["chain_bwd"] += 1
     return dx, tuple(dws) + tuple(dbs)
+
+
+def data_pass_reference(spec: ChainSpec, g, flat, kept):
+    """K2's data pass in f32 ``torch.matmul`` from the kernel's own stashes
+    (``chain_bwd_cuda(keep=...)``): ``(dx, [gzs_0, ..., gzs_{L-1}])``.
+
+    ``dx`` is the sum over the layers fed by x0 (layer 0 and the skips) of
+    ``gzs_l @ W^T`` with the unrounded f32 weights; ``gzs_{l-1}`` is
+    ``round(gzs_l @ W_h^T * act'(a_{l-1}) * s_{l-1})`` and the top one
+    ``round(g * act'(y) * s_L)``.  Every product reads the kernel's rounded gz,
+    so the gates and roundings are the kernel's and what is left to compare
+    is the order of the f32 sums: that holds the split of ``W^T`` in the
+    kernel to the f32 weights."""
+    nw = n_weights(spec)
+    weights = flat[:nw]
+    starts = _layer_starts(spec)
+    n_l = spec.n_layers
+    acts = list(kept["hidden"]) + [kept["y"]]
+    gzs, dx = [None] * n_l, 0.0
+    v = g * _act_grad_from_a(spec.acts[-1], kept["y"])
+    for l in reversed(range(n_l)):
+        gzs[l] = round_to(v * spec.scales[l] if spec.scales[l] != 1.0 else v,
+                          spec.compute_dtype)
+        z = kept["gzs"][l]
+        if spec.has_skip[l]:
+            dx = dx + z @ weights[starts[l] + 1].t()
+        gh = z @ weights[starts[l]].t()
+        if l == 0:
+            dx = dx + gh
+        else:
+            v = gh * _act_grad_from_a(spec.acts[l - 1], acts[l - 1])
+    return dx, gzs
+
+
+def data_pass_errors(spec: ChainSpec, g, flat, kept, dx):
+    """K2's data pass held to ``data_pass_reference`` on its own stashes:
+    ``(dx_err, gzs_ulps)``.  ``dx_err``: the largest error of ``dx`` relative
+    to the largest magnitude of the f32 products.  ``gzs_ulps``: over every
+    layer's rounded gz, the largest ``|gzs - ref| - 1e-5 max|ref|`` in units
+    of bf16's last place at ``ref`` (the 1e-5 allows for the order of the f32
+    sums where a value cancels to near 0): one unit when a rounding went the
+    other way, 0 when none did."""
+    dx_ref, gzs_ref = data_pass_reference(spec, g, flat, kept)
+    dx_err = float((dx - dx_ref).abs().max() / (dx_ref.abs().max() + 1e-30))
+    ulps = 0.0
+    for a, e in zip(kept["gzs"], gzs_ref):
+        ulp = 2.0 ** (torch.floor(torch.log2(e.abs().clamp_min(1e-30))) - 7)
+        excess = ((a - e).abs() - 1e-5 * float(e.abs().max())).clamp_min(0.0) / ulp
+        ulps = max(ulps, float(excess.max()) if excess.numel() else 0.0)
+    return dx_err, ulps
+
+
+def split_probe(k: int, m: int, n: int, seed: int = 0, device="cpu"):
+    """A K2 case whose dx is exact whatever the order of the sums:
+    ``(spec, x, g, flat)`` of a one-layer linear chain ``k -> m`` on the bf16
+    route, Gaussian f32 weights, and a cotangent with one entry a row, ±2^e
+    (e in -2..2) at column ``row % m``.  Then gz is ``g`` (bf16-exact), every
+    other product of a row is an exact 0, and dx of row r is that entry times
+    column ``r % m`` of ``W^T``: the f32 weights themselves, so a kernel that
+    drops any piece of their split (``lo`` is up to 2^-16 of a weight, 2^7
+    units of its last place) is off by many units in nearly every element,
+    where ``data_pass_errors`` sees a dropped ``lo`` only as a few 1e-6 of
+    dx's scale, beside the order-of-sums error of the sound kernel."""
+    rs = np.random.RandomState(seed)
+    spec = ChainSpec((k, m), ("none",), (False,), (1.0,), compute_dtype="bfloat16")
+    w = (rs.randn(k, m) / np.sqrt(k)).astype(np.float32)
+    b = (rs.randn(1, m) * 0.1).astype(np.float32)
+    x = rs.randn(n, k).astype(np.float32)
+    g = np.zeros((n, m), np.float32)
+    rows = np.arange(n)
+    g[rows, rows % m] = rs.choice([-1.0, 1.0], n) * 2.0 ** rs.randint(-2, 3, n)
+    return spec, *(torch.as_tensor(a, device=device) for a in (x, g)), \
+        [torch.as_tensor(a, device=device) for a in (w, b)]
+
+
+def split_probe_units(g, flat, dx) -> float:
+    """dx of a ``split_probe`` case against its exact value ``g @ W^T`` (one
+    term a row, so float64 holds it exactly and it is an f32 value): the
+    largest difference, in units of the last place of the exact value in
+    f32.  0 when the products are those of the f32 ``W^T``."""
+    exact = (g.double() @ flat[0].double().t()).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(exact.abs().clamp_min(1e-30))) - 23)
+    return float(((dx - exact).abs() / ulp).max()) if dx.numel() else 0.0
 
 
 def _validate_jac(spec: ChainSpec, x, flat, gy=None, gj=None):

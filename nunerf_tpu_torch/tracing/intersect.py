@@ -22,6 +22,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from nunerf_tpu_torch.ops.ray_intersect import morton_tiles
+
 MISS_T = 1e7  # reference miss depth sentinel (cuda/triangle.cu miss = 10000000)
 
 
@@ -121,51 +123,31 @@ class TileIndex(NamedTuple):
     perm: torch.Tensor  # [n_tiles * T] int32: padded slot -> original tri idx
 
 
-def _morton3(q: np.ndarray) -> np.ndarray:
-    """Interleave 10-bit x/y/z (q: [N,3] uint32 in [0,1024)) -> 30-bit code."""
-    def spread(x):
-        x = (x | (x << 16)) & 0x030000FF
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        x = (x | (x << 2)) & 0x09249249
-        return x
-    return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
-
-
 def build_tile_index(verts, tris, tile: int = 128, group: int = 16,
                      device="cpu") -> TileIndex:
     """Host-side build (construction time only): Morton-sort triangles by
-    centroid, group into ``tile``-sized tiles, record per-tile boxes.  The
-    tile count is padded to a multiple of ``group`` with never-hit tiles."""
+    centroid, group into ``tile``-sized tiles, record per-tile boxes
+    (``morton_tiles``, shared with K3's index).  The tile count is padded to
+    a multiple of ``group`` with never-hit tiles."""
     verts = np.asarray(verts, np.float32)
     tris = np.asarray(tris, np.int32)
-    cent = verts[tris].mean(1)
-    lo_all, hi_all = cent.min(0), cent.max(0)
-    scale = np.where(hi_all > lo_all, hi_all - lo_all, 1.0)
-    q = np.clip(((cent - lo_all) / scale * 1023.0), 0, 1023).astype(np.uint32)
-    order = np.argsort(_morton3(q), kind="stable").astype(np.int32)
-
+    corners = verts[tris]                         # [n, 3verts, 3]
     n = len(tris)
     n_tiles = -(-n // tile)
     n_tiles += (-n_tiles) % group
     slots = n_tiles * tile
+    order, lo, hi = morton_tiles(corners.mean(1), corners.min(1), corners.max(1),
+                                 n_tiles, tile)
     perm = np.zeros(slots, np.int32)
     perm[:n] = order
 
-    tv = verts[tris[order]]                       # [n, 3verts, 3]
+    tv = corners[order]
     v0 = np.full((slots, 3), 1e8, np.float32)     # degenerate padding
     e1 = np.zeros((slots, 3), np.float32)
     e2 = np.zeros((slots, 3), np.float32)
     v0[:n] = tv[:, 0]
     e1[:n] = tv[:, 1] - tv[:, 0]
     e2[:n] = tv[:, 2] - tv[:, 0]
-
-    vmin = np.full((slots, 3), np.inf, np.float32)
-    vmax = np.full((slots, 3), -np.inf, np.float32)
-    vmin[:n] = tv.min(1)
-    vmax[:n] = tv.max(1)
-    lo = vmin.reshape(n_tiles, tile, 3).min(1)
-    hi = vmax.reshape(n_tiles, tile, 3).max(1)
 
     def dev(a):
         return torch.as_tensor(a, device=device)

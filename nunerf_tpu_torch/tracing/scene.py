@@ -23,7 +23,7 @@ import torch
 
 from nunerf_tpu_torch.device import resolve_device
 from nunerf_tpu_torch.ops.geometry import dot, normalize, refract
-from nunerf_tpu_torch.ops.ray_intersect import ray_mesh_closest_hit
+from nunerf_tpu_torch.ops.ray_intersect import build_cull_index, ray_mesh_closest_hit
 from nunerf_tpu_torch.tracing.intersect import (
     MISS_T,
     Hit,
@@ -43,10 +43,11 @@ from nunerf_tpu_torch.tracing.mesh_ops import (
 
 class Scene:
     """``use_kernel`` sends the closest-hit query to the CUDA kernel
-    (``ops/ray_intersect.py``).  ``None`` means on for a CUDA device and off
-    on the CPU; ``True`` on the CPU raises.  With the kernel off the query is
-    the brute sweep below ``cull_threshold`` triangles and the tile-culled
-    descent from there on."""
+    (``ops/ray_intersect.py``), over a culling index (``kernel_index``) built
+    here once: the mesh does not change while a scene traces it.  ``None``
+    means on for a CUDA device and off on the CPU; ``True`` on the CPU
+    raises.  With the kernel off the query is the brute sweep below
+    ``cull_threshold`` triangles and the tile-culled descent from there on."""
 
     def __init__(self, mesh: Union[str, Tuple[np.ndarray, np.ndarray]],
                  tile: int = 1024, use_kernel: bool = None,
@@ -93,13 +94,18 @@ class Scene:
         self.tris = torch.as_tensor(self.tris_np, device=dev).long()
         self.vertex_normals = torch.as_tensor(normals, device=dev)
         self.vertex_curvature = torch.as_tensor(curvature, device=dev)
+        # the kernel's index of the same triangles (their f32 bits gathered
+        # from v0/e1/e2); the brute v0/e1/e2 stay for the plain versions
+        self.kernel_index = (build_cull_index(self.v0, self.e1, self.e2)
+                             if self.use_kernel else None)
 
     # ------------------------------------------------------------------
     def intersect(self, rays_o, rays_d) -> Hit:
         """Closest-hit query, without gradient (the OptiX stand-in)."""
         if self.use_kernel:
-            t, idx, hit = ray_mesh_closest_hit(
-                rays_o.detach(), rays_d.detach(), self.v0, self.e1, self.e2)
+            t, idx, hit = ray_mesh_closest_hit(rays_o.detach(), rays_d.detach(),
+                                               self.v0, self.e1, self.e2,
+                                               index=self.kernel_index)
             return Hit(t=t, tri_idx=idx, hit=hit)
         if self.tile_index is not None:
             return ray_mesh_intersect_culled(rays_o, rays_d, self.tile_index,

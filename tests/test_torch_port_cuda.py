@@ -10,9 +10,12 @@ Tolerances, relative to each array's largest magnitude: f32 1e-5 forward and
 1e-4 backward (sums in another order); bf16 1e-2 forward and 3e-2 backward
 (hidden activations and cotangents rounded to bf16, where a rounding flips
 with the sum order); K4 is held as a forward (``y``, ``j``) and K5 as a
-backward (against autograd through K4's plain version).  K3 multiplies and adds without FMA contraction, one
-rounding an operation as the plain version: ``t``, the triangle index and
-``hit`` are held exactly.
+backward (against autograd through K4's plain version).  K2's bf16 data pass
+is also held to f32 products of its own stashes (1e-5, one bf16 unit) and,
+on one-layer probes, to the f32 weights (one unit of the last place).  K3
+multiplies and adds without FMA contraction, one rounding an operation as
+the plain version: ``t``, the triangle index and ``hit`` are held exactly,
+over a culling index, on an adversarial box mesh too.
 """
 
 import math
@@ -42,6 +45,10 @@ SPECS = {
     # a skip on layer 1 and on the last layer, a relu among the activations
     "jac_skips": ((20, 64, 64, 64, 5), ("softplus100", "relu", "softplus100", "none"),
                   (False, True, False, True), (1.0, 0.5, 1.0, 0.7)),
+    # the widest input K1/K2 take, a relu last layer
+    "wide512": ((512, 256, 256, 64), ("relu",) * 3, (False,) * 3, (1.0,) * 3),
+    # a softplus last layer 257 wide, scaled, behind a 259-wide input
+    "sp_out": ((259, 256, 257), ("relu", "softplus100"), (False, False), (1.0, 0.5)),
 }
 TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 1e-4,
        ("fwd", "bfloat16"): 1e-2, ("bwd", "bfloat16"): 3e-2}
@@ -85,7 +92,9 @@ def _assert_close(a, e, rtol, what):
                                     ("sdf", 1), ("sdf", 63), ("sdf", 65),
                                     ("sdf_value", 1000), ("sdf_value", 1),
                                     ("relu259", 65), ("relu259", 1000),
-                                    ("trunk", 63), ("trunk", 1000), ("relu", 1)])
+                                    ("trunk", 63), ("trunk", 1000), ("relu", 1),
+                                    ("wide512", 65), ("wide512", 1000),
+                                    ("sp_out", 63), ("sp_out", 1000)])
 def test_kernels_match_plain_version(cuda, name, n, compute_dtype):
     """K1 (y and every hidden activation of its stash) and K2 (dx, every dW,
     every db, by the largest error over all rows).
@@ -127,6 +136,58 @@ def test_kernels_match_plain_version(cuda, name, n, compute_dtype):
         ref = torch.autograd.grad(torch.sum(y_g * g), leaves)
     for i, (a, r) in enumerate(zip((dx,) + dflat, ref)):
         _assert_close(a, r, t_b, f"K2 grad {i}")
+
+
+K2_SHAPES = [("sdf", 1000), ("sdf", 1), ("sdf", 63), ("sdf", 65), ("sdf_value", 1000),
+             ("relu", 333), ("relu259", 65), ("relu259", 1000), ("trunk", 63),
+             ("trunk", 1000), ("jac_skips", 1000), ("wide512", 1000), ("sp_out", 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", K2_SHAPES)
+def test_k2_data_pass_gives_the_f32_products(cuda, name, n):
+    """K2's bf16 data pass, which multiplies by the three bf16 pieces of the
+    f32 ``W^T``, held to f32 ``torch.matmul`` (TF32 off) of its own stashes:
+    dx within 1e-5 of its scale, every rounded gz within one bf16 unit
+    (``data_pass_errors``).  The 3e-2 of the chain tolerance cannot tell a
+    dropped piece from the exact split; this sees a dropped ``mid``, and
+    ``test_k2_split_probe_gives_the_f32_weights`` a dropped ``lo`` too."""
+    spec, x, g, flat = _make(name, n, "bfloat16", cuda)
+    kept = {}
+    dx, _ = fm.chain_bwd_cuda(spec, x, g, flat, keep=kept)
+    torch.cuda.synchronize()
+    dx_err, gzs_ulps = fm.data_pass_errors(spec, g, flat, kept, dx)
+    assert dx_err <= 1e-5, f"dx {dx_err:.2e}"
+    assert gzs_ulps <= 1.0, f"gz off by {gzs_ulps:.2f} bf16 units"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(39, 1), (39, 257), (84, 256), (259, 3), (512, 512)])
+def test_k2_split_probe_gives_the_f32_weights(cuda, k, m):
+    """``split_probe``: a one-layer chain at one-entry cotangents, whose dx
+    is the f32 weights times powers of two in any order of the sums.  K2's
+    bf16 data pass gives it within one unit of the last place; without
+    ``lo`` it would be off by tens of units (``split_probe_units``)."""
+    spec, x, g, flat = fm.split_probe(k, m, 1000, seed=k + m, device=cuda)
+    dx, _ = fm.chain_bwd_cuda(spec, x, g, flat)
+    torch.cuda.synchronize()
+    units = fm.split_probe_units(g, flat, dx)
+    assert units <= 1.0, f"dx off by {units:.0f} units of the last place"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_k2_is_the_same_from_run_to_run(cuda, compute_dtype):
+    """db and dW come from per-block and per-split partials summed in a fixed
+    order, dx from one thread an element: two runs give equal bits."""
+    spec, x, g, flat = _make("sdf", 5000, compute_dtype, cuda)
+    runs = []
+    for _ in range(2):
+        dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
+        torch.cuda.synchronize()
+        runs.append((dx,) + dflat)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -318,12 +379,14 @@ def test_closest_hit_matches_plain_version(cuda, n_rays, n_lat, n_lon):
     o, d = _rays(n_rays, seed=n_rays)
     tri = [torch.as_tensor(a, device=cuda) for a in (v0, e1, e2)]
     ro, rd = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    cut = [a[:n_tris] for a in tri]
+    index, index_cut = ri.build_cull_index(*tri), ri.build_cull_index(*cut)
     ri.reset_launches()
-    t, idx, hit = ri.ray_mesh_closest_hit(ro, rd, *tri)
+    t, idx, hit = ri.ray_mesh_closest_hit(ro, rd, *tri, index=index)
     # without the padding rows, which can never be hit: the same answer
-    t2, idx2, hit2 = ri.ray_mesh_closest_hit(ro, rd, *(a[:n_tris] for a in tri))
+    t2, idx2, hit2 = ri.ray_mesh_closest_hit(ro, rd, *cut, index=index_cut)
     torch.cuda.synchronize()
-    assert ri.launches == {"closest_hit": 2}
+    assert ri.launches == {"closest_hit": 2, "cull_bin": 0}
     rt, ridx, rhit = ri.closest_hit_reference(ro, rd, *tri)
     for a, b in ((t, rt), (idx, ridx), (hit, rhit), (t2, rt), (idx2, ridx), (hit2, rhit)):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -347,12 +410,86 @@ def test_closest_hit_ties_and_refusals(cuda):
     v0, e1, e2 = tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]
     ro = torch.zeros((300, 3), device=cuda)
     rd = torch.tensor([[0.0, 0.0, 1.0]], device=cuda).repeat(300, 1)
-    t, idx, hit = ri.closest_hit_cuda(ro, rd, *(torch.as_tensor(a, device=cuda)
-                                                for a in (v0, e1, e2)))
-    assert hit.all() and (idx == 0).all() and torch.allclose(t, torch.ones_like(t))
-    # a CUDA tensor the kernel does not take raises: no plain fallback
+    tri = [torch.as_tensor(a, device=cuda) for a in (v0, e1, e2)]
+    for tile in (32, 64, 128):
+        t, idx, hit = ri.closest_hit_cuda(ro, rd, ri.build_cull_index(*tri, tile=tile))
+        assert hit.all() and (idx == 0).all() and torch.allclose(t, torch.ones_like(t))
+    # a CUDA tensor the kernel does not take raises, and so does a call
+    # without the index: no plain fallback, no index built behind the caller
+    index = ri.build_cull_index(*tri)
     with pytest.raises(ValueError):
-        ri.ray_mesh_closest_hit(ro.double(), rd.double(),
-                                *(torch.as_tensor(a, device=cuda) for a in (v0, e1, e2)))
+        ri.ray_mesh_closest_hit(ro.double(), rd.double(), *tri, index=index)
+    with pytest.raises(ValueError, match="CullIndex"):
+        ri.ray_mesh_closest_hit(ro, rd, *tri)
     with pytest.raises(ValueError):
-        ri.closest_hit_cuda(ro.cpu(), rd.cpu(), *(torch.as_tensor(a) for a in (v0, e1, e2)))
+        ri.closest_hit_cuda(ro.cpu(), rd.cpu(),
+                            ri.build_cull_index(*(torch.as_tensor(a) for a in (v0, e1, e2))))
+
+
+def _box_case(cuda, tile=8):
+    from nunerf_tpu_torch.tracing.probes import adversarial_rays, box_mesh
+    verts, tris = box_mesh()
+    tv = verts[tris]
+    tri = [torch.as_tensor(a, device=cuda)
+           for a in (tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])]
+    index = ri.build_cull_index(*tri, tile=tile)
+    o, d = adversarial_rays(verts, index.box.cpu().numpy())
+    return tri, index, torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 32])
+def test_culled_closest_hit_is_exact_on_the_adversarial_box(cuda, tile):
+    """Rays along the cube's faces, through its edges and vertices, with zero
+    (and -0.0) direction components, from origins on the tile boxes' planes:
+    t, index and hit equal the brute plain version's bit for bit; the
+    kernel's lists hold every pair of the plain box test; the pair counters
+    add up."""
+    tri, index, o, d = _box_case(cuda, tile)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = ri.closest_hit_cuda(o, d, index, stats=stats)
+    cand = ri.cull_candidates_cuda(o, d, index)
+    torch.cuda.synchronize()
+    ref = ri.closest_hit_reference(o, d, *tri)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    plain = ri.cull_candidates_reference(o, d, index)
+    assert not (plain & ~cand).any()
+    assert int(stats[0]) == int(cand.sum()) and int(stats[1]) == int(cand.sum()) * index.tile
+    assert got[2].any() and not got[2].all()
+
+
+@pytest.mark.cuda
+def test_culled_closest_hit_with_nothing_to_do(cuda):
+    """No rays; an index with no tiles (every row padding); rays whose box
+    tests all fail, so every list is empty."""
+    tri, index, o, d = _box_case(cuda)
+    for a in ri.closest_hit_cuda(o[:0], d[:0], index):
+        assert a.shape == (0,)
+    pad = [torch.full((256, 3), 1e8, device=cuda), torch.zeros((256, 3), device=cuda),
+           torch.zeros((256, 3), device=cuda)]
+    t, idx, hit = ri.closest_hit_cuda(o, d, ri.build_cull_index(*pad))
+    assert (t == ri.MISS_T).all() and not idx.any() and not hit.any()
+    away_o = torch.tensor([[0.0, 0.0, 3.0]] * 5, device=cuda)
+    away_d = torch.tensor([[0.0, 0.0, 1.0]] * 5, device=cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    t, idx, hit = ri.closest_hit_cuda(away_o, away_d, index, stats=stats)
+    assert (t == ri.MISS_T).all() and not idx.any() and not hit.any()
+    assert not stats.any() and not ri.cull_candidates_cuda(away_o, away_d, index).any()
+
+
+@pytest.mark.cuda
+def test_culled_closest_hit_across_ray_chunks(cuda, monkeypatch):
+    """Lists sized for fewer rays than the call has: the rays go through in
+    chunks and the answer is the same."""
+    v0, e1, e2, _ = _sphere_soup(90, 180)
+    o, d = _rays(5000, seed=11)
+    tri = [torch.as_tensor(a, device=cuda) for a in (v0, e1, e2)]
+    ro, rd = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    index = ri.build_cull_index(*tri)
+    whole = ri.closest_hit_cuda(ro, rd, index)
+    monkeypatch.setattr(ri, "LIST_BYTES", 4 * index.box.shape[0] * 700)
+    chunked = ri.closest_hit_cuda(ro, rd, index)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)

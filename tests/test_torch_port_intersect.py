@@ -82,7 +82,7 @@ def test_tile_index_and_auto_params_match_jax(mesh):
     for n in (100, 30000, 117000, 500000, 2_000_000, 40_000_000):
         assert pi.auto_tile_params(n) == ji.auto_tile_params(n)
     q = np.random.RandomState(0).randint(0, 1024, (50, 3)).astype(np.uint32)
-    np.testing.assert_array_equal(pi._morton3(q), ji._morton3(q))
+    np.testing.assert_array_equal(ri._morton3(q), ji._morton3(q))
     a = pi.build_tile_index(verts, tris, tile=32, group=4)
     b = ji.build_tile_index(verts, tris, tile=32, group=4)
     for name in a._fields:
@@ -211,7 +211,7 @@ def test_closest_hit_wrapper_refuses_what_the_kernel_does_not_take():
     from nunerf_tpu_torch.ops.ray_intersect import _validate, closest_hit_cuda
     z = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        closest_hit_cuda(z, z, z, z, z)
+        closest_hit_cuda(z, z, ri.build_cull_index(z, z, z))
     with pytest.raises(ValueError, match="CUDA"):
         _validate(z, z, z, z, z)
     # the plain version counts no launch

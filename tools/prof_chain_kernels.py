@@ -1,6 +1,6 @@
 """Where the time of the chain kernels (K1, K2, K4, K5) goes, on one GPU.
 
-    python3 tools/prof_chain_kernels.py [--variants] [--n 131072]
+    python3 tools/prof_chain_kernels.py [--variants | --split-faults] [--n 131072]
 
 Without ``--variants``: each wrapper at the SDF chain's full width (and K1 at
 a 259-input head), bf16, random weights from a seed; CUDA-event time of the
@@ -14,9 +14,18 @@ activation math, the ``ldmatrix`` loads, the L2 prefetch of the epilogues'
 inputs; such a build computes nothing right and is only timed), and with other
 pipeline shapes (``-DKS`` rows a weight slice, ``-DNSTAGE`` stages), one
 ``nvcc`` each, all started together, into
-``nunerf_tpu_torch/build/variants/``; then times K1, K4 and K5 through each.
+``nunerf_tpu_torch/build/variants/``; then times K1, K4, K5 and K2 through each.
 What a piece costs is the base time less the time without it; if the pieces'
 costs add up to the whole, nothing overlaps.
+
+With ``--split-faults``: builds the source as it is and with a fault planted
+in K2's bf16 data pass (``-DPROF_SPLIT_SKIP``: the ``lo`` or the ``mid`` piece
+of the f32 ``W^T``'s split left out), and runs each build through the card's
+two checks of the split: dx and the rounded gz against f32 products of the
+kernel's own stashes (``data_pass_errors``; limits 1e-5 and one bf16 unit) at
+the SDF value chain, the head and a 512-wide input, and the one-layer probes
+(``split_probe_units``; limit one unit of the last place).  A check that
+passes a faulty build cannot see that fault.
 """
 
 import argparse
@@ -46,7 +55,15 @@ VARIANTS = {"base": [],
             "no L2 prefetch": ["-DPROF_NO_PREFETCH"],
             "no ldmatrix": ["-DPROF_NO_LDMATRIX"],
             "KS=64 NSTAGE=2": ["-DKS=64", "-DNSTAGE=2"],
-            "KS=32 NSTAGE=2": ["-DKS=32", "-DNSTAGE=2"]}
+            "KS=32 NSTAGE=2": ["-DKS=32", "-DNSTAGE=2"],
+            "split pieces unrolled": ["-DPROF_SPLIT_UNROLLED"],
+            "split 3 stages": ["-DNSTAGE3=3"],
+            "dx from accumulators": ["-DPROF_DX_GLOBAL"]}
+
+# -D flags of the planted faults: a piece of K2's split left out
+FAULTS = {"sound": [], "no lo": ["-DPROF_SPLIT_SKIP=2"], "no mid": ["-DPROF_SPLIT_SKIP=1"]}
+WIDE = ((512, 256, 256, 64), ("relu",) * 3, (False,) * 3, (1.0,) * 3)
+PROBES = ((39, 1), (39, 257), (84, 256), (259, 3), (512, 512))
 
 
 def make_chain(dims, acts, skip, scales, dev, gen):
@@ -84,14 +101,14 @@ def by_kernel(what, fn, reps):
         print(f"   {us / 1e3:8.3f} ms  x{count:5.1f}  {key[:88]}")
 
 
-def build_variants():
-    """{name: library path} of the variant builds."""
+def build_variants(variants):
+    """{name: library path} of the builds of ``variants`` ({name: -D flags})."""
     src = os.path.join(cuda_build.CSRC_DIR, "fused_mlp.cu")
     out_dir = os.path.join(cuda_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     flags = [a for a in cuda_build.NVCC_FLAGS if a not in ("-Xptxas", "-v")]
     procs, libs = {}, {}
-    for i, (name, defs) in enumerate(VARIANTS.items()):
+    for i, (name, defs) in enumerate(variants.items()):
         libs[name] = os.path.join(out_dir, f"variant_{i}.so")
         procs[name] = subprocess.Popen(
             [cuda_build.find_nvcc(), *defs, *flags, "-o", libs[name], src],
@@ -103,9 +120,28 @@ def build_variants():
     return libs
 
 
+def split_checks(cases, dev):
+    """The two checks of K2's split on the library loaded now: per case, the
+    data pass's (dx error, gz units); per probe, its units."""
+    out = []
+    for what, spec, x, g, flat in cases:
+        kept = {}
+        dx, _ = fm.chain_bwd_cuda(spec, x, g, flat, keep=kept)
+        torch.cuda.synchronize()
+        dx_err, ulps = fm.data_pass_errors(spec, g, flat, kept, dx)
+        out.append(f"{what}: dx {dx_err:.2e}, gz {ulps:.2f} units")
+    for k, m in PROBES:
+        spec, x, g, flat = fm.split_probe(k, m, 1000, seed=k + m, device=dev)
+        dx, _ = fm.chain_bwd_cuda(spec, x, g, flat)
+        torch.cuda.synchronize()
+        out.append(f"probe {k}->{m}: {fm.split_probe_units(g, flat, dx):.0f} units")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--split-faults", action="store_true")
     ap.add_argument("--n", type=int, default=131072)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -126,20 +162,33 @@ def main():
     gj = torch.randn((n, 39), generator=gen).to(dev)
     half = n // 2
     g1 = torch.randn((half, 1), generator=gen).to(dev)
+    gh = torch.randn((n, 3), generator=gen).to(dev)
     xhalf = x[:half].contiguous()
     calls = {
         "K1 value": (lambda: fm.chain_fwd_cuda(val[0], x, val[1]), 10),
         "K1 head": (lambda: fm.chain_fwd_cuda(head[0], xh, head[1]), 10),
         "K4": (lambda: fm.chain_jac_fwd_cuda(full[0], x, full[1]), 5),
         "K5": (lambda: fm.chain_jac_bwd_cuda(full[0], x, gy, gj, full[1]), 3),
+        f"K2 value, N={half}": (lambda: fm.chain_bwd_cuda(val[0], xhalf, g1, val[1]), 3),
+        "K2 head": (lambda: fm.chain_bwd_cuda(head[0], xh, gh, head[1]), 3),
     }
+    if args.split_faults:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        wide = make_chain(*WIDE, dev, gen)
+        cases = [(f"SDF value N={half}", val[0], xhalf, g1, val[1]),
+                 (f"head N={n}", head[0], xh, gh, head[1]),
+                 ("512-wide input N=1000", wide[0],
+                  torch.randn((1000, 512), generator=gen).to(dev),
+                  torch.randn((1000, 64), generator=gen).to(dev), wide[1])]
+        for name, lib in build_variants(FAULTS).items():
+            cuda_build.load_from("fused_mlp", lib)
+            print(f"{name:8s} " + "; ".join(split_checks(cases, dev)), flush=True)
+        return 0
     if not args.variants:
-        calls[f"K2 value, N={half}"] = (
-            lambda: fm.chain_bwd_cuda(val[0], xhalf, g1, val[1]), 3)
         for what, (fn, reps) in calls.items():
             by_kernel(f"{what}, N={n}, bf16" if "N=" not in what else what, fn, reps)
         return 0
-    for name, lib in build_variants().items():
+    for name, lib in build_variants(VARIANTS).items():
         # the wrappers load the library by name: hand them this build
         cuda_build.load_from("fused_mlp", lib)
         print(f"{name:20s} " + "   ".join(f"{what} {cuda_ms(fn, reps):.3f} ms"
