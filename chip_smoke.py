@@ -18,10 +18,13 @@ Phases (any failure exits non-zero):
      no activation, a relu or a softplus), f32 and bf16; K2's bf16 data pass
      also against f32 products of its own stashes, and on one-layer probes
      whose dx is the f32 weights to the last bit; K3, tile-culled over the
-     scene's index, on the full-width mesh at 1024, 5000 and 131,072 rays
-     (its pair counts and the bound of its culled work beside the brute
-     sweep's), beside the port's brute sweep and tile-culled descent, and on
-     an adversarial box mesh;
+     scene's index, in its tolerant mode (the scene's default: the
+     barycentric tolerance of the sweeps and of the JAX package's default
+     closest hit) and its exact mode (the Pallas kernel's), on the
+     full-width mesh at 1024, 5000 and 131,072 rays (its pair counts and the
+     bound of its culled work beside the brute sweep's, its time in both
+     modes), against the port's brute sweep and tile-culled descent with no
+     ray allowed to disagree on ``hit``, and on an adversarial box mesh;
   4. correctness: a small stage-1 step and a small stage-2 step on the card
      (kernels on) against the same steps on the CPU (plain versions), plain
      and with the ``fused_sdf`` / ``fused_mlp`` gates on;
@@ -36,7 +39,14 @@ Phases (any failure exits non-zero):
      same two steps with the opt-in gates on: path A (stage 1, ``fused_sdf``:
      K4 and K5 once a step), path B (stage 2, ``fused_sdf``: K4 and K5 on the
      inner SDF, 3 K3) and path C (stage 1, ``fused_mlp``: K1/K2 on the NeRF++
-     trunk and every shading head).
+     trunk and every shading head);
+  6. the trainer (``phase_trainer``): a 100-view 800x800 NeRF-synthetic
+     scene written with the port's PNG writer, ``Trainer(cfg).run()`` of
+     stage 1 at ``BENCH_CFG``'s width (30 steps, validation, checkpoints),
+     a second trainer resuming at step 30, and the zero-thickness stage 2
+     from that checkpoint through K3 in its tolerant mode (10 steps, a
+     validation with the TIR mask), each run's launch counts read as a main
+     path's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,28 +61,9 @@ import time
 import numpy as np
 import torch
 
-# the port's copy of bench.py's BENCH_CFG (the full-width stage-1 step)
-BENCH_CFG = {
-    "name": "bench",
-    "network": "shape",
-    "is_nerf": True,
-    "get_mask": False,
-    "shader_config": {"sphere_direction": False, "human_light": False},
-    "loss": ["nerf_render", "eikonal", "std", "init_sdf_reg", "occ", "mask",
-             "outer_reg"],
-    "eikonal_weight": 0.1,
-    "n_samples": 64,
-    "n_bg_samples": 32,
-    "n_importance": 64,
-    "up_sample_steps": 4,
-    "train_ray_num": 1024,
-    "occ_loss_step": 20000,
-    "occ_loss_max_pn": 2048,
-    "apply_occ_loss": True,
-    "anneal_end": 50000,
-    "mixed_precision": True,
-    "sdf_mixed_precision": True,
-}
+# the full-width stage-1 step: the port's copy of bench.py's BENCH_CFG, and
+# its synthetic rays
+from nunerf_tpu_torch.bench import BENCH_CFG, synthetic_batch  # noqa: E402
 
 # the small configuration of phase 4
 SMALL_CFG = dict(BENCH_CFG, n_samples=8, n_importance=8, up_sample_steps=2,
@@ -249,17 +240,7 @@ def split_probe_check(fm, dev):
 
 
 def batch_for(cfg, dev):
-    rn = cfg["train_ray_num"]
-    rs = np.random.RandomState(0)
-    origins = np.tile(np.array([[0.0, 0.0, -2.5]], np.float32), (rn, 1))
-    dirs = rs.randn(rn, 3).astype(np.float32) * 0.3 - origins
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    b = {"rays_o": origins, "rays_d": dirs.astype(np.float32),
-         "near": np.full((rn, 1), 0.8, np.float32),
-         "far": np.full((rn, 1), 4.5, np.float32),
-         "rgbs": rs.rand(rn, 3).astype(np.float32),
-         "masks": np.ones((rn,), np.float32)}
-    return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    return synthetic_batch(cfg["train_ray_num"], dev)
 
 
 def lumpy_sphere_mesh(resolution):
@@ -727,15 +708,66 @@ def k3_bound(ri, index, rn, stats):
     return bound_ms(flops, nbytes, "float32")
 
 
+def sweep_agreement(got, ref, ro, rd, tri, what, strict=True):
+    """K3's answer ``got`` (t, index, hit) against a tolerant sweep's
+    ``ref`` (``tracing/intersect.py``), as ``tests/test_pallas_intersect.py``
+    holds the JAX pair: ``hit`` equal on every ray, and where both hit ``t``
+    within rtol 1e-6 and the index equal, but for a tie: the sweep's own
+    ``t`` for K3's triangle equals its chosen ``t`` within rtol 1e-6 (a
+    shared edge reached at the same depth).  Raises on a ``hit`` that
+    differs, and with ``strict`` on any other disagreement; returns the
+    counts, and over the rays that disagree otherwise than by a tie the
+    largest error of each side's f32 ``t`` against its own triangle's ``t`` in
+    float64 (``k3_t_err_f64``, ``sweep_t_err_f64``, relative): which of the
+    two is off, or both (an ill-conditioned hit)."""
+    from nunerf_tpu_torch.tracing import intersect as ti
+
+    t, idx, hit = got
+    both = hit & ref.hit
+    differ = both & (idx != ref.tri_idx)
+    i = idx[differ].long()
+    t_own = ti._mt_per_ray(ro[differ], rd[differ], tri[0][i][:, None], tri[1][i][:, None],
+                           tri[2][i][:, None])[:, 0]
+    tie = (t_own - ref.t[differ]).abs() <= 1e-6 * ref.t[differ].abs()
+    rel = (t - ref.t).abs() / ref.t.abs()
+    off = both & (rel > 1e-6)
+    off[torch.nonzero(differ)[:, 0][~tie]] = True
+    o64, d64 = ro[off].double(), rd[off].double()
+
+    def err64(t32, i):
+        v0, e1, e2 = (a[i.long()].double() for a in tri)
+        det = (torch.linalg.cross(d64, e2) * e1).sum(-1)
+        t64 = (torch.linalg.cross(o64 - v0, e1) * e2).sum(-1) / det
+        return float(((t32.double() - t64).abs() / t64.abs()).max()) if bool(off.any()) else 0.0
+    c = {"hit_differs": int((hit != ref.hit).sum()), "index_differs": int(differ.sum()),
+         "ties": int(tie.sum()), "t_off": int((both & (rel > 1e-6)).sum()),
+         "t_rel_max": float(rel[both].max()) if bool(both.any()) else 0.0,
+         "disagreeing_rays": int(off.sum()),
+         "k3_t_err_f64": err64(t[off], idx[off]),
+         "sweep_t_err_f64": err64(ref.t[off], ref.tri_idx[off])}
+    if c["hit_differs"] or (strict and c["disagreeing_rays"]):
+        raise AssertionError(f"{what} and K3 disagree: {c}")
+    return c
+
+
 def phase_kernel_k3(scene, dev):
     """K3, tile-culled over the scene's index, against its plain version on
-    the full-width mesh: exact ``t``, index and ``hit`` (the kernel multiplies
+    the full-width mesh, in the scene's tolerant mode (the barycentric
+    tolerance of the brute sweep and of the JAX package's default closest
+    hit) and in the exact mode (the Pallas kernel's): ``t``, index and ``hit``
+    bit-equal to the plain version of the same mode (the kernel multiplies
     and adds without FMA contraction, one rounding an operation as the plain
-    version) at R = 1024 and 5000, on a fixed 8,192-ray subset of R =
-    131,072 (a ray's answer does not depend on the other rays), and on an
-    adversarial box mesh; the kernel's lists against the plain box test; the
-    pairs it tested and the bound of that culled work beside the brute
-    sweep's."""
+    version) at R = 1024 and 5000, on a fixed 8,192-ray subset of R = 131,072
+    (a ray's answer does not depend on the other rays), and on an adversarial
+    box mesh; the tolerant mode against the port's brute sweep and culled
+    descent at R = 1024 and on the adversarial box (``sweep_agreement``:
+    ``hit`` equal on every ray, no allowance; ``t`` within rtol 1e-6 and the
+    index equal but for ties), and against the brute sweep at R = 131,072
+    (``hit`` held; rays whose ``t`` or index differ otherwise counted, with
+    how grazing they are: the two sweeps order their operations apart, and a
+    grazing hit's f32 ``t`` is ill-conditioned); the kernel's lists
+    against the plain box test; the pairs it tested and the bound of that
+    culled work beside the brute sweep's; its time in both modes."""
     from nunerf_tpu_torch.ops import ray_intersect as ri
     from nunerf_tpu_torch.tracing import intersect as ti
     from nunerf_tpu_torch.tracing.probes import adversarial_rays, box_mesh
@@ -743,93 +775,115 @@ def phase_kernel_k3(scene, dev):
     n_tris = len(scene.tris_np)
     tri = (scene.v0, scene.e1, scene.e2)
     index = scene.kernel_index
+    tol = scene.kernel_tol
+    if tol != ri.BARY_TOL:
+        raise AssertionError(f"the scene's K3 mode is tol={tol}, not the sweeps' {ri.BARY_TOL}")
+    modes = {"tolerant": tol, "exact": 0.0}
     # the tile index the scene would build with the kernel off, to time the
     # culled descent beside K3
     cull_tile, group = ti.auto_tile_params(n_tris)
     descent_index = ti.build_tile_index(scene.verts_np, scene.tris_np, tile=cull_tile,
                                         group=group, device=dev)
-    rec = None
+    rec = {"mode": f"tolerant (barycentric tolerance {tol:g}, the scene's default); "
+                   "exact (0) also held and timed"}
     for rn in (1024, 5000, 131072):
         ro, rd, kind = intersect_rays(rn, rn, dev)
-        stats = torch.zeros(2, dtype=torch.int64, device=dev)
-        t, idx, hit = ri.closest_hit_cuda(ro, rd, index, stats=stats)
-        torch.cuda.synchronize()
         sub = (torch.arange(rn, device=dev) if rn <= 5000 else
                torch.as_tensor(np.random.RandomState(5).choice(rn, 8192, replace=False),
                                device=dev))
-        rt, ridx, rhit = ri.closest_hit_reference(ro[sub], rd[sub], *tri)
         kind = torch.as_tensor(kind, device=dev)
-        share = [float(hit[kind == j].double().mean()) for j in range(3)]
-        same = (torch.equal(t[sub], rt) and torch.equal(idx[sub], ridx)
-                and torch.equal(hit[sub], rhit))
-        err = float((t[sub] - rt).abs().max())
-        pairs, tests = int(stats[0]), int(stats[1])
-        log(f"K3 culled closest hit R={rn} T={n_tris} ({index.box.shape[0]} tiles of "
-            f"{index.tile}): {len(sub)} rays held, hit share outside/inside/away "
-            f"{share[0]:.3f}/{share[1]:.3f}/{share[2]:.3f}, max |t - plain| {err:.1e}, "
-            f"index and hit {'equal' if same else 'DIFFER'} (held exactly); (ray, tile) "
-            f"pairs passed {pairs} ({pairs / rn:.1f} a ray), ray-triangle pairs tested "
-            f"{tests} ({tests / rn:.0f} a ray, brute {n_tris})")
-        if not same:
-            bad = (int((idx[sub] != ridx).sum()), int((hit[sub] != rhit).sum()),
-                   int((t[sub] != rt).sum()))
-            raise AssertionError(f"K3 disagrees with its plain version: {bad} "
-                                 "(index, hit, t) rays differ")
-        if not (share[0] > 0.9 and bool(hit[kind == 1].all())
-                and not bool(hit[kind == 2].any())):
-            raise AssertionError(f"K3 hit shares {share}: expected hits from outside "
-                                 "and inside, none pointing away")
-        if not (bool((idx[~hit] == 0).all()) and bool((t[~hit] == ri.MISS_T).all())):
-            raise AssertionError("K3 missed lanes do not carry (MISS_T, 0)")
+        for mode, mtol in modes.items():
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            got = ri.closest_hit_cuda(ro, rd, index, stats=stats, tol=mtol)
+            t, idx, hit = got
+            torch.cuda.synchronize()
+            rt, ridx, rhit = ri.closest_hit_reference(ro[sub], rd[sub], *tri, tol=mtol)
+            share = [float(hit[kind == j].double().mean()) for j in range(3)]
+            same = (torch.equal(t[sub], rt) and torch.equal(idx[sub], ridx)
+                    and torch.equal(hit[sub], rhit))
+            err = float((t[sub] - rt).abs().max())
+            pairs, tests = int(stats[0]), int(stats[1])
+            log(f"K3 culled closest hit, {mode} mode, R={rn} T={n_tris} "
+                f"({index.box.shape[0]} tiles of {index.tile}): {len(sub)} rays held, hit "
+                f"share outside/inside/away {share[0]:.3f}/{share[1]:.3f}/{share[2]:.3f}, max "
+                f"|t - plain| {err:.1e}, index and hit {'equal' if same else 'DIFFER'} "
+                f"(held exactly); (ray, tile) pairs passed {pairs} ({pairs / rn:.1f} a ray), "
+                f"ray-triangle pairs tested {tests} ({tests / rn:.0f} a ray, brute {n_tris})")
+            if not same:
+                bad = (int((idx[sub] != ridx).sum()), int((hit[sub] != rhit).sum()),
+                       int((t[sub] != rt).sum()))
+                raise AssertionError(f"K3 ({mode}) disagrees with its plain version: {bad} "
+                                     "(index, hit, t) rays differ")
+            if not (share[0] > 0.9 and bool(hit[kind == 1].all())
+                    and not bool(hit[kind == 2].any())):
+                raise AssertionError(f"K3 hit shares {share}: expected hits from outside "
+                                     "and inside, none pointing away")
+            if not (bool((idx[~hit] == 0).all()) and bool((t[~hit] == ri.MISS_T).all())):
+                raise AssertionError("K3 missed lanes do not carry (MISS_T, 0)")
+            if mode == "tolerant":
+                got_tol, err_tol, pairs_tol, tests_tol = got, err, pairs, tests
         if rn == 5000:
             cand = ri.cull_candidates_cuda(ro, rd, index)
             plain = ri.cull_candidates_reference(ro, rd, index)
             torch.cuda.synchronize()
-            if (plain & ~cand).any() or int(cand.sum()) != pairs:
+            if (plain & ~cand).any() or int(cand.sum()) != pairs_tol:
                 raise AssertionError("K3's lists miss a pair of the plain box test, or "
                                      "its count disagrees with them")
             log(f"K3 R={rn}: the kernel's lists hold all {int(plain.sum())} pairs of the "
                 f"plain box test ({int(cand.sum())} listed)")
         if rn == 1024:
             # the brute sweep and the culled descent answer the same query
-            # with a barycentric tolerance: equal t wherever all agree on the hit
+            # with the same tolerance
             brute = ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile)
             rounds = []
             culled = ti.ray_mesh_intersect_culled(ro, rd, descent_index, group=group,
                                                   rounds_out=rounds)
-            both = hit & brute.hit & culled.hit
             for name, other in (("brute sweep", brute), ("culled descent", culled)):
-                if int((other.hit != hit).sum()) > rn // 500:
-                    raise AssertionError(f"{name} and K3 disagree on hit for "
-                                         f"{int((other.hit != hit).sum())} of {rn} rays")
-                if not torch.allclose(other.t[both], t[both], rtol=1e-5):
-                    raise AssertionError(f"{name} and K3 disagree on t")
+                c = sweep_agreement(got_tol, other, ro, rd, tri, f"{name} R={rn}")
+                rec[f"{name.replace(' ', '_')}_agreement"] = c
+                log(f"K3 tolerant vs the {name}, R={rn}: {c} (hit equal on every ray, t "
+                    "within rtol 1e-6, index equal but for the ties)")
+        if rn == 131072:
+            brute = ti.Hit(*(torch.cat(x) for x in zip(*(
+                ti.ray_mesh_intersect(ro[i:i + 8192], rd[i:i + 8192], *tri, tile=scene.tile)
+                for i in range(0, rn, 8192)))))
+            c = sweep_agreement(got_tol, brute, ro, rd, tri, f"brute sweep R={rn}",
+                                strict=False)
+            rec["brute_sweep_agreement_r131072"] = c
+            log(f"K3 tolerant vs the brute sweep, R={rn}: {c} (hit equal on every ray; the "
+                "rays whose t or index differ otherwise than by a tie counted, with each "
+                "side's largest error of t against float64 on them)")
         if rn in (1024, 131072):
-            ms = cuda_ms(lambda: ri.closest_hit_cuda(ro, rd, index), 20)
-            plain_ms = cuda_ms(lambda: ri.closest_hit_reference(ro, rd, *tri), 2) \
+            ms = {m: cuda_ms(lambda: ri.closest_hit_cuda(ro, rd, index, tol=mt), 20)
+                  for m, mt in modes.items()}
+            plain_ms = cuda_ms(lambda: ri.closest_hit_reference(ro, rd, *tri, tol=tol), 2) \
                 if rn == 1024 else None
             # the brute sweep's bound: every pair at 46 f32 ops a pair, the
             # mesh's own triangles and the rays read once
             brute_b, _ = bound_ms(rn * n_tris * ri.OPS_PER_PAIR,
                                   4 * (6 * rn + 9 * n_tris) + 9 * rn, "float32")
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            ri.closest_hit_cuda(ro, rd, index, stats=stats, tol=tol)
             b, by = k3_bound(ri, index, rn, stats)
-            log(f"K3 R={rn}: {ms:.4f} ms, bound of the culled work {b:.4f} ms ({by}), "
-                f"bound of the brute sweep {brute_b:.4f} ms"
-                + (f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
+            log(f"K3 R={rn}: tolerant {ms['tolerant']:.4f} ms, exact {ms['exact']:.4f} ms, "
+                f"bound of the culled work {b:.4f} ms ({by}), bound of the brute sweep "
+                f"{brute_b:.4f} ms" + (f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
             if rn == 1024:
                 brute_ms = cuda_ms(lambda: ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile), 2)
                 culled_ms = cuda_ms(lambda: ti.ray_mesh_intersect_culled(
                     ro, rd, descent_index, group=group), 2)
                 log(f"K3 R={rn}: port's brute sweep {brute_ms:.1f} ms, culled descent "
                     f"{culled_ms:.1f} ms ({rounds[0]} rounds, one host sync each)")
-                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                           box_pairs_passed=pairs, tri_pairs_tested=tests,
+                rec.update(max_abs_err=err_tol, ms=ms["tolerant"], ms_exact=ms["exact"],
+                           plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                           box_pairs_passed=pairs_tol, tri_pairs_tested=tests_tol,
                            brute_ms=brute_ms, culled_ms=culled_ms, culled_rounds=rounds[0],
                            shape=f"R={rn} rays x T={n_tris} triangles, f32, tile-culled "
                                  f"({index.box.shape[0]} tiles of {index.tile})")
             else:
-                rec.update(ms_r131072=ms, box_pairs_passed_r131072=pairs,
-                           tri_pairs_tested_r131072=tests)
+                rec.update(ms_r131072=ms["tolerant"], ms_exact_r131072=ms["exact"],
+                           box_pairs_passed_r131072=pairs_tol,
+                           tri_pairs_tested_r131072=tests_tol)
 
     # the adversarial box: rays along its faces, through its edges and
     # vertices, with zero direction components, from the tile boxes' planes
@@ -841,14 +895,21 @@ def phase_kernel_k3(scene, dev):
         bindex = ri.build_cull_index(*btri, tile=tile)
         o, d = (torch.as_tensor(a, device=dev)
                 for a in adversarial_rays(verts, bindex.box.cpu().numpy()))
-        got = ri.closest_hit_cuda(o, d, bindex)
-        torch.cuda.synchronize()
-        ref = ri.closest_hit_reference(o, d, *btri)
-        if not all(torch.equal(a, r) for a, r in zip(got, ref)):
-            raise AssertionError(f"K3 disagrees with its plain version on the "
-                                 f"adversarial box (tile {tile})")
-        log(f"K3 adversarial box ({len(tris)} triangles, tiles of {tile}): {len(o)} rays, "
-            f"{int(got[2].sum())} hits, t, index and hit equal (held exactly)")
+        for mode, mtol in modes.items():
+            got = ri.closest_hit_cuda(o, d, bindex, tol=mtol)
+            torch.cuda.synchronize()
+            ref = ri.closest_hit_reference(o, d, *btri, tol=mtol)
+            if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+                raise AssertionError(f"K3 ({mode}) disagrees with its plain version on the "
+                                     f"adversarial box (tile {tile})")
+            log(f"K3 adversarial box ({len(tris)} triangles, tiles of {tile}), {mode} mode: "
+                f"{len(o)} rays, {int(got[2].sum())} hits, t, index and hit equal (held "
+                "exactly)")
+            if mode == "tolerant":
+                brute = ti.ray_mesh_intersect(o, d, *btri, tile=len(tris))
+                c = sweep_agreement(got, brute, o, d, btri, f"adversarial box, tile {tile}")
+                rec[f"adversarial_agreement_tile{tile}"] = c
+                log(f"K3 tolerant vs the brute sweep on the adversarial box: {c}")
     return rec
 
 
@@ -1092,6 +1153,290 @@ def phase_main_path(dev, gate=None):
     return launches, res
 
 
+# the scene of the trainer phase: a NeRF-synthetic-layout dataset of the
+# size the Blender scenes of configs/shape/nerf/*.yaml have
+SCENE_VIEWS = (100, 4)   # train, test
+SCENE_HW = 800
+
+
+def look_at_pose(cam_pos):
+    """c2w of an OpenGL camera at ``cam_pos`` looking at the origin."""
+    z_axis = cam_pos / np.linalg.norm(cam_pos)
+    up = np.array([0.0, 0.0, 1.0])
+    if abs(np.dot(up, z_axis)) > 0.99:
+        up = np.array([0.0, 1.0, 0.0])
+    x_axis = np.cross(up, z_axis)
+    x_axis /= np.linalg.norm(x_axis)
+    y_axis = np.cross(z_axis, x_axis)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x_axis, y_axis, z_axis, cam_pos
+    return c2w
+
+
+def render_sphere_view(c2w, h, w, focal, radius=0.5):
+    """An analytic lambertian sphere on a white background: RGBA uint8."""
+    i, j = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    dirs = np.stack([(i - w / 2) / focal, -(j - h / 2) / focal, -np.ones_like(i)], -1)
+    o = c2w[:3, 3]
+    d = dirs @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    b = np.sum(o * d, -1)
+    disc = b * b - (np.sum(o * o) - radius ** 2)
+    t = -b - np.sqrt(np.maximum(disc, 0))
+    hit = (disc > 0) & (t > 0)
+    n = (o + t[..., None] * d) / radius
+    light = np.array([0.5, 0.5, 0.7]) / np.linalg.norm([0.5, 0.5, 0.7])
+    lam = np.clip(np.sum(n * light, -1), 0, 1)
+    base = np.array([0.8, 0.3, 0.2])
+    img = np.ones((h, w, 3), np.float32)
+    img[hit] = (0.2 * base + 0.8 * base * lam[..., None])[hit]
+    return (np.concatenate([img, hit[..., None]], -1) * 255).astype(np.uint8)
+
+
+def write_blender_scene(root, n_train, n_test, hw, cam_dist=2.5):
+    """``transforms_{train,test}.json`` with ``camera_angle_x`` and RGBA PNGs
+    written by the port's ``image_io.imwrite``: cameras on a ring around the
+    sphere."""
+    import os
+
+    from nunerf_tpu_torch.data.image_io import imwrite
+
+    camera_angle_x = 0.8
+    focal = 0.5 * hw / np.tan(0.5 * camera_angle_x)
+    for split, n in (("train", n_train), ("test", n_test)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for k in range(n):
+            phi = 2 * np.pi * (k + (0.5 if split == "test" else 0)) / n
+            c2w = look_at_pose(cam_dist * np.array([np.cos(phi), np.sin(phi), 0.45]))
+            imwrite(os.path.join(root, split, f"r_{k}.png"), render_sphere_view(c2w, hw, hw, focal))
+            frames.append({"file_path": f"./{split}/r_{k}", "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+
+
+def read_log(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def timed(obj, name, times):
+    """Wrap the method ``name`` of ``obj`` to append its seconds to ``times``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def phase_trainer(dev, verts, tris, step0_ms):
+    """``Trainer(cfg).run()``, the port's entry point, on a 100-view 800x800
+    scene written here: stage 1 at ``BENCH_CFG``'s width (30 steps, logs and
+    checkpoints every 10, a validation at step 20 on one view at a quarter
+    of its size), then a second trainer that resumes at step 30 and runs to
+    40, then the zero-thickness stage 2 at ``STAGE2_CFG``'s width from that
+    checkpoint and the outer mesh (10 steps, a validation with the TIR
+    mask).  Each run's launch counts are set to 0 just before it and read
+    just after.  Returns ({path: launches}, numbers)."""
+    import os
+    import shutil
+    import tempfile
+
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tracing.mesh_ops import save_ply
+    from nunerf_tpu_torch.train.trainer import Trainer
+
+    def reset():
+        fm.reset_launches()
+        ri.reset_launches()
+
+    def counts():
+        return dict(fm.launches, **ri.launches)
+
+    out, paths = {}, {}
+    work = tempfile.mkdtemp(prefix="nunerf_smoke_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)  # validation images go to ./data/train_vis
+        t0 = time.perf_counter()
+        write_blender_scene(os.path.join(work, "ds", "sphere"), *SCENE_VIEWS, SCENE_HW)
+        out["scene_write_s"] = time.perf_counter() - t0
+        # an 800x800 RGBA PNG whose rows all carry the Paeth filter: its
+        # rows depend on their left neighbours, the slow case of the decoder
+        view = image_io.imread(os.path.join(work, "ds", "sphere", "train", "r_0.png"))
+        image_io.imwrite("paeth.png", view, png_filter=4)
+        t0 = time.perf_counter()
+        back = image_io.imread("paeth.png")
+        out["paeth_decode_800x800_rgba_s"] = time.perf_counter() - t0
+        if not np.array_equal(back, view):
+            raise AssertionError("a Paeth-filtered PNG does not decode to what was written")
+        log(f"trainer scene: {SCENE_VIEWS[0]} + {SCENE_VIEWS[1]} views of {SCENE_HW}x"
+            f"{SCENE_HW} RGBA written in {out['scene_write_s']:.1f} s; an 800x800 RGBA PNG "
+            f"of Paeth rows decodes in {out['paeth_decode_800x800_rgba_s']:.3f} s on the host")
+
+        common = dict(database_name="nerf/sphere", dataset_dir=os.path.join(work, "ds"),
+                      model_dir=os.path.join(work, "model"), downsample_ratio=0.25)
+        cfg1 = dict(BENCH_CFG, total_step=30, train_log_step=10, save_interval=10,
+                    val_interval=20, **common)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg1, device=dev)
+        out["stage1_load_s"] = time.perf_counter() - t0
+        store = {k: v.numel() * v.element_size() for k, v in tr.store.items() if v.is_cuda}
+        out["store_bytes"] = store
+        log(f"stage-1 trainer: database and device store in {out['stage1_load_s']:.1f} s, "
+            f"{len(tr.train_ids)} train views, store on the card {store} bytes "
+            f"({sum(store.values()) / 2 ** 20:.1f} MiB)")
+        val_s, save_s = [], []
+        timed(tr, "validate", val_s)
+        timed(tr, "save", save_s)
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        paths["trainer_s1"] = counts()
+        run_s = time.perf_counter() - t0
+        recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
+        train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
+        val = [r for r in recs if r["prefix"] == "val"]
+        if sorted(train_recs) != [10, 20, 30] or [r["step"] for r in val] != [20]:
+            raise AssertionError(f"stage-1 trainer logged {sorted(train_recs)} and "
+                                 f"validated at {[r['step'] for r in val]}")
+        bad = [k for r in train_recs.values() for k, v in r.items()
+               if k != "prefix" and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"stage-1 trainer logged non-finite {bad}")
+        rn = BENCH_CFG["train_ray_num"]
+        steady = rn / train_recs[20]["rays_per_sec"] * 1e3
+        ckpt_bytes = os.path.getsize(tr.ckpt_path)
+        out["stage1"] = dict(
+            run_s=run_s, steady_step_ms=steady, rays_per_s=train_recs[20]["rays_per_sec"],
+            step30_interval_ms=rn / train_recs[30]["rays_per_sec"] * 1e3,
+            bare_step0_ms=step0_ms, loop_gap_ms=steady - step0_ms,
+            val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"], val_s=val_s[0],
+            ckpt_bytes=ckpt_bytes, save_s=sum(save_s) / len(save_s), saves=len(save_s),
+            best_ckpt=os.path.exists(tr.best_ckpt_path),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=paths["trainer_s1"], loss_total=train_recs[30]["loss_total"])
+        log(f"stage-1 trainer: 30 steps in {run_s:.1f} s; steps 11-20 (one checkpoint "
+            f"among them) {steady:.1f} ms/step ({train_recs[20]['rays_per_sec']:.0f} rays/s) "
+            f"against the bare step's {step0_ms:.1f} at step 0: the loop adds "
+            f"{steady - step0_ms:.1f} ms/step; steps 21-30 (with the validation) "
+            f"{out['stage1']['step30_interval_ms']:.1f} ms/step; validation PSNR "
+            f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f} rendered in {val_s[0]:.2f} s "
+            f"(one 200x200 view, 40 chunks of 1024 rays); checkpoint {ckpt_bytes} bytes in "
+            f"{out['stage1']['save_s']:.3f} s ({len(save_s)} saves); peak memory "
+            f"{out['stage1']['peak_gib']:.2f} GiB; launches {paths['trainer_s1']}")
+        if not (paths["trainer_s1"]["chain_fwd"] > 0 and paths["trainer_s1"]["chain_bwd"] > 0):
+            raise AssertionError(f"the stage-1 trainer launched {paths['trainer_s1']}: K1 "
+                                 "and K2 expected")
+        if not out["stage1"]["best_ckpt"]:
+            raise AssertionError("no model_best.ckpt after the validation")
+        tr.logger.close()
+        del tr
+        torch.cuda.empty_cache()
+
+        # resume: a second trainer picks the run up at step 30
+        tr = Trainer(dict(cfg1, total_step=40), device=dev)
+        resumed = []
+        load = tr._load_if_exists
+
+        def load_and_record():
+            step, best = load()
+            resumed.append((step, tr.train.n_updates,
+                            {float(st["step"]) for st in tr.train.optimizer.state.values()}))
+            return step, best
+
+        tr._load_if_exists = load_and_record
+        reset()
+        tr.run()
+        torch.cuda.synchronize()
+        paths["trainer_s1_resume"] = counts()
+        if resumed != [(30, 30, {30.0})] or tr.train.n_updates != 40:
+            raise AssertionError(f"the second trainer resumed at {resumed} and ended at "
+                                 f"{tr.train.n_updates} updates: expected step 30, 30 "
+                                 "updates, Adam at 30, then 40")
+        recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
+        if [r["step"] for r in recs if r["prefix"] == "train"][-1] != 40:
+            raise AssertionError("the resumed run did not log step 40")
+        log(f"stage-1 trainer resumed at step 30 (Adam's count 30) and ran to 40; "
+            f"launches {paths['trainer_s1_resume']}")
+        ckpt1 = tr.ckpt_path
+        tr.logger.close()
+        del tr
+        torch.cuda.empty_cache()
+
+        # stage 2 from that checkpoint and the outer mesh
+        mesh_path = os.path.join(work, "outer.ply")
+        save_ply(mesh_path, verts, tris)
+        cfg2 = dict(STAGE2_CFG, network="stage2", zero_thickness=True,
+                    stage1_ckpt_dir=ckpt1, stage1_mesh_dir=mesh_path, total_step=10,
+                    train_log_step=5, val_interval=10, **common)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg2, device=dev)
+        out["stage2_load_s"] = time.perf_counter() - t0
+        scene = tr.renderer.scene
+        if not (scene.use_kernel and scene.kernel_tol == ri.BARY_TOL):
+            raise AssertionError("the stage-2 trainer's scene does not trace with K3 in "
+                                 "its tolerant mode")
+        frozen = {n: p.detach().clone() for n, p in tr.renderer.stage1.named_parameters()}
+        val_s = []
+        timed(tr, "validate", val_s)
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        paths["trainer_s2"] = counts()
+        run_s = time.perf_counter() - t0
+        recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
+        train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
+        val = [r for r in recs if r["prefix"] == "val"]
+        if sorted(train_recs) != [5, 10] or len(val) != 1:
+            raise AssertionError(f"stage-2 trainer logged {sorted(train_recs)}, {len(val)} "
+                                 "validations")
+        if not all(math.isfinite(r["loss_total"]) for r in train_recs.values()):
+            raise AssertionError("stage-2 trainer logged a non-finite loss")
+        for n, p in tr.renderer.stage1.named_parameters():
+            if p.grad is not None or not torch.equal(frozen[n], p.detach()):
+                raise AssertionError(f"frozen stage-1 parameter {n} changed")
+        h, w = (int(SCENE_HW * 0.25),) * 2
+        val_chunks = -(-h * w // tr.renderer.cfg["test_ray_num"])
+        want = 3 * 10 + 3 * val_chunks
+        if paths["trainer_s2"]["closest_hit"] != want:
+            raise AssertionError(f"stage-2 trainer: {paths['trainer_s2']['closest_hit']} K3 "
+                                 f"launches, expected 3 x 10 steps + 3 x {val_chunks} "
+                                 "validation chunks")
+        rn = STAGE2_CFG["train_ray_num"]
+        steady = rn / train_recs[10]["rays_per_sec"] * 1e3
+        out["stage2"] = dict(run_s=run_s, steady_step_ms=steady,
+                             rays_per_s=train_recs[10]["rays_per_sec"],
+                             tir_masked_val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"],
+                             val_s=val_s[0], loss_total=train_recs[10]["loss_total"],
+                             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             launches=paths["trainer_s2"])
+        log(f"stage-2 trainer: 10 steps in {run_s:.1f} s (load {out['stage2_load_s']:.1f} s); "
+            f"steps 6-10 {steady:.1f} ms/step ({train_recs[10]['rays_per_sec']:.0f} rays/s); "
+            f"loss_total {train_recs[10]['loss_total']:.5f}; TIR-masked validation PSNR "
+            f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f} in {val_s[0]:.2f} s; frozen "
+            f"stage 1 bit-equal; peak memory {out['stage2']['peak_gib']:.2f} GiB; launches "
+            f"{paths['trainer_s2']}")
+        tr.logger.close()
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return paths, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1139,7 +1484,11 @@ def main():
     paths["A"], res_a = phase_main_path(dev, "fused_sdf")
     paths["B"], res_b = phase_main_path_stage2(scene, dev, fused_sdf=True)
     paths["C"], res_c = phase_main_path(dev, "fused_mlp")
-    for path, counter in (("A", "chain_jac_fwd"), ("A", "chain_jac_bwd"),
+    trainer_paths, res_t = phase_trainer(dev, verts, tris, res[0]["step_ms"])
+    paths.update(trainer_paths)
+    for path, counter in (("trainer_s1", "chain_fwd"), ("trainer_s1", "chain_bwd"),
+                          ("trainer_s2", "closest_hit"),
+                          ("A", "chain_jac_fwd"), ("A", "chain_jac_bwd"),
                           ("B", "chain_jac_fwd"), ("B", "chain_jac_bwd"),
                           ("C", "chain_fwd"), ("C", "chain_bwd"),
                           ("stage1", "chain_fwd"), ("stage1", "chain_bwd"),
@@ -1159,7 +1508,10 @@ def main():
     measured = ("max_rel_err", "tol", "data_pass_dx_err", "data_pass_gz_ulps",
                 "split_probe_f32_units", "scratch_gib", "brute_ms", "culled_ms",
                 "culled_rounds", "box_pairs_passed", "tri_pairs_tested", "ms_r131072",
-                "box_pairs_passed_r131072", "tri_pairs_tested_r131072")
+                "box_pairs_passed_r131072", "tri_pairs_tested_r131072", "mode", "ms_exact",
+                "ms_exact_r131072", "brute_sweep_agreement", "culled_descent_agreement",
+                "brute_sweep_agreement_r131072", "adversarial_agreement_tile8",
+                "adversarial_agreement_tile32")
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
         counter, desc = names[k]
@@ -1196,6 +1548,7 @@ def main():
                "path_C_stage1_fused_mlp": dict(
                    step_summary(res_c[25000]),
                    launches_per_step=res_c[25000]["launches_per_step"]),
+               "trainer": res_t,
                "seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(json.dumps({"kernels": kernels}))

@@ -1,1 +1,2 @@
-"""PyTorch/CUDA port of nunerf_tpu (stage-1 training slice)."""
+"""PyTorch/CUDA port of nunerf_tpu: both training stages, their data layer
+and loop, and the hand-written H100 kernels."""

@@ -1,6 +1,7 @@
 """Config system: YAML -> one flat dict, default-merged per component.
 
-The port's own copy of ``nunerf_tpu/config.py`` (renderer defaults).  Mirrors the
+The port's own copy of ``nunerf_tpu/config.py`` (renderer and trainer
+defaults).  Mirrors the
 reference convention (``utils/base_utils.py:319-322`` +
 ``{**default_cfg, **cfg}`` merging everywhere) so reference YAML configs work
 unchanged (keys per reference ``README.md:74-82``).
@@ -129,4 +130,19 @@ STAGE2_DEFAULTS: Dict[str, Any] = {
     "stage1_ckpt_dir": None,
     "stage1_cfg_dir": None,
     "mixed_precision": True,
+}
+
+TRAINER_DEFAULTS: Dict[str, Any] = {
+    # reference train/trainer.py:22-38
+    "optimizer_type": "adam",
+    "multi_gpus": False,
+    "lr_type": "warm_up_cos",
+    "lr_cfg": {},
+    "total_step": 300000,
+    "train_log_step": 20,
+    "val_interval": 10000,
+    "save_interval": 500,
+    "worker_num": 8,
+    "random_seed": 6033,
+    "model_dir": "data/model",
 }

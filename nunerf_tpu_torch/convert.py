@@ -16,7 +16,8 @@ dotted name once the ``params`` levels are dropped.  Two kinds of name differ:
   free) and ``human_light_predictor`` in the port (where ``human_light`` is
   the flag).
 
-``load_jax_checkpoint`` reads a checkpoint written by the JAX trainer.
+``load_jax_checkpoint`` reads a checkpoint written by the JAX trainer or by
+the port's, whose ``params`` have the same layout.
 """
 
 from __future__ import annotations
@@ -66,39 +67,21 @@ def _jax_path(name: str, prefixes: Dict[tuple, str]):
     return (), tuple(_UNRENAMES.get(p, p) for p in name.split("."))
 
 
-def load_jax_params(module: torch.nn.Module, tree, top: Optional[Dict] = None):
-    """Copy every leaf of the JAX ``tree`` into ``module``'s parameters.
-    ``top`` maps the tree's heads to name prefixes (see the module
-    docstring).  Every parameter must be covered."""
-    params = dict(module.named_parameters())
+def jax_tree_to_named(tree, top: Optional[Dict] = None) -> Dict[str, np.ndarray]:
+    """The leaves of the JAX ``tree`` by the name of the parameter each
+    belongs to (``top`` maps the tree's heads to name prefixes, see the
+    module docstring)."""
     prefixes = _prefixes(top)
-    seen = set()
-    for path, arr in _flatten(tree).items():
-        name = _torch_name(path, prefixes)
-        if name not in params:
-            raise KeyError(f"JAX leaf {'/'.join(path)} has no parameter {name}")
-        p = params[name]
-        if tuple(p.shape) != arr.shape:
-            raise ValueError(f"{name}: shape {tuple(p.shape)} vs {arr.shape}")
-        with torch.no_grad():
-            p.copy_(torch.as_tensor(arr, dtype=p.dtype))
-        seen.add(name)
-    missing = set(params) - seen
-    if missing:
-        raise KeyError(f"parameters not in the JAX tree: {sorted(missing)}")
+    return {_torch_name(path, prefixes): arr for path, arr in _flatten(tree).items()}
 
 
-def to_jax_tree(module: torch.nn.Module, top: Optional[Dict] = None,
-                what: str = "param") -> Dict:
-    """The module's parameters (``what='param'``) or gradients
-    (``what='grad'``, zeros where none) as a nested dict of numpy arrays in
-    the JAX tree's layout, ``params`` levels included."""
+def named_to_jax_tree(named: Dict[str, np.ndarray], top: Optional[Dict] = None) -> Dict:
+    """Arrays given by parameter name as a nested dict in the JAX tree's
+    layout, ``params`` levels included: the inverse of
+    ``jax_tree_to_named``."""
     tree: Dict = {}
     prefixes = _prefixes(top)
-    for name, p in module.named_parameters():
-        t = p if what == "param" else p.grad
-        arr = (np.zeros(tuple(p.shape), np.float32) if t is None
-               else t.detach().float().cpu().numpy().copy())
+    for name, arr in named.items():
         head, rest = _jax_path(name, prefixes)
         if not rest:  # a bare leaf
             head, rest = head[:-1], head[-1:]
@@ -111,6 +94,38 @@ def to_jax_tree(module: torch.nn.Module, top: Optional[Dict] = None,
     return tree
 
 
+def load_jax_params(module: torch.nn.Module, tree, top: Optional[Dict] = None):
+    """Copy every leaf of the JAX ``tree`` into ``module``'s parameters.
+    ``top`` maps the tree's heads to name prefixes (see the module
+    docstring).  Every parameter must be covered."""
+    params = dict(module.named_parameters())
+    named = jax_tree_to_named(tree, top)
+    for name, arr in named.items():
+        if name not in params:
+            raise KeyError(f"JAX tree has a leaf for {name}, which is no parameter")
+        p = params[name]
+        if tuple(p.shape) != arr.shape:
+            raise ValueError(f"{name}: shape {tuple(p.shape)} vs {arr.shape}")
+        with torch.no_grad():
+            p.copy_(torch.as_tensor(arr, dtype=p.dtype))
+    missing = set(params) - set(named)
+    if missing:
+        raise KeyError(f"parameters not in the JAX tree: {sorted(missing)}")
+
+
+def to_jax_tree(module: torch.nn.Module, top: Optional[Dict] = None,
+                what: str = "param") -> Dict:
+    """The module's parameters (``what='param'``) or gradients
+    (``what='grad'``, zeros where none) as a nested dict of numpy arrays in
+    the JAX tree's layout, ``params`` levels included."""
+    named = {}
+    for name, p in module.named_parameters():
+        t = p if what == "param" else p.grad
+        named[name] = (np.zeros(tuple(p.shape), np.float32) if t is None
+                       else t.detach().float().cpu().numpy().copy())
+    return named_to_jax_tree(named, top)
+
+
 def flat_leaves(tree) -> Dict[str, np.ndarray]:
     """``'a/b/c' -> array`` over a JAX-layout tree (``params`` levels
     dropped), for leaf-by-leaf comparisons."""
@@ -119,9 +134,10 @@ def flat_leaves(tree) -> Dict[str, np.ndarray]:
 
 def load_jax_checkpoint(path: str):
     """(step, params, best_para) of a checkpoint written by the JAX trainer's
-    ``save_checkpoint``: a pickle whose ``params`` is the parameter tree as
-    numpy arrays.  The optimizer state (flax msgpack bytes) is ignored.
-    Unpickling runs code: read only checkpoints this project wrote."""
+    ``save_checkpoint`` or the port's (``train/trainer.py``): a pickle whose
+    ``params`` is the parameter tree as numpy arrays in the JAX layout.  The
+    optimizer state is ignored.  Unpickling runs code: read only checkpoints
+    this project wrote."""
     with open(path, "rb") as f:
         blob = pickle.load(f)
     return blob["step"], blob["params"], blob.get("best_para", 0.0)

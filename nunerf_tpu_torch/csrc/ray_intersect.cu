@@ -5,8 +5,14 @@
 //
 // What it computes.  For every ray the closest Möller–Trumbore hit over all
 // triangles (given as v0, e1 = v1 - v0, e2 = v2 - v0): det eps 1e-9,
-// inv_det = 0 where |det| <= eps, a hit needs u >= 0, v >= 0, u + v <= 1
-// (no barycentric tolerance) and t > 1e-5, else t = MISS_T (1e7).  Ties on t
+// inv_det = 0 where |det| <= eps, a hit needs u >= lo, v >= lo, u + v <= hi
+// and t > 1e-5, else t = MISS_T (1e7).  (lo, hi) is the mode: (0, 1) is the
+// exact mode of the Pallas kernel, which has no barycentric tolerance;
+// (-1e-6, 1 + 1e-6), as f32 (-9.99999997e-7, 1.00000095), is the tolerance of
+// the port's brute sweep and of the JAX package's default closest hit
+// (nunerf_tpu/tracing/intersect.py), which keeps a ray through a shared edge
+// or vertex from missing every adjacent triangle.  The wrapper forms both
+// constants as the plain version rounds them (bary_bounds).  Ties on t
 // go to the lowest triangle index, an all-miss ray keeps index 0, and
 // hit = best_t < MISS_T / 2.  No backface culling: glass needs both sides.
 //
@@ -45,14 +51,16 @@
 //     f32 with a relative rounding of a few 2^-24 of the coordinates; the
 //     boxes are inflated by CULL_MARGIN (1e-3) of the mesh's size, some 10^4
 //     times that, which also covers the spatial error of a Möller–Trumbore
-//     acceptance for a ray that grazes a triangle (|det| just above eps).  A
+//     acceptance for a ray that grazes a triangle (|det| just above eps),
+//     and the tolerant mode's widening of a triangle by 1e-6 of its edges.  A
 //     direction component |d| < 1e-20 takes no reciprocal (which could
 //     overflow, and (lo - o) * inf is NaN on the slab plane): the ray then
 //     passes the slab if lo <= o <= hi and misses it otherwise, since
 //     reaching a box the margin away takes t > 1e-3 / 1e-20 > MISS_T, and no
 //     such t is a hit.  Padding slots (v0 = 1e8, e1 = e2 = 0) have det = 0 and
-//     are never hit.  tests/test_torch_port_k3_cull.py holds the candidate
-//     lists to a superset of every pair the brute plain version accepts.
+//     are never hit.  tests/test_torch_port_k3_cull.py and
+//     tests/test_torch_port_k3_tol.py hold the candidate lists to a superset
+//     of every pair the brute plain version accepts, in each mode.
 //   * Products and sums are written with __fmul_rn / __fadd_rn / __fsub_rn,
 //     which the compiler never contracts into FMAs: t then carries the same
 //     roundings as the plain PyTorch version (one rounding an operation), and
@@ -158,7 +166,7 @@ k3_sweep(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
          int r0, const float* __restrict__ tv0, const float* __restrict__ te1,
          const float* __restrict__ te2, const int* __restrict__ orig, int T,
          const int* __restrict__ count, const int* __restrict__ list, int cap,
-         unsigned long long* __restrict__ best,
+         float lo, float hi, unsigned long long* __restrict__ best,
          unsigned long long* __restrict__ stats) {
   __shared__ float s_v0[MAX_TILE * 3];
   __shared__ float s_e1[MAX_TILE * 3];
@@ -204,7 +212,7 @@ k3_sweep(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
       const float qvz = sub(mul(tvx, e1y), mul(tvy, e1x));
       const float v = mul(add(add(mul(qvx, dx), mul(qvy, dy)), mul(qvz, dz)), inv_det);
       const float t = mul(add(add(mul(qvx, e2x), mul(qvy, e2y)), mul(qvz, e2z)), inv_det);
-      const bool valid = ok && (u >= 0.0f) && (v >= 0.0f) && (add(u, v) <= 1.0f)
+      const bool valid = ok && (u >= lo) && (v >= lo) && (add(u, v) <= hi)
                          && (t > T_MIN);
       // tile order is not index order: an equal t goes to the lower index
       if (valid && (t < best_t || (t == best_t && s_id[j] < best_i))) {
@@ -233,14 +241,16 @@ __global__ void k3_finish(const unsigned long long* __restrict__ best,
 // f32, orig [n_tiles * T] i32, box [n_tiles, 6] f32; count [n_tiles] i32 and
 // list [n_tiles * cap] i32 scratch (cap >= 1: rays a chunk); best [n_rays]
 // 64-bit scratch; stats [2] 64-bit, added to; t_out [n_rays] f32, idx_out
-// [n_rays] i32, hit_out [n_rays] bytes (0/1).  Rays go through in chunks of
-// cap, every launch on the stream, nothing read back.  Returns a cudaError_t.
+// [n_rays] i32, hit_out [n_rays] bytes (0/1); lo, hi the barycentric bounds
+// of the mode.  Rays go through in chunks of cap, every launch on the stream,
+// nothing read back.  Returns a cudaError_t.
 extern "C" int nunerf_ray_closest_hit(
     const float* rays_o, const float* rays_d, const float* tv0,
     const float* te1, const float* te2, const int* orig, const float* box,
     int n_tiles, int T, int* count, int* list, int cap,
     unsigned long long* best, unsigned long long* stats, float* t_out,
-    int* idx_out, unsigned char* hit_out, int n_rays, void* stream) {
+    int* idx_out, unsigned char* hit_out, int n_rays, float lo, float hi,
+    void* stream) {
   if (n_rays < 0 || n_tiles < 0 || T < 1 || T > MAX_TILE || cap < 1 ||
       n_tiles > 65535 * TILES_PER_BIN)
     return (int)cudaErrorInvalidValue;
@@ -260,8 +270,8 @@ extern "C" int nunerf_ray_closest_hit(
       int parts = (nr + SWEEP_THREADS - 1) / SWEEP_THREADS;
       if (parts > MAX_PARTS) parts = MAX_PARTS;
       k3_sweep<<<dim3(n_tiles, parts), SWEEP_THREADS, 0, s>>>(
-          rays_o, rays_d, r0, tv0, te1, te2, orig, T, count, list, cap, best,
-          stats);
+          rays_o, rays_d, r0, tv0, te1, te2, orig, T, count, list, cap, lo, hi,
+          best, stats);
     }
   }
   k3_finish<<<fb, 256, 0, s>>>(best, t_out, idx_out, hit_out, n_rays);

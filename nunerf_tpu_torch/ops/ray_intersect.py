@@ -6,10 +6,13 @@ for every ray, the closest Möller–Trumbore hit over triangles given as
 ``v0``, ``e1 = v1 - v0``, ``e2 = v2 - v0``:
 
 * det eps 1e-9, ``inv_det = 0`` where ``|det| <= eps``; a hit needs
-  ``u >= 0``, ``v >= 0``, ``u + v <= 1`` and ``t > 1e-5``, else ``t = MISS_T``.
-  There is **no barycentric tolerance** (the brute sweep of
-  ``tracing/intersect.py`` allows -1e-6): a ray through a shared edge can
-  hit there and miss here;
+  ``u >= -tol``, ``v >= -tol``, ``u + v <= 1 + tol`` and ``t > 1e-5``, else
+  ``t = MISS_T``.  ``tol`` selects the mode: ``0``, the exact mode of the
+  Pallas kernel (which has no barycentric tolerance, so a ray through a
+  shared edge can miss every adjacent triangle), or ``BARY_TOL`` (1e-6), the
+  tolerance of the brute sweep and the culled descent of
+  ``tracing/intersect.py`` and of the JAX package's default closest hit.
+  Both versions compare with the same f32 constants, ``bary_bounds(tol)``;
 * ties on ``t`` go to the lowest triangle index; an all-miss ray keeps
   index 0; ``hit = t < MISS_T / 2``;
 * no gradient: the inputs are detached, the differentiable hit comes from
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 MISS_T = 1e7
+BARY_TOL = 1e-6     # the sweeps' barycentric tolerance (tracing/intersect.py)
 TRI_TILE = 256      # triangles per tile of the plain version's loop
 OPS_PER_PAIR = 46   # f32 multiplies, adds, subtracts and the divide of a pair
 OPS_PER_BOX = 16    # f32 operations of a ray-box slab test (3 divides, 6 subtracts, 6 multiplies, compares)
@@ -61,10 +65,21 @@ def reset_launches():
         launches[k] = 0
 
 
-def _mt(ox, oy, oz, dx, dy, dz, v0, e1, e2):
+def bary_bounds(tol: float):
+    """(lo, hi): the f32 values that ``u``, ``v`` and ``u + v`` are held to in
+    the mode ``tol`` (``u >= lo``, ``v >= lo``, ``u + v <= hi``), the nearest
+    f32 to ``-tol`` and to ``1 + tol``, as a comparison of an f32 tensor with
+    a Python float rounds them (1e-6 gives -9.99999997e-7 and 1.00000095)."""
+    if not 0.0 <= tol < 0.5:
+        raise ValueError(f"barycentric tolerance {tol}: 0 (exact) up to 0.5")
+    return float(np.float32(-tol)), float(np.float32(1.0 + tol))
+
+
+def _mt(ox, oy, oz, dx, dy, dz, v0, e1, e2, tol: float = 0.0):
     """Möller–Trumbore of rays (components [R, 1]) against triangles ([T, 3])
     -> (t [R, T], valid [R, T]), component by component in the kernel's order
     of operations, so that each value carries the same roundings."""
+    lo, hi = bary_bounds(tol)
     v0x, v0y, v0z = (v0[:, i][None, :] for i in range(3))
     e1x, e1y, e1z = (e1[:, i][None, :] for i in range(3))
     e2x, e2y, e2z = (e2[:, i][None, :] for i in range(3))
@@ -84,7 +99,7 @@ def _mt(ox, oy, oz, dx, dy, dz, v0, e1, e2):
     qvz = tvx * e1y - tvy * e1x
     v = (qvx * dx + qvy * dy + qvz * dz) * inv_det
     t = (qvx * e2x + qvy * e2y + qvz * e2z) * inv_det
-    return t, ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
+    return t, ok & (u >= lo) & (v >= lo) & (u + v <= hi) & (t > 1e-5)
 
 
 def _components(rays_o, rays_d):
@@ -93,8 +108,10 @@ def _components(rays_o, rays_d):
 
 
 @torch.no_grad()
-def closest_hit_reference(rays_o, rays_d, v0, e1, e2, tile: int = TRI_TILE):
-    """Plain PyTorch version of K3: (t [R] f32, tri_idx [R] i32, hit [R] bool).
+def closest_hit_reference(rays_o, rays_d, v0, e1, e2, tile: int = TRI_TILE,
+                          tol: float = 0.0):
+    """Plain PyTorch version of K3 in the mode ``tol``: (t [R] f32, tri_idx
+    [R] i32, hit [R] bool).
 
     Written component by component, in the kernel's order of operations, so
     that each value carries the same roundings."""
@@ -105,7 +122,7 @@ def closest_hit_reference(rays_o, rays_d, v0, e1, e2, tile: int = TRI_TILE):
     best_i = torch.zeros((rn,), dtype=torch.int32, device=dev)
     for base in range(0, v0.shape[0], tile):
         sl = slice(base, base + tile)
-        t, valid = _mt(*o, *d, v0[sl], e1[sl], e2[sl])
+        t, valid = _mt(*o, *d, v0[sl], e1[sl], e2[sl], tol)
         t = torch.where(valid, t, torch.full_like(t, MISS_T))
         # the first arg-min inside the tile, a strict '<' across tiles
         tmin = torch.min(t, dim=-1).values
@@ -231,11 +248,13 @@ def cull_candidates_reference(rays_o, rays_d, index: CullIndex):
 
 
 @torch.no_grad()
-def closest_hit_culled_reference(rays_o, rays_d, index: CullIndex, cand=None):
+def closest_hit_culled_reference(rays_o, rays_d, index: CullIndex, cand=None,
+                                 tol: float = 0.0):
     """The answer built from the culling's candidates alone: each ray's
-    closest hit over the triangles of the tiles ``cull_candidates_reference``
-    passes (or ``cand``), ties to the lowest original index.  Equal to
-    ``closest_hit_reference`` when the culling drops no winning hit."""
+    closest hit in the mode ``tol`` over the triangles of the tiles
+    ``cull_candidates_reference`` passes (or ``cand``), ties to the lowest
+    original index.  Equal to ``closest_hit_reference`` when the culling
+    drops no winning hit."""
     rays_o, rays_d = rays_o.detach(), rays_d.detach()
     if cand is None:
         cand = cull_candidates_reference(rays_o, rays_d, index)
@@ -246,7 +265,7 @@ def closest_hit_culled_reference(rays_o, rays_d, index: CullIndex, cand=None):
     step = max(1, TRI_TILE // index.tile) * index.tile
     for base in range(0, index.v0.shape[0], step):
         sl = slice(base, base + step)
-        t, valid = _mt(*o, *d, index.v0[sl], index.e1[sl], index.e2[sl])
+        t, valid = _mt(*o, *d, index.v0[sl], index.e1[sl], index.e2[sl], tol)
         tiles = torch.arange(base, base + t.shape[1], device=dev) // index.tile
         valid = valid & cand[:, tiles]
         t = torch.where(valid, t, torch.full_like(t, MISS_T))
@@ -267,8 +286,9 @@ def _lib():
     lib = load("ray_intersect")
     if not getattr(lib, "_nunerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        cf = ctypes.c_float
         lib.nunerf_ray_closest_hit.argtypes = ([vp] * 7 + [ci, ci, vp, vp, ci]
-                                               + [vp] * 5 + [ci, vp])
+                                               + [vp] * 5 + [ci, cf, cf, vp])
         lib.nunerf_ray_closest_hit.restype = ci
         lib.nunerf_ray_cull_bin.argtypes = [vp] * 3 + [ci] + [vp] * 3 + [ci, vp]
         lib.nunerf_ray_cull_bin.restype = ci
@@ -295,11 +315,12 @@ def _validate(rays_o, rays_d, v0, e1, e2):
         raise ValueError("too many rays or triangles for 32-bit offsets")
 
 
-def closest_hit_cuda(rays_o, rays_d, index: CullIndex, stats=None):
+def closest_hit_cuda(rays_o, rays_d, index: CullIndex, stats=None, tol: float = 0.0):
     """K3 on CUDA tensors over a ``CullIndex`` (``build_cull_index``) on the
-    rays' device.  ``stats``, an int64 CUDA tensor [2], has added to it the
-    (ray, tile) pairs whose box test passed and the ray-triangle pairs swept."""
+    rays' device, in the mode ``tol``.  ``stats``, an int64 CUDA tensor [2],
+    has added to it the (ray, tile) pairs whose box test passed and the ray-triangle pairs swept."""
     _validate(rays_o, rays_d, index.v0, index.e1, index.e2)
+    lo, hi = bary_bounds(tol)
     if index.box.device != rays_o.device or index.orig.device != rays_o.device:
         raise ValueError("the index must lie on the rays' device")
     rays_o, rays_d = rays_o.detach().contiguous(), rays_d.detach().contiguous()
@@ -324,7 +345,8 @@ def closest_hit_cuda(rays_o, rays_d, index: CullIndex, stats=None):
         index.e1.data_ptr(), index.e2.data_ptr(), index.orig.data_ptr(),
         index.box.data_ptr(), n_tiles, index.tile, count.data_ptr(),
         lists.data_ptr(), cap, best.data_ptr(), stats.data_ptr(), t.data_ptr(),
-        idx.data_ptr(), hit.data_ptr(), rn, torch.cuda.current_stream().cuda_stream)
+        idx.data_ptr(), hit.data_ptr(), rn, lo, hi,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.nunerf_ray_error_string(err).decode()
         raise RuntimeError(f"closest_hit launch failed: {msg} ({err})")
@@ -360,8 +382,10 @@ def cull_candidates_cuda(rays_o, rays_d, index: CullIndex):
     return cand
 
 
-def ray_mesh_closest_hit(rays_o, rays_d, v0, e1, e2, index: CullIndex = None):
-    """Closest hit of each ray: (t [R] f32, tri_idx [R] i32, hit [R] bool).
+def ray_mesh_closest_hit(rays_o, rays_d, v0, e1, e2, index: CullIndex = None,
+                         tol: float = 0.0):
+    """Closest hit of each ray in the mode ``tol``: (t [R] f32, tri_idx [R]
+    i32, hit [R] bool).
 
     CUDA tensors go through the kernel over ``index``, the ``CullIndex`` of
     ``v0``, ``e1``, ``e2`` (``build_cull_index``, built once per mesh, as
@@ -372,5 +396,5 @@ def ray_mesh_closest_hit(rays_o, rays_d, v0, e1, e2, index: CullIndex = None):
         if index is None:
             raise ValueError("the closest-hit kernel runs over the triangles' "
                              "CullIndex: build it once per mesh (build_cull_index)")
-        return closest_hit_cuda(rays_o, rays_d, index)
-    return closest_hit_reference(rays_o, rays_d, v0, e1, e2)
+        return closest_hit_cuda(rays_o, rays_d, index, tol=tol)
+    return closest_hit_reference(rays_o, rays_d, v0, e1, e2, tol=tol)

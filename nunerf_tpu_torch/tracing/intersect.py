@@ -11,8 +11,9 @@
   hit triangle (``DiffRender.py:62-125``), where the gradients come from.
 
 The closest-hit queries have no gradient.  The hand-written closest-hit
-kernel is in ``ops/ray_intersect.py``; it drops the barycentric tolerance
-these two sweeps allow.
+kernel is in ``ops/ray_intersect.py``; its default mode in ``Scene`` has the
+barycentric tolerance these two sweeps allow, and its exact mode, that of the
+Pallas kernel, has none.
 """
 
 from __future__ import annotations

@@ -23,7 +23,11 @@ import torch
 
 from nunerf_tpu_torch.device import resolve_device
 from nunerf_tpu_torch.ops.geometry import dot, normalize, refract
-from nunerf_tpu_torch.ops.ray_intersect import build_cull_index, ray_mesh_closest_hit
+from nunerf_tpu_torch.ops.ray_intersect import (
+    BARY_TOL,
+    build_cull_index,
+    ray_mesh_closest_hit,
+)
 from nunerf_tpu_torch.tracing.intersect import (
     MISS_T,
     Hit,
@@ -46,8 +50,14 @@ class Scene:
     (``ops/ray_intersect.py``), over a culling index (``kernel_index``) built
     here once: the mesh does not change while a scene traces it.  ``None``
     means on for a CUDA device and off on the CPU; ``True`` on the CPU
-    raises.  With the kernel off the query is the brute sweep below
-    ``cull_threshold`` triangles and the tile-culled descent from there on."""
+    raises.  The kernel runs in its tolerant mode (``kernel_tol``, the
+    barycentric tolerance ``BARY_TOL`` of the brute sweep and the culled
+    descent, which the JAX package's default ``Scene`` has too), not in the
+    exact mode of the Pallas kernel.  With the kernel off the query is the
+    brute sweep below ``cull_threshold`` triangles and the tile-culled
+    descent from there on."""
+
+    kernel_tol = BARY_TOL
 
     def __init__(self, mesh: Union[str, Tuple[np.ndarray, np.ndarray]],
                  tile: int = 1024, use_kernel: bool = None,
@@ -105,7 +115,8 @@ class Scene:
         if self.use_kernel:
             t, idx, hit = ray_mesh_closest_hit(rays_o.detach(), rays_d.detach(),
                                                self.v0, self.e1, self.e2,
-                                               index=self.kernel_index)
+                                               index=self.kernel_index,
+                                               tol=self.kernel_tol)
             return Hit(t=t, tri_idx=idx, hit=hit)
         if self.tile_index is not None:
             return ray_mesh_intersect_culled(rays_o, rays_d, self.tile_index,

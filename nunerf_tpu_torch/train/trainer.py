@@ -1,23 +1,55 @@
-"""The training step of either stage; counterpart of the ``loss_fn`` and
-``one_step`` of ``nunerf_tpu/train/trainer.py:_build_train_step``
-(reference ``train/trainer.py:152-170``).
+"""Training orchestration of both stages; counterpart of
+``nunerf_tpu/train/trainer.py`` (reference ``train/trainer.py:21-239``).
 
-One step: ``renderer.train_outputs`` -> ``compute_losses`` -> backward ->
-one Adam update with optax.adam's constants (b1 0.9, b2 0.999, eps 1e-8) of
-the parameters that require grad.  A ``Stage2Renderer`` holds its stage-1
-weights with ``requires_grad_(False)``: they get no optimizer state and no
-update, the counterpart of ``optax.multi_transform`` with ``set_to_zero`` on
-the ``frozen`` subtree (``train/trainer.py:175-181``).  The batch is already
-on the renderer's device; ray selection, validation, checkpoints and the
-training loop are not ported yet.
+* ``TrainStep``: one step, ``renderer.train_outputs`` -> ``compute_losses``
+  -> backward -> one Adam update with optax.adam's constants (b1 0.9, b2
+  0.999, eps 1e-8) of the parameters that require grad.  A
+  ``Stage2Renderer`` holds its stage-1 weights with ``requires_grad_(False)``:
+  they get no optimizer state and no update, the counterpart of
+  ``optax.multi_transform`` with ``set_to_zero`` on the ``frozen`` subtree.
+* ``Trainer``: the loop around it.  It builds the renderer the config names
+  (``models.build_renderer``), the database and its compact ray store on the
+  device, and the warm-up cosine schedule; each step samples its rays on the
+  device (``data/device_rays.py``); ``run`` resumes, logs, validates, keeps
+  the best-PSNR checkpoint and saves at the JAX trainer's intervals.
+* ``save_checkpoint`` / ``load_checkpoint`` and ``Logger``.
+
+Differences of form from the JAX package, not of result:
+
+* ray indices come from ``torch.randint`` on the device with the trainer's
+  own generator (seeded ``random_seed + 1``), not from ``jax.random`` inside
+  the jitted step; ``Trainer.sample_indices`` can be replaced to pass them
+  in;
+* there is no ``lax.scan``: a chunk is a loop of eager steps whose loss
+  terms are summed on the device and leave it only at log steps, so the
+  loop adds no synchronisation to the step;
+* a checkpoint is a pickle of numpy only: ``params`` in the JAX tree's
+  layout (``convert.to_jax_tree``), so the JAX package's loader and the
+  port's ``Stage2Renderer(cfg['stage1_ckpt_dir'])`` read either package's
+  checkpoints, and ``opt_state`` as Adam's moments by the same paths with
+  the update count.  The JAX trainer's ``opt_state`` is flax msgpack, which
+  the port cannot read: resuming from a JAX checkpoint starts Adam's moments
+  afresh at its step and says so;
+* validation images are ``.png`` (``train/metrics.py``);
+* the JAX-only config keys ``compilation_cache_dir``, ``matmul_precision``
+  and ``scan_chunk``'s compile-time role have no counterpart: the first two
+  are accepted and ignored, the last still caps the chunk of steps between
+  two host reads.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import json
+import os
+import pickle
+import time
+from typing import Any, Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
+from nunerf_tpu_torch.config import TRAINER_DEFAULTS, merge_cfg
+from nunerf_tpu_torch.device import resolve_device
 from nunerf_tpu_torch.train.loss import compute_losses
 
 
@@ -65,3 +97,353 @@ class TrainStep:
         terms = self.compute_grads(batch, step, generator)
         self.apply()
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in terms.items()}
+
+
+class Logger:
+    """Scalar logging: JSONL always, tensorboardX when it imports
+    (reference train/train_tools.py:97-112)."""
+
+    def __init__(self, log_dir: str, use_tb: bool = True):
+        os.makedirs(log_dir, exist_ok=True)
+        self.jsonl = open(os.path.join(log_dir, "train_log.jsonl"), "a")
+        self.tb = None
+        if use_tb:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.tb = SummaryWriter(log_dir)
+
+    def log(self, scalars: Dict[str, float], step: int, prefix: str = "train"):
+        rec = {"step": step, "prefix": prefix}
+        rec.update({k: float(v) for k, v in scalars.items()})
+        self.jsonl.write(json.dumps(rec) + "\n")
+        self.jsonl.flush()
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(f"{prefix}/{k}", float(v), step)
+
+    def close(self):
+        self.jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
+
+
+def save_checkpoint(path: str, step: int, params, opt_state, best_para: float):
+    """The reference's {step, best_para, network_state_dict,
+    optimizer_state_dict} (train/trainer.py:218-225) as a pickle of numpy:
+    ``params`` the JAX-layout tree, ``opt_state`` a dict (``count``,
+    ``exp_avg``, ``exp_avg_sq``), written through ``.tmp`` and
+    ``os.replace`` so that a crash never leaves half a checkpoint."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    blob = {"step": int(step), "best_para": float(best_para), "params": params,
+            "opt_state": opt_state}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(blob, f)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str):
+    """(step, params, opt_state, best_para) of a checkpoint of either
+    package; ``opt_state`` is the port's dict, or ``None`` for a JAX
+    checkpoint (flax msgpack bytes).  Unpickling runs code: read only
+    checkpoints this project wrote."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    opt_state = blob.get("opt_state")
+    if not isinstance(opt_state, dict):
+        opt_state = None
+    return blob["step"], blob["params"], opt_state, blob.get("best_para", 0.0)
+
+
+class Trainer:
+    """End-to-end trainer of stage 1 (``network: shape``) and the
+    zero-thickness stage 2 (``network: stage2``), on ``device`` ("cuda"
+    unless the caller asks for the CPU)."""
+
+    def __init__(self, cfg: Dict[str, Any], device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = merge_cfg(TRAINER_DEFAULTS, cfg)
+        self.name = self.cfg["name"]
+        self.model_dir = os.path.join(self.cfg["model_dir"], self.name)
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.ckpt_path = os.path.join(self.model_dir, "model.ckpt")
+        self.best_ckpt_path = os.path.join(self.model_dir, "model_best.ckpt")
+        self.logger = Logger(self.model_dir)
+
+        self._build_network()
+        self._build_dataset()
+        self._build_optimizer()
+
+    # ------------------------------------------------------------------
+    def _build_network(self):
+        from nunerf_tpu_torch.models import build_renderer
+        from nunerf_tpu_torch.models.stage2 import tree_keys
+        from nunerf_tpu_torch.models.stage1 import PARAM_KEYS
+
+        self.renderer = build_renderer(self.cfg, device=self.device,
+                                       seed=self.cfg["random_seed"])
+        self.tree_top = (tree_keys() if self.cfg.get("network", "shape") == "stage2"
+                         else PARAM_KEYS)
+
+    def _build_dataset(self):
+        from nunerf_tpu_torch.data.database import (get_database_split,
+                                                    parse_database_name)
+        from nunerf_tpu_torch.data.device_rays import build_compact_store, num_rays
+        from nunerf_tpu_torch.data.ray_store import (build_imgs_info,
+                                                     construct_nerf_ray_batch,
+                                                     construct_ray_batch)
+
+        cfg = self.renderer.cfg
+        self.database = parse_database_name(cfg["database_name"], cfg["dataset_dir"])
+        # cfg split_type 'test' trains on the eval holdout's complement
+        self.train_ids, self.test_ids = get_database_split(
+            self.database, cfg.get("split_type", "validation"))
+        train_info = build_imgs_info(self.database, self.train_ids, with_mask=True)
+        h, w = train_info["imgs"].shape[1:3]
+        if cfg.get("device_ray_synthesis", True):
+            self.store = build_compact_store(train_info, cfg["is_nerf"],
+                                             cfg.get("fixed_camera", False),
+                                             device=self.device)
+            self.num_rays = num_rays(self.store)
+            self.compact = True
+        else:
+            if cfg["is_nerf"]:
+                store, h, w = construct_nerf_ray_batch(train_info)
+            else:
+                store, h, w = construct_ray_batch(train_info, cfg.get("fixed_camera", False))
+            self.store = {k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
+                          for k, v in store.items()}
+            self.num_rays = self.store["rays_o"].shape[0]
+            self.compact = False
+        del train_info  # the f32 images: 768 MB at 100 views of 800x800
+        self.train_hw = (h, w)
+        self.val_info = build_imgs_info(self.database, self.test_ids, with_mask=True)
+        self.index_generator = torch.Generator(device=self.device).manual_seed(
+            self.cfg["random_seed"] + 1)
+
+    def _build_optimizer(self):
+        from nunerf_tpu_torch.train.lr import warm_up_cos_host
+
+        lr_cfg = dict(self.cfg.get("lr_cfg") or {})
+        lr_cfg.setdefault("end_iter", 300000)
+        # one schedule for the update and the log, in float32 as the JAX
+        # package's optax schedule evaluates it
+        self.schedule = warm_up_cos_host(
+            lr=lr_cfg.get("lr", 5e-4), end_warm=lr_cfg.get("end_warm", 5000),
+            end_iter=lr_cfg["end_iter"])
+        self.train = TrainStep(self.renderer, self.schedule)
+
+    # ------------------------------------------------------------------
+    def sample_indices(self, step: int) -> torch.Tensor:
+        """The flat ray indices of ``step``'s batch: int64 [train_ray_num] on
+        the device.  Replace it (an attribute of the instance) to pass the
+        indices in."""
+        return torch.randint(0, self.num_rays, (self.renderer.cfg["train_ray_num"],),
+                             generator=self.index_generator, device=self.device)
+
+    def batch(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The training batch of flat ray indices ``idx``."""
+        if self.compact:
+            from nunerf_tpu_torch.data.device_rays import sample_rays
+            return sample_rays(self.store, idx)
+        idx = idx.to(self.device)
+        return {k: v[idx] for k, v in self.store.items()}
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        """One optimizer step at ``step``; the detached loss terms, on the
+        device."""
+        return self.train(self.batch(self.sample_indices(step)), step)
+
+    # ------------------------------------------------------------------
+    def params_tree(self):
+        from nunerf_tpu_torch.convert import to_jax_tree
+        return to_jax_tree(self.renderer, self.tree_top)
+
+    def opt_state_tree(self):
+        """Adam's moments of the trainable parameters by their JAX paths,
+        and the update count."""
+        from nunerf_tpu_torch.convert import named_to_jax_tree
+
+        state = self.train.optimizer.state
+        names = {p: n for n, p in self.renderer.named_parameters()}
+        out = {"count": self.train.n_updates}
+        for key in ("exp_avg", "exp_avg_sq"):
+            named = {names[p]: (state[p][key].detach().cpu().numpy().copy() if p in state
+                                else np.zeros(tuple(p.shape), np.float32))
+                     for p in self.train.params}
+            out[key] = named_to_jax_tree(named, self.tree_top)
+        return out
+
+    def save(self, path: str, step: int, best_para: float):
+        save_checkpoint(path, step, self.params_tree(), self.opt_state_tree(), best_para)
+
+    def load(self, path: str):
+        """Restore the parameters and Adam from a checkpoint of either
+        package; (step, best_para)."""
+        from nunerf_tpu_torch.convert import jax_tree_to_named, load_jax_params
+
+        step, params, opt_state, best = load_checkpoint(path)
+        load_jax_params(self.renderer, params, self.tree_top)
+        self.train.optimizer.state.clear()
+        if opt_state is None:
+            self.train.n_updates = int(step)
+            print(f"{path}: a JAX checkpoint; its optimizer state (flax msgpack) "
+                  f"cannot be read, so Adam starts afresh at step {step}")
+            return step, best
+        self.train.n_updates = int(opt_state["count"])
+        names = {n: p for n, p in self.renderer.named_parameters()}
+        moments = {key: jax_tree_to_named(opt_state[key], self.tree_top)
+                   for key in ("exp_avg", "exp_avg_sq")}
+        for name, m in moments["exp_avg"].items():
+            p = names[name]
+            self.train.optimizer.state[p] = {
+                "step": torch.tensor(float(opt_state["count"]), dtype=torch.float32),
+                "exp_avg": torch.as_tensor(m, device=p.device, dtype=p.dtype).clone(),
+                "exp_avg_sq": torch.as_tensor(moments["exp_avg_sq"][name], device=p.device,
+                                              dtype=p.dtype).clone()}
+        return step, best
+
+    def _load_if_exists(self):
+        if os.path.exists(self.ckpt_path):
+            step, best = self.load(self.ckpt_path)
+            print(f"resumed from {self.ckpt_path} at step {step}")
+            return step, best
+        return 0, 0.0
+
+    def run(self):
+        """Train from the last checkpoint (or step 0) to ``total_step``;
+        returns the best validation PSNR."""
+        from nunerf_tpu_torch.utils.debug import (check_finite_tree,
+                                                  debug_nan_enabled,
+                                                  maybe_enable_debug_nans)
+        maybe_enable_debug_nans()
+        cfg = self.cfg
+        start_step, best_para = self._load_if_exists()
+        t0 = time.time()
+        t0_step = start_step
+
+        # the JAX trainer's chunk, a jitted lax.scan there; here the span of
+        # eager steps whose loss terms are summed on the device between two
+        # host reads, with the same interval arithmetic
+        chunk = max(1, min(cfg.get("scan_chunk", 25), cfg["train_log_step"],
+                           cfg["save_interval"], cfg["val_interval"]))
+        step = start_step
+        while step < cfg["total_step"]:
+            n = min(chunk, cfg["total_step"] - step)
+            keys, acc = None, None
+            for i in range(n):
+                terms = self.train_step(step + i)
+                if keys is None:
+                    keys = list(terms)
+                vals = torch.stack([torch.as_tensor(terms[k], dtype=torch.float32,
+                                                    device=self.device) for k in keys])
+                acc = vals if acc is None else acc + vals
+            step += n
+
+            if step % cfg["train_log_step"] < chunk:
+                means = (acc / n).tolist()  # the one host read of the chunk
+                scalars = dict(zip(keys, means))
+                if debug_nan_enabled():
+                    check_finite_tree(scalars, "loss_terms")
+                scalars["lr"] = self.schedule(step)
+                now = time.time()
+                scalars["rays_per_sec"] = (
+                    (step - t0_step) * self.renderer.cfg["train_ray_num"]
+                    / max(now - t0, 1e-6)) if step > start_step + n else 0.0
+                t0, t0_step = now, step
+                self.logger.log(scalars, step)
+
+            if step % cfg["val_interval"] < chunk and step > start_step:
+                key_metric = self.validate(step)
+                if key_metric >= best_para:
+                    best_para = key_metric
+                    self.save(self.best_ckpt_path, step, best_para)
+            if step % cfg["save_interval"] < chunk:
+                self.save(self.ckpt_path, step, best_para)
+
+        self.save(self.ckpt_path, cfg["total_step"], best_para)
+        return best_para
+
+    # ------------------------------------------------------------------
+    def _downsampled(self, info):
+        from nunerf_tpu_torch.data.image_io import resize
+
+        ratio = self.renderer.cfg.get("downsample_ratio", 1.0)
+        if not self.renderer.cfg.get("test_downsample_ratio", True) or ratio == 1.0:
+            return info
+        h, w = info["imgs"].shape[1:3]
+        dh, dw = int(h * ratio), int(w * ratio)
+        K_scale = np.diag([dw / w, dh / h, 1]).astype(np.float32)
+        out = {**info,
+               "imgs": np.stack([resize(im, (dw, dh), "linear") for im in info["imgs"]]),
+               "Ks": np.stack([K_scale @ K for K in info["Ks"]])}
+        if "masks" in info:
+            out["masks"] = np.stack([resize(m, (dw, dh), "nearest") for m in info["masks"]])
+        return out
+
+    @torch.no_grad()
+    def render_image(self, info, step: int):
+        """Chunked full-image render of one view's imgs_info, chunks of
+        ``test_ray_num`` rays (the last padded with copies of its last ray).
+
+        Returns (outputs dict incl. gt_rgb, h, w): numpy, on the host.
+        Shared by per-step validation and the test-split evaluator
+        (train/train_valid.py:19-53, dataset/database.py:667-679)."""
+        from nunerf_tpu_torch.data.ray_store import (construct_nerf_ray_batch,
+                                                     construct_ray_batch)
+
+        cfg = self.renderer.cfg
+        info = self._downsampled(dict(info))
+        if cfg["is_nerf"]:
+            batch, h, w = construct_nerf_ray_batch(info)
+        else:
+            batch, h, w = construct_ray_batch(info, cfg.get("fixed_camera", False))
+
+        trn = cfg["test_ray_num"]
+        rn = batch["rays_o"].shape[0]
+        dev_batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
+                     for k, v in batch.items()}
+        chunks = []
+        for i0 in range(0, rn, trn):
+            cur = {}
+            for k, v in dev_batch.items():
+                sl = v[i0:i0 + trn]
+                if sl.shape[0] < trn:  # fixed shapes: pad with the last ray
+                    sl = torch.cat([sl, sl[-1:].expand(trn - sl.shape[0], *sl.shape[1:])])
+                cur[k] = sl
+            out = self.renderer.test_outputs(cur, step)
+            chunks.append({k: np.atleast_1d(v.detach().float().cpu().numpy())
+                           for k, v in out.items() if torch.is_tensor(v)})
+
+        outputs = {k: np.concatenate([c[k] for c in chunks], 0)[:rn] for k in chunks[0]}
+        outputs["gt_rgb"] = batch["rgbs"]
+        return outputs, h, w
+
+    def validate(self, step: int) -> float:
+        """Per-step validation on one held-out view (the reference's
+        validation split holds out a single image, database.py:667-674)."""
+        from nunerf_tpu_torch.train.metrics import (compute_psnr, compute_ssim,
+                                                    dump_validation_images)
+
+        info = {k: v[:1] for k, v in self.val_info.items()}
+        outputs, h, w = self.render_image(info, step)
+        gt, pr = outputs["gt_rgb"], outputs["ray_rgb"]
+        if "tir_mask" in outputs:
+            # stage-2 scores TIR-masked pixels out of both images
+            # (reference test_step, renderer_zerothick.py:1248-1250)
+            tm = outputs["tir_mask"].reshape(-1, 1)
+            gt, pr = gt * tm, pr * tm
+        psnr = compute_psnr(gt, pr)
+        ssim = compute_ssim(gt.reshape(h, w, 3), pr.reshape(h, w, 3))
+        self.logger.log({"psnr": psnr, "ssim": ssim}, step, prefix="val")
+        try:
+            dump_validation_images(outputs, h, w,
+                                   os.path.join("data", "train_vis", self.name),
+                                   self.name, step, 0)
+        except (OSError, ValueError, KeyError) as e:  # vis must not kill training
+            print(f"validation dump failed: {e}")
+        print(f"[val] step {step} psnr {psnr:.3f} ssim {ssim:.4f}")
+        return psnr

@@ -1,4 +1,5 @@
-"""K1, K2, K3, K4 and K5 on the card against their plain versions.
+"""K1, K2, K3, K4 and K5 on the card against their plain versions, and the
+training loop on the card.
 
 Needs an NVIDIA GPU with ``nvcc`` (the kernels are built at first use) and
 skips elsewhere.  The file imports no JAX, so it runs on a machine that has
@@ -15,7 +16,8 @@ is also held to f32 products of its own stashes (1e-5, one bf16 unit) and,
 on one-layer probes, to the f32 weights (one unit of the last place).  K3
 multiplies and adds without FMA contraction, one rounding an operation as
 the plain version: ``t``, the triangle index and ``hit`` are held exactly,
-over a culling index, on an adversarial box mesh too.
+over a culling index, on an adversarial box mesh too, in each of its modes
+(exact, and the sweeps' barycentric tolerance).
 """
 
 import math
@@ -493,3 +495,62 @@ def test_culled_closest_hit_across_ray_chunks(cuda, monkeypatch):
     torch.cuda.synchronize()
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sphere", "box8", "box32"])
+def test_tolerant_closest_hit_matches_tolerant_plain_version(cuda, case):
+    """K3 in the tolerant mode (the scene's default, the barycentric
+    tolerance of the sweeps) and in the exact mode, each bit-equal to the
+    plain version of the same mode: at 1024 rays on a sphere of 32,400
+    triangles, and on the adversarial box, where the two modes differ."""
+    if case == "sphere":
+        v0, e1, e2, _ = _sphere_soup(90, 180)
+        o, d = _rays(1024, seed=3)
+        tri = [torch.as_tensor(a, device=cuda) for a in (v0, e1, e2)]
+        ro, rd = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+        index = ri.build_cull_index(*tri)
+    else:
+        tri, index, ro, rd = _box_case(cuda, int(case[3:]))
+    answers = {}
+    for tol in (ri.BARY_TOL, 0.0):
+        got = ri.closest_hit_cuda(ro, rd, index, tol=tol)
+        torch.cuda.synchronize()
+        ref = ri.closest_hit_reference(ro, rd, *tri, tol=tol)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        answers[tol] = got
+    assert not (answers[0.0][2] & ~answers[ri.BARY_TOL][2]).any()
+    if case != "sphere":
+        assert (answers[ri.BARY_TOL][2] & ~answers[0.0][2]).any()
+
+
+@pytest.mark.cuda
+def test_trainer_runs_on_the_card(cuda, tmp_path, monkeypatch):
+    """Three steps of ``Trainer(cfg).run()`` on a small scene written with
+    the port's PNG writer: the store lies on the card, K1 runs the value-only
+    SDF sweeps, the validation renders, and a new trainer reloads the
+    checkpoint to the same parameters and Adam state."""
+    from chip_smoke import SMALL_CFG, write_blender_scene
+    from nunerf_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.chdir(tmp_path)
+    write_blender_scene(str(tmp_path / "ds" / "tiny"), 4, 1, 32)
+    cfg = dict(SMALL_CFG, name="tiny", database_name="nerf/tiny",
+               dataset_dir=str(tmp_path / "ds"), model_dir=str(tmp_path / "model"),
+               total_step=3, train_log_step=1, save_interval=3, val_interval=3,
+               test_ray_num=256, downsample_ratio=0.5)
+    tr = Trainer(cfg, device=cuda)
+    assert all(v.is_cuda for k, v in tr.store.items() if k != "aux")
+    fm.reset_launches()
+    best = tr.run()
+    torch.cuda.synchronize()
+    assert fm.launches["chain_fwd"] > 0 and fm.launches["chain_bwd"] > 0
+    assert math.isfinite(best)
+    again = Trainer(cfg, device=cuda)
+    assert again.load(tr.ckpt_path)[0] == 3 and again.train.n_updates == 3
+    for (n, p), (_, q) in zip(tr.renderer.named_parameters(), again.renderer.named_parameters()):
+        assert torch.equal(p, q), n
+        if p.requires_grad:
+            assert torch.equal(tr.train.optimizer.state[p]["exp_avg_sq"],
+                               again.train.optimizer.state[q]["exp_avg_sq"]), n

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``nunerf_tpu_torch``, nor
-``chip_smoke.py``, loads JAX or the JAX package; its entry points run on
-CUDA unless the caller asks for the CPU, and raise when CUDA is missing."""
+``chip_smoke.py``, loads JAX, the JAX package, the repository's tests or
+(when imported) OpenCV, which the machine with the card lacks; its entry
+points run on CUDA unless the caller asks for the CPU, and raise when CUDA
+is missing."""
 
 import os
 import subprocess
@@ -20,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nunerf_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nunerf_tpu", "cv2",
+                                    "tests", "scene_utils", "port_helpers"))
 print(len(names), bad)
 """
 
@@ -31,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 27, res.stdout
+    assert int(n) >= 44, res.stdout
     assert bad == "[]", bad
 
 
@@ -44,6 +47,20 @@ def test_probe_walks_the_stage2_modules():
                                                    "nunerf_tpu_torch.")}
     for mod in ("tracing.mesh_ops", "tracing.intersect", "tracing.scene",
                 "ops.ray_intersect", "models.stage2", "convert"):
+        assert f"nunerf_tpu_torch.{mod}" in names, mod
+
+
+def test_probe_walks_the_data_and_trainer_modules():
+    """The import probe reaches every module of the data layer and the
+    training loop, and importing the benchmark runs nothing."""
+    import pkgutil
+
+    import nunerf_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
+                                                   "nunerf_tpu_torch.")}
+    for mod in ("data.image_io", "data.colmap", "data.database", "data.ray_store",
+                "data.device_rays", "train.metrics", "train.trainer", "utils.debug",
+                "utils.profiling", "models", "bench"):
         assert f"nunerf_tpu_torch.{mod}" in names, mod
 
 
@@ -78,3 +95,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     r2 = Stage2Renderer(cfg, scene, r, device="cpu")
     assert all(p.device.type == "cpu" for p in r2.parameters())
     assert not any(p.requires_grad for p in r2.stage1.parameters())
+
+    # the training loop and the benchmark
+    from nunerf_tpu_torch import bench
+    from nunerf_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer({"name": "x", "model_dir": "/nonexistent"})
+    assert bench.main() == 2
