@@ -25,9 +25,10 @@ Phases (any failure exits non-zero):
      bound of its culled work beside the brute sweep's, its time in both
      modes), against the port's brute sweep and tile-culled descent with no
      ray allowed to disagree on ``hit``, and on an adversarial box mesh;
-  4. correctness: a small stage-1 step and a small stage-2 step on the card
-     (kernels on) against the same steps on the CPU (plain versions), plain
-     and with the ``fused_sdf`` / ``fused_mlp`` gates on;
+  4. correctness: a small stage-1 step, a small stage-2 step and a small
+     shell step on the card (kernels on) against the same steps on the CPU
+     (plain versions), plain and with the ``fused_sdf`` / ``fused_mlp`` gates
+     on;
   5. the main paths, each with the launch counters set to 0 just before and
      read just after: the stage-1 training step at ``BENCH_CFG``'s full
      width (1024 rays, 64+64 SDF samples, 8x256 SDF and NeRF++), a few Adam
@@ -46,7 +47,22 @@ Phases (any failure exits non-zero):
      a second trainer resuming at step 30, and the zero-thickness stage 2
      from that checkpoint through K3 in its tolerant mode (10 steps, a
      validation with the TIR mask), each run's launch counts read as a main
-     path's.
+     path's;
+  7. the pipeline between the stages, in the same working directory, each
+     run's launch counts read as a main path's: ``extract-mesh-stage1``
+     through ``cli.main`` at 512^3 from the trainer's stage-1 checkpoint
+     (``extract_s1``: K1 sweeps the SDF in chunks of 2^21 points, native
+     marching, the remesh), after K1 on one such chunk against the plain
+     chain and before the K1 extraction at 128^3 against the plain f32 one
+     (their chamfer under (h/4)^2); the curvature-shell stage-2 step at
+     ``SHELL_CFG``'s width on the remeshed mesh (``shell``: 4 steps at step
+     5000, 3 K3 launches a step, every physical field training), after a
+     small shell step on the card against the CPU (phase 4); then the
+     users' shell pipeline through ``cli.main``: ``train`` (10 steps and a
+     masked validation, ``trainer_shell``), ``extract-mesh-stage2`` at 256^3
+     (``extract_s2``: K1 on the inner and the frozen outer SDF),
+     ``postprocess-stage2 --largest-component``, ``eval-geometry`` against
+     the analytic sphere and ``eval-images`` on the test split.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -92,6 +108,43 @@ SMALL_S2_CFG = dict(STAGE2_CFG, stage1_cfg=SMALL_CFG, n_samples_outer=16,
                     n_bg_importance=4, n_samples_inner=8, inner_up_rounds=1,
                     inner_up_each=4, sdf_n_layers=4, train_ray_num=16,
                     mixed_precision=False)
+
+# the full-width curvature-shell stage 2: SHELL_DEFAULTS (64 outer samples,
+# 64 + 2x32 inside the glass) with the keys of
+# configs/stage2/nerf/nested_shell.yaml, stage 1 = BENCH_CFG
+SHELL_CFG = {
+    "name": "bench_shell_s2",
+    "network": "stage2",
+    "is_nerf": True,
+    "zero_thickness": False,
+    "stage1_cfg": BENCH_CFG,
+    "shader_config": {"sphere_direction": False, "human_light": False},
+    "loss": ["eikonal", "std", "nerf_render"],
+    "eikonal_weight": 0.02,
+    "freeze_inv_s_step": 1500,
+    "freeze_ior_step": 3000,
+    "freeze_thickness_step": 3000,
+    "freeze_thickness_inv_s": 100,
+    "inner_diffuse_only": True,
+    "sdf_bias": 0.35,
+    "anneal_end": 8000,
+    "learn_absorption": True,
+    "inv_s_floor_max": 300.0,
+    "inv_s_floor_start": 10000,
+    "inv_s_floor_end": 28000,
+    "inv_s_floor_base": 32.0,
+    "sdf_mixed_precision": True,
+    "mixed_precision": True,
+    "train_ray_num": 1024,
+}
+SHELL_STEP = 5000   # past the IoR and thickness freeze steps
+SHELL_TRIANGLES = (50000, 150000)   # the remeshed outer mesh the shell traces
+EXTRACT_RESOLUTION = 512   # extract-mesh-stage1 in tools/run_nested_pipeline.sh
+EXTRACT_S2_RESOLUTION = 256
+SMALL_SHELL_CFG = dict(SHELL_CFG, stage1_cfg=SMALL_CFG, n_samples_outer=16,
+                       n_samples_inner=8, inner_up_rounds=1, inner_up_each=4,
+                       sdf_n_layers=4, train_ray_num=16, mixed_precision=False,
+                       sdf_mixed_precision=False)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 without
 # them, HBM3 bandwidth
@@ -245,7 +298,7 @@ def batch_for(cfg, dev):
 
 def lumpy_sphere_mesh(resolution):
     """The outer mesh stage 2 traces: a lumpy sphere (radius 0.5 +- 0.05)
-    marched with the port's ``extract_geometry``."""
+    marched with the port's ``extract_geometry`` (the native library)."""
     from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
 
     def sdf(p):
@@ -272,6 +325,14 @@ def intersect_rays(n, seed, dev):
 def stage2_batch(rn, dev):
     b = batch_for({"train_ray_num": rn}, dev)
     return {k: b[k] for k in ("rays_o", "rays_d", "rgbs")}
+
+
+def shell_batch(rn, dev):
+    """``stage2_batch`` with an object mask (a fifth of the rays off it)."""
+    b = stage2_batch(rn, dev)
+    rs = np.random.RandomState(2)
+    b["masks"] = torch.as_tensor((rs.rand(rn) > 0.2).astype(np.float32), device=dev)
+    return b
 
 
 def chain_bytes(spec, n):
@@ -1234,18 +1295,17 @@ def timed(obj, name, times):
     setattr(obj, name, wrapper)
 
 
-def phase_trainer(dev, verts, tris, step0_ms):
+def phase_trainer(dev, verts, tris, step0_ms, work):
     """``Trainer(cfg).run()``, the port's entry point, on a 100-view 800x800
-    scene written here: stage 1 at ``BENCH_CFG``'s width (30 steps, logs and
-    checkpoints every 10, a validation at step 20 on one view at a quarter
-    of its size), then a second trainer that resumes at step 30 and runs to
-    40, then the zero-thickness stage 2 at ``STAGE2_CFG``'s width from that
-    checkpoint and the outer mesh (10 steps, a validation with the TIR
-    mask).  Each run's launch counts are set to 0 just before it and read
-    just after.  Returns ({path: launches}, numbers)."""
+    scene written into ``work`` (the working directory): stage 1 at
+    ``BENCH_CFG``'s width (30 steps, logs and checkpoints every 10, a
+    validation at step 20 on one view at a quarter of its size), then a
+    second trainer that resumes at step 30 and runs to 40, then the
+    zero-thickness stage 2 at ``STAGE2_CFG``'s width from that checkpoint
+    and the outer mesh (10 steps, a validation with the TIR mask).  Each
+    run's launch counts are set to 0 just before it and read just after.
+    Returns ({path: launches}, numbers, the stage-1 checkpoint)."""
     import os
-    import shutil
-    import tempfile
 
     from nunerf_tpu_torch.data import image_io
     from nunerf_tpu_torch.ops import fused_mlp as fm
@@ -1261,179 +1321,532 @@ def phase_trainer(dev, verts, tris, step0_ms):
         return dict(fm.launches, **ri.launches)
 
     out, paths = {}, {}
-    work = tempfile.mkdtemp(prefix="nunerf_smoke_")
-    cwd = os.getcwd()
-    try:
-        os.chdir(work)  # validation images go to ./data/train_vis
-        t0 = time.perf_counter()
-        write_blender_scene(os.path.join(work, "ds", "sphere"), *SCENE_VIEWS, SCENE_HW)
-        out["scene_write_s"] = time.perf_counter() - t0
-        # an 800x800 RGBA PNG whose rows all carry the Paeth filter: its
-        # rows depend on their left neighbours, the slow case of the decoder
-        view = image_io.imread(os.path.join(work, "ds", "sphere", "train", "r_0.png"))
-        image_io.imwrite("paeth.png", view, png_filter=4)
-        t0 = time.perf_counter()
-        back = image_io.imread("paeth.png")
-        out["paeth_decode_800x800_rgba_s"] = time.perf_counter() - t0
-        if not np.array_equal(back, view):
-            raise AssertionError("a Paeth-filtered PNG does not decode to what was written")
-        log(f"trainer scene: {SCENE_VIEWS[0]} + {SCENE_VIEWS[1]} views of {SCENE_HW}x"
-            f"{SCENE_HW} RGBA written in {out['scene_write_s']:.1f} s; an 800x800 RGBA PNG "
-            f"of Paeth rows decodes in {out['paeth_decode_800x800_rgba_s']:.3f} s on the host")
+    t0 = time.perf_counter()
+    write_blender_scene(os.path.join(work, "ds", "sphere"), *SCENE_VIEWS, SCENE_HW)
+    out["scene_write_s"] = time.perf_counter() - t0
+    # an 800x800 RGBA PNG whose rows all carry the Paeth filter: its
+    # rows depend on their left neighbours, the slow case of the decoder
+    view = image_io.imread(os.path.join(work, "ds", "sphere", "train", "r_0.png"))
+    image_io.imwrite("paeth.png", view, png_filter=4)
+    t0 = time.perf_counter()
+    back = image_io.imread("paeth.png")
+    out["paeth_decode_800x800_rgba_s"] = time.perf_counter() - t0
+    if not np.array_equal(back, view):
+        raise AssertionError("a Paeth-filtered PNG does not decode to what was written")
+    log(f"trainer scene: {SCENE_VIEWS[0]} + {SCENE_VIEWS[1]} views of {SCENE_HW}x"
+        f"{SCENE_HW} RGBA written in {out['scene_write_s']:.1f} s; an 800x800 RGBA PNG "
+        f"of Paeth rows decodes in {out['paeth_decode_800x800_rgba_s']:.3f} s on the host")
 
-        common = dict(database_name="nerf/sphere", dataset_dir=os.path.join(work, "ds"),
-                      model_dir=os.path.join(work, "model"), downsample_ratio=0.25)
-        cfg1 = dict(BENCH_CFG, total_step=30, train_log_step=10, save_interval=10,
-                    val_interval=20, **common)
-        t0 = time.perf_counter()
-        tr = Trainer(cfg1, device=dev)
-        out["stage1_load_s"] = time.perf_counter() - t0
-        store = {k: v.numel() * v.element_size() for k, v in tr.store.items() if v.is_cuda}
-        out["store_bytes"] = store
-        log(f"stage-1 trainer: database and device store in {out['stage1_load_s']:.1f} s, "
-            f"{len(tr.train_ids)} train views, store on the card {store} bytes "
-            f"({sum(store.values()) / 2 ** 20:.1f} MiB)")
-        val_s, save_s = [], []
-        timed(tr, "validate", val_s)
-        timed(tr, "save", save_s)
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        t0 = time.perf_counter()
-        tr.run()
+    common = dict(database_name="nerf/sphere", dataset_dir=os.path.join(work, "ds"),
+                  model_dir=os.path.join(work, "model"), downsample_ratio=0.25)
+    cfg1 = dict(BENCH_CFG, total_step=30, train_log_step=10, save_interval=10,
+                val_interval=20, **common)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg1, device=dev)
+    out["stage1_load_s"] = time.perf_counter() - t0
+    store = {k: v.numel() * v.element_size() for k, v in tr.store.items() if v.is_cuda}
+    out["store_bytes"] = store
+    log(f"stage-1 trainer: database and device store in {out['stage1_load_s']:.1f} s, "
+        f"{len(tr.train_ids)} train views, store on the card {store} bytes "
+        f"({sum(store.values()) / 2 ** 20:.1f} MiB)")
+    val_s, save_s = [], []
+    timed(tr, "validate", val_s)
+    timed(tr, "save", save_s)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    paths["trainer_s1"] = counts()
+    run_s = time.perf_counter() - t0
+    recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
+    train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
+    val = [r for r in recs if r["prefix"] == "val"]
+    if sorted(train_recs) != [10, 20, 30] or [r["step"] for r in val] != [20]:
+        raise AssertionError(f"stage-1 trainer logged {sorted(train_recs)} and "
+                             f"validated at {[r['step'] for r in val]}")
+    bad = [k for r in train_recs.values() for k, v in r.items()
+           if k != "prefix" and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"stage-1 trainer logged non-finite {bad}")
+    rn = BENCH_CFG["train_ray_num"]
+    steady = rn / train_recs[20]["rays_per_sec"] * 1e3
+    ckpt_bytes = os.path.getsize(tr.ckpt_path)
+    out["stage1"] = dict(
+        run_s=run_s, steady_step_ms=steady, rays_per_s=train_recs[20]["rays_per_sec"],
+        step30_interval_ms=rn / train_recs[30]["rays_per_sec"] * 1e3,
+        bare_step0_ms=step0_ms, loop_gap_ms=steady - step0_ms,
+        val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"], val_s=val_s[0],
+        ckpt_bytes=ckpt_bytes, save_s=sum(save_s) / len(save_s), saves=len(save_s),
+        best_ckpt=os.path.exists(tr.best_ckpt_path),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=paths["trainer_s1"], loss_total=train_recs[30]["loss_total"])
+    log(f"stage-1 trainer: 30 steps in {run_s:.1f} s; steps 11-20 (one checkpoint "
+        f"among them) {steady:.1f} ms/step ({train_recs[20]['rays_per_sec']:.0f} rays/s) "
+        f"against the bare step's {step0_ms:.1f} at step 0: the loop adds "
+        f"{steady - step0_ms:.1f} ms/step; steps 21-30 (with the validation) "
+        f"{out['stage1']['step30_interval_ms']:.1f} ms/step; validation PSNR "
+        f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f} rendered in {val_s[0]:.2f} s "
+        f"(one 200x200 view, 40 chunks of 1024 rays); checkpoint {ckpt_bytes} bytes in "
+        f"{out['stage1']['save_s']:.3f} s ({len(save_s)} saves); peak memory "
+        f"{out['stage1']['peak_gib']:.2f} GiB; launches {paths['trainer_s1']}")
+    if not (paths["trainer_s1"]["chain_fwd"] > 0 and paths["trainer_s1"]["chain_bwd"] > 0):
+        raise AssertionError(f"the stage-1 trainer launched {paths['trainer_s1']}: K1 "
+                             "and K2 expected")
+    if not out["stage1"]["best_ckpt"]:
+        raise AssertionError("no model_best.ckpt after the validation")
+    tr.logger.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    # resume: a second trainer picks the run up at step 30
+    tr = Trainer(dict(cfg1, total_step=40), device=dev)
+    resumed = []
+    load = tr._load_if_exists
+
+    def load_and_record():
+        step, best = load()
+        resumed.append((step, tr.train.n_updates,
+                        {float(st["step"]) for st in tr.train.optimizer.state.values()}))
+        return step, best
+
+    tr._load_if_exists = load_and_record
+    reset()
+    tr.run()
+    torch.cuda.synchronize()
+    paths["trainer_s1_resume"] = counts()
+    if resumed != [(30, 30, {30.0})] or tr.train.n_updates != 40:
+        raise AssertionError(f"the second trainer resumed at {resumed} and ended at "
+                             f"{tr.train.n_updates} updates: expected step 30, 30 "
+                             "updates, Adam at 30, then 40")
+    recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
+    if [r["step"] for r in recs if r["prefix"] == "train"][-1] != 40:
+        raise AssertionError("the resumed run did not log step 40")
+    log(f"stage-1 trainer resumed at step 30 (Adam's count 30) and ran to 40; "
+        f"launches {paths['trainer_s1_resume']}")
+    ckpt1 = tr.ckpt_path
+    tr.logger.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    # stage 2 from that checkpoint and the outer mesh
+    mesh_path = os.path.join(work, "outer.ply")
+    save_ply(mesh_path, verts, tris)
+    cfg2 = dict(STAGE2_CFG, network="stage2", zero_thickness=True,
+                stage1_ckpt_dir=ckpt1, stage1_mesh_dir=mesh_path, total_step=10,
+                train_log_step=5, val_interval=10, **common)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg2, device=dev)
+    out["stage2_load_s"] = time.perf_counter() - t0
+    scene = tr.renderer.scene
+    if not (scene.use_kernel and scene.kernel_tol == ri.BARY_TOL):
+        raise AssertionError("the stage-2 trainer's scene does not trace with K3 in "
+                             "its tolerant mode")
+    frozen = {n: p.detach().clone() for n, p in tr.renderer.stage1.named_parameters()}
+    val_s = []
+    timed(tr, "validate", val_s)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    paths["trainer_s2"] = counts()
+    run_s = time.perf_counter() - t0
+    recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
+    train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
+    val = [r for r in recs if r["prefix"] == "val"]
+    if sorted(train_recs) != [5, 10] or len(val) != 1:
+        raise AssertionError(f"stage-2 trainer logged {sorted(train_recs)}, {len(val)} "
+                             "validations")
+    if not all(math.isfinite(r["loss_total"]) for r in train_recs.values()):
+        raise AssertionError("stage-2 trainer logged a non-finite loss")
+    for n, p in tr.renderer.stage1.named_parameters():
+        if p.grad is not None or not torch.equal(frozen[n], p.detach()):
+            raise AssertionError(f"frozen stage-1 parameter {n} changed")
+    h, w = (int(SCENE_HW * 0.25),) * 2
+    val_chunks = -(-h * w // tr.renderer.cfg["test_ray_num"])
+    want = 3 * 10 + 3 * val_chunks
+    if paths["trainer_s2"]["closest_hit"] != want:
+        raise AssertionError(f"stage-2 trainer: {paths['trainer_s2']['closest_hit']} K3 "
+                             f"launches, expected 3 x 10 steps + 3 x {val_chunks} "
+                             "validation chunks")
+    rn = STAGE2_CFG["train_ray_num"]
+    steady = rn / train_recs[10]["rays_per_sec"] * 1e3
+    out["stage2"] = dict(run_s=run_s, steady_step_ms=steady,
+                         rays_per_s=train_recs[10]["rays_per_sec"],
+                         tir_masked_val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"],
+                         val_s=val_s[0], loss_total=train_recs[10]["loss_total"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         launches=paths["trainer_s2"])
+    log(f"stage-2 trainer: 10 steps in {run_s:.1f} s (load {out['stage2_load_s']:.1f} s); "
+        f"steps 6-10 {steady:.1f} ms/step ({train_recs[10]['rays_per_sec']:.0f} rays/s); "
+        f"loss_total {train_recs[10]['loss_total']:.5f}; TIR-masked validation PSNR "
+        f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f} in {val_s[0]:.2f} s; frozen "
+        f"stage 1 bit-equal; peak memory {out['stage2']['peak_gib']:.2f} GiB; launches "
+        f"{paths['trainer_s2']}")
+    tr.logger.close()
+    del tr
+    torch.cuda.empty_cache()
+    return paths, out, ckpt1
+
+
+def phase_small_check_shell(dev):
+    """A small curvature-shell step on the card (closest hit by K3) against
+    the same step on the CPU (the brute sweep), f32 on both sides, with the
+    object mask, absorption and the freeze gates of ``SHELL_CFG``."""
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.models.stage2_shell import Stage2ShellRenderer
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
+    from nunerf_tpu_torch.tracing.scene import Scene
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    mesh = extract_geometry(lambda p: np.linalg.norm(p, axis=-1) - 0.5, resolution=16)
+    terms = {}
+    for d in (dev, torch.device("cpu")):
+        scene = Scene(mesh, tile=512, curv_smooth_iters=20, device=d)
+        s1 = ShapeRenderer(SMALL_CFG, device=d, seed=3)
+        r = Stage2ShellRenderer(SMALL_SHELL_CFG, scene, s1, device=d, seed=4)
+        before = dict(ri.launches, **fm.launches)
+        terms[d.type] = TrainStep(r, 5e-4)(shell_batch(16, d), SHELL_STEP)
+        after = dict(ri.launches, **fm.launches)
+        got = {k: after[k] - before[k] for k in before}
+        if got["closest_hit"] != (3 if d.type == "cuda" else 0):
+            raise AssertionError(f"launches {got} in a small shell step on {d.type}")
+    # f32 on both sides; the card orders its sums differently and the shell
+    # chord cancels where the curvature radius is large: loss_total to 1e-3
+    # relative, each term to 1e-2 of itself plus 1e-3 of loss_total
+    _compare_terms(f"small shell step ({len(mesh[1])} triangles)", terms["cuda"],
+                   terms["cpu"], 1e-3, 1e-2)
+
+
+def phase_main_path_shell(mesh_path, dev):
+    """The curvature-shell stage-2 training step at full width through the
+    entry points (``SHELL_CFG``, stage 1 ``BENCH_CFG``), tracing the remeshed
+    mesh that ``extract-mesh-stage1`` wrote: 4 steps at ``SHELL_STEP``, 3 K3
+    launches a step.  The inner surface is set hardened (variance 0.5: inv_s
+    148, past ``freeze_thickness_inv_s``), so every physical field trains."""
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.models.stage2_shell import Stage2ShellRenderer
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tracing.scene import Scene
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    t0 = time.perf_counter()
+    scene = Scene(mesh_path, curv_smooth_iters=20, device=dev)
+    n_tris = len(scene.tris_np)
+    if not SHELL_TRIANGLES[0] <= n_tris <= SHELL_TRIANGLES[1]:
+        raise AssertionError(f"the remeshed mesh has {n_tris} triangles: outside "
+                             f"{SHELL_TRIANGLES}")
+    curv = scene.vertex_curvature.cpu().numpy()
+    log(f"shell scene: {n_tris} triangles of {mesh_path} loaded in "
+        f"{time.perf_counter() - t0:.2f} s; smoothed curvature {curv.min():.3f} to "
+        f"{curv.max():.3f}, {int((curv < 0).sum())} of {len(curv)} vertices negative")
+    stage1 = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
+    renderer = Stage2ShellRenderer(SHELL_CFG, scene, stage1, device=dev, seed=1)
+    del stage1
+    with torch.no_grad():
+        renderer.var_inner.variance.fill_(0.5)
+    train = TrainStep(renderer, 5e-4)
+    rn = SHELL_CFG["train_ray_num"]
+    batch = shell_batch(rn, dev)
+    frozen = {n: p.detach().clone() for n, p in renderer.stage1.named_parameters()}
+    watched = ("sdf_inner.", "color_inner.", "ior_net.", "thickness_net.", "absorption")
+    before = {n: p.detach().clone() for n, p in renderer.named_parameters()
+              if n.startswith(watched)}
+    n_steps = 4
+
+    torch.cuda.reset_peak_memory_stats()
+    ri.reset_launches()
+    fm.reset_launches()
+    times = []
+    for _ in range(n_steps):
         torch.cuda.synchronize()
-        paths["trainer_s1"] = counts()
-        run_s = time.perf_counter() - t0
-        recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
-        train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
-        val = [r for r in recs if r["prefix"] == "val"]
-        if sorted(train_recs) != [10, 20, 30] or [r["step"] for r in val] != [20]:
-            raise AssertionError(f"stage-1 trainer logged {sorted(train_recs)} and "
-                                 f"validated at {[r['step'] for r in val]}")
-        bad = [k for r in train_recs.values() for k, v in r.items()
-               if k != "prefix" and not math.isfinite(v)]
+        t0 = time.perf_counter()
+        terms = train(batch, SHELL_STEP)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in terms.items() if not math.isfinite(float(v))]
         if bad:
-            raise AssertionError(f"stage-1 trainer logged non-finite {bad}")
-        rn = BENCH_CFG["train_ray_num"]
-        steady = rn / train_recs[20]["rays_per_sec"] * 1e3
-        ckpt_bytes = os.path.getsize(tr.ckpt_path)
-        out["stage1"] = dict(
-            run_s=run_s, steady_step_ms=steady, rays_per_s=train_recs[20]["rays_per_sec"],
-            step30_interval_ms=rn / train_recs[30]["rays_per_sec"] * 1e3,
-            bare_step0_ms=step0_ms, loop_gap_ms=steady - step0_ms,
-            val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"], val_s=val_s[0],
-            ckpt_bytes=ckpt_bytes, save_s=sum(save_s) / len(save_s), saves=len(save_s),
-            best_ckpt=os.path.exists(tr.best_ckpt_path),
-            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            launches=paths["trainer_s1"], loss_total=train_recs[30]["loss_total"])
-        log(f"stage-1 trainer: 30 steps in {run_s:.1f} s; steps 11-20 (one checkpoint "
-            f"among them) {steady:.1f} ms/step ({train_recs[20]['rays_per_sec']:.0f} rays/s) "
-            f"against the bare step's {step0_ms:.1f} at step 0: the loop adds "
-            f"{steady - step0_ms:.1f} ms/step; steps 21-30 (with the validation) "
-            f"{out['stage1']['step30_interval_ms']:.1f} ms/step; validation PSNR "
-            f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f} rendered in {val_s[0]:.2f} s "
-            f"(one 200x200 view, 40 chunks of 1024 rays); checkpoint {ckpt_bytes} bytes in "
-            f"{out['stage1']['save_s']:.3f} s ({len(save_s)} saves); peak memory "
-            f"{out['stage1']['peak_gib']:.2f} GiB; launches {paths['trainer_s1']}")
-        if not (paths["trainer_s1"]["chain_fwd"] > 0 and paths["trainer_s1"]["chain_bwd"] > 0):
-            raise AssertionError(f"the stage-1 trainer launched {paths['trainer_s1']}: K1 "
-                                 "and K2 expected")
-        if not out["stage1"]["best_ckpt"]:
-            raise AssertionError("no model_best.ckpt after the validation")
-        tr.logger.close()
-        del tr
-        torch.cuda.empty_cache()
+            raise AssertionError(f"shell main path: non-finite {bad}")
+    launches = dict(ri.launches, **fm.launches)
 
-        # resume: a second trainer picks the run up at step 30
-        tr = Trainer(dict(cfg1, total_step=40), device=dev)
-        resumed = []
-        load = tr._load_if_exists
+    ms = 1e3 * sum(times[1:]) / (n_steps - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(step_ms=ms, rays_per_s=rn / (ms / 1e3), first_step_ms=1e3 * times[0],
+               peak_gib=peak, triangles=n_tris, loss_total=float(terms["loss_total"]),
+               thickness_mean=float(terms["thickness_mean"]),
+               thickness_frozen=float(terms["thickness_frozen"]),
+               ior_frozen=float(terms["ior_frozen"]), ior_glass=float(terms["ior_glass"]),
+               kappa=[float(terms[k]) for k in ("kappa_r", "kappa_g", "kappa_b")])
+    log(f"shell main path: {n_steps} steps at step {SHELL_STEP}, steady {ms:.1f} ms/step "
+        f"({res['rays_per_s']:.0f} rays/s), first {res['first_step_ms']:.1f} ms, "
+        f"loss_total {res['loss_total']:.5f}, thickness_mean {res['thickness_mean']:.5f} "
+        f"(frozen {res['thickness_frozen']:.0f}), ior_glass {res['ior_glass']:.4f} (frozen "
+        f"{res['ior_frozen']:.0f}), kappa {res['kappa']}, launches {launches}, peak memory "
+        f"{peak:.2f} GiB")
+    want = {"closest_hit": 3 * n_steps, "cull_bin": 0, "chain_fwd": 0, "chain_bwd": 0,
+            "chain_jac_fwd": 0, "chain_jac_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"shell main path: launches {launches}, expected {want}")
+    if res["thickness_frozen"] != 0.0 or res["ior_frozen"] != 0.0:
+        raise AssertionError("a freeze gate held at the shell main path's step")
+    for n, p in renderer.stage1.named_parameters():
+        if p.grad is not None or not torch.equal(frozen[n], p.detach()):
+            raise AssertionError(f"frozen stage-1 parameter {n} changed")
+    after = dict(renderer.named_parameters())
+    for prefix in watched:
+        if all(torch.equal(v, after[n].detach()) for n, v in before.items()
+               if n.startswith(prefix)):
+            raise AssertionError(f"no trainable parameter under {prefix} changed")
+    return launches, res
 
-        def load_and_record():
-            step, best = load()
-            resumed.append((step, tr.train.n_updates,
-                            {float(st["step"]) for st in tr.train.optimizer.state.values()}))
-            return step, best
 
-        tr._load_if_exists = load_and_record
-        reset()
-        tr.run()
-        torch.cuda.synchronize()
-        paths["trainer_s1_resume"] = counts()
-        if resumed != [(30, 30, {30.0})] or tr.train.n_updates != 40:
-            raise AssertionError(f"the second trainer resumed at {resumed} and ended at "
-                                 f"{tr.train.n_updates} updates: expected step 30, 30 "
-                                 "updates, Adam at 30, then 40")
-        recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
-        if [r["step"] for r in recs if r["prefix"] == "train"][-1] != 40:
-            raise AssertionError("the resumed run did not log step 40")
-        log(f"stage-1 trainer resumed at step 30 (Adam's count 30) and ran to 40; "
-            f"launches {paths['trainer_s1_resume']}")
-        ckpt1 = tr.ckpt_path
-        tr.logger.close()
-        del tr
-        torch.cuda.empty_cache()
+def write_cfg(path, cfg):
+    """A YAML config file for the CLI's ``--cfg``."""
+    import yaml
 
-        # stage 2 from that checkpoint and the outer mesh
-        mesh_path = os.path.join(work, "outer.ply")
-        save_ply(mesh_path, verts, tris)
-        cfg2 = dict(STAGE2_CFG, network="stage2", zero_thickness=True,
-                    stage1_ckpt_dir=ckpt1, stage1_mesh_dir=mesh_path, total_step=10,
-                    train_log_step=5, val_interval=10, **common)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def sdf_value_chain(renderer, dev):
+    """(spec, flat) of ``renderer``'s value-only SDF chain as
+    ``fused_sdf_apply(..., value_only=True)`` hands it to K1."""
+    from nunerf_tpu_torch.fields.sdf import _sdf_chain
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+
+    with torch.no_grad():
+        spec, flat = _sdf_chain(renderer.sdf_net, dev)
+        flat = [f.detach().contiguous() for f in flat]
+    nw = fm.n_weights(spec)
+    flat[nw - 1] = flat[nw - 1][:, :1].contiguous()
+    flat[-1] = flat[-1][:, :1].contiguous()
+    spec = fm.ChainSpec(spec.dims[:-1] + (1,), spec.acts, spec.has_skip, spec.scales,
+                        compute_dtype=spec.compute_dtype)
+    return spec, flat
+
+
+def slab_chunks(resolution, slab=128):
+    """Sweep chunks of ``SWEEP_CHUNK`` points that ``extract_geometry``'s
+    z-slabs give at ``resolution``."""
+    from nunerf_tpu_torch.cli import SWEEP_CHUNK
+
+    n = 0
+    for i0 in range(0, resolution - 1, slab - 1):
+        i1 = min(i0 + slab, resolution)
+        n += -(-(i1 - i0) * resolution * resolution // SWEEP_CHUNK)
+        if i1 == resolution:
+            break
+    return n
+
+
+def phase_extract(dev, ckpt1):
+    """``extract-mesh-stage1`` through ``cli.main`` at 512^3 from the
+    trainer's stage-1 checkpoint, in the working directory: K1's launches,
+    the seconds of the device sweep, the native marching, the remesh and the
+    PLY writes, the triangle counts.  Before it, K1 on one 2^21-point chunk
+    of the sweep against the plain chain; after it, the K1 (bf16) extraction
+    at 128^3 against the plain f32 extraction of the same weights, by their
+    chamfer.  Returns (launches, numbers, the remeshed mesh's path)."""
+    from nunerf_tpu_torch import cli
+    from nunerf_tpu_torch.convert import load_jax_checkpoint, load_jax_params
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops.chamfer import chamfer_distance
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+
+    out = {}
+    cfg = dict(BENCH_CFG)
+    cfg_path = write_cfg("extract_s1.yaml", cfg)
+
+    # K1 on one chunk of the sweep, at the trainer's weights
+    renderer = ShapeRenderer(cfg, device=dev)
+    step, params, _ = load_jax_checkpoint(ckpt1)
+    load_jax_params(renderer, params, PARAM_KEYS)
+    spec, flat = sdf_value_chain(renderer, dev)
+    n = cli.SWEEP_CHUNK
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    pts = (torch.rand((n, 3), generator=gen) * 2 - 1).to(dev)
+    with torch.no_grad():
+        x = renderer.sdf_net.embed(pts).float().contiguous()
+    y = fm.chain_fwd_cuda(spec, x, flat)
+    torch.cuda.synchronize()
+    y_ref = fm.chain_mlp_reference(spec, x, *flat)
+    err, tol = rel_err(y, y_ref), CHAIN_TOL[("fwd", spec.compute_dtype)]
+    if not err <= tol:
+        raise AssertionError(f"K1 on a 2^21-point sweep chunk: rel err {err:.2e} > {tol}")
+    ms = cuda_ms(lambda: fm.chain_fwd_cuda(spec, x, flat), 5)
+    plain = cuda_ms(lambda: fm.chain_mlp_reference(spec, x, *flat), 3)
+    b, by = bound_ms(fm.chain_flops(spec, n), chain_bytes(spec, n), spec.compute_dtype)
+    out["k1_chunk"] = dict(n=n, rel_err=err, tol=tol,
+                           max_abs_err=float((y - y_ref).abs().max()), ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=by)
+    log(f"K1 on a sweep chunk (N={n}, {spec.compute_dtype}): rel err {err:.2e} (tol "
+        f"{tol:.0e}) ok; {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({by})")
+    del renderer, x, y, y_ref, pts
+    torch.cuda.empty_cache()
+
+    fm.reset_launches()
+    t0 = time.perf_counter()
+    rec = cli.main(["extract-mesh-stage1", "--cfg", cfg_path, "--ckpt", ckpt1,
+                    "--resolution", str(EXTRACT_RESOLUTION)])
+    torch.cuda.synchronize()
+    launches = dict(fm.launches)
+    rec["total_s"] = time.perf_counter() - t0
+    want = slab_chunks(EXTRACT_RESOLUTION)
+    if launches["chain_fwd"] != want or launches["chain_bwd"] != 0:
+        raise AssertionError(f"extract-mesh-stage1 launched {launches}: {want} K1 expected")
+    out["extract_s1"] = rec
+    parts = ("grid_s", "sweep_s", "march_s", "dedup_s", "remesh_s", "write_s")
+    log(f"extract-mesh-stage1 at {EXTRACT_RESOLUTION}^3: {rec['total_s']:.2f} s = grid "
+        f"points {rec['grid_s']:.2f} s + sweep {rec['sweep_s']:.2f} s ({want} K1 launches "
+        f"of up to {n} points, with the copies) + native marching {rec['march_s']:.2f} s + "
+        f"dedup {rec['dedup_s']:.2f} s + remesh {rec['remesh_s']:.3f} s + PLY writes "
+        f"{rec['write_s']:.3f} s + the rest (load) "
+        f"{rec['total_s'] - sum(rec[k] for k in parts):.2f} s; {rec['tris']} triangles, "
+        f"{rec['tris_simplified']} after the remesh (target edge 0.01); launches {launches}")
+
+    # the K1 extraction against the plain f32 one, at 128^3
+    res = 128
+    k1 = cli.extract_mesh_stage1(cfg, ckpt1, res, tag="k1_128", device=dev)
+    pl = cli.extract_mesh_stage1(dict(cfg, fused_sdf_value=False, sdf_mixed_precision=False),
+                                 ckpt1, res, tag="plain_128", device=dev)
+    vk, _ = load_ply(k1["mesh"])
+    vp, _ = load_ply(pl["mesh"])
+    d1, d2 = chamfer_distance(vk, vp, device=dev)
+    cham = float(d1) + float(d2)
+    h = 2.0 / (res - 1)
+    limit = (h / 4) ** 2
+    out["k1_vs_plain_128"] = dict(chamfer=cham, limit=limit, tris_k1=k1["tris"],
+                                  tris_plain=pl["tris"])
+    log(f"extraction at {res}^3, K1 (bf16) against the plain f32 chain: {k1['tris']} and "
+        f"{pl['tris']} triangles, chamfer of their vertices {cham:.3e} (limit (h/4)^2 = "
+        f"{limit:.3e}, h = 2/{res - 1})")
+    if not cham <= limit:
+        raise AssertionError("the K1 extraction is off the plain f32 extraction")
+    return launches, out, rec["simplified"]
+
+
+def phase_shell_pipeline(dev, work, ckpt1, outer_mesh):
+    """The users' shell pipeline through ``cli.main``: ``train`` of the shell
+    (``SHELL_CFG`` on the trainer's scene, 10 steps from the stage-1
+    checkpoint and the remeshed outer mesh, a masked validation at step 10),
+    ``extract-mesh-stage2`` at 256^3, ``postprocess-stage2
+    --largest-component``, ``eval-geometry`` of the outer mesh against the
+    analytic sphere the scene was rendered from, and ``eval-images`` on the
+    test split.  Returns ({path: launches}, numbers)."""
+    import os
+
+    from nunerf_tpu_torch import cli
+    from nunerf_tpu_torch.convert import flat_leaves, load_jax_checkpoint
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+
+    def run(argv):
+        fm.reset_launches()
+        ri.reset_launches()
         t0 = time.perf_counter()
-        tr = Trainer(cfg2, device=dev)
-        out["stage2_load_s"] = time.perf_counter() - t0
-        scene = tr.renderer.scene
-        if not (scene.use_kernel and scene.kernel_tol == ri.BARY_TOL):
-            raise AssertionError("the stage-2 trainer's scene does not trace with K3 in "
-                                 "its tolerant mode")
-        frozen = {n: p.detach().clone() for n, p in tr.renderer.stage1.named_parameters()}
-        val_s = []
-        timed(tr, "validate", val_s)
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        t0 = time.perf_counter()
-        tr.run()
+        rec = cli.main(argv)
         torch.cuda.synchronize()
-        paths["trainer_s2"] = counts()
-        run_s = time.perf_counter() - t0
-        recs = read_log(os.path.join(tr.model_dir, "train_log.jsonl"))
-        train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
-        val = [r for r in recs if r["prefix"] == "val"]
-        if sorted(train_recs) != [5, 10] or len(val) != 1:
-            raise AssertionError(f"stage-2 trainer logged {sorted(train_recs)}, {len(val)} "
-                                 "validations")
-        if not all(math.isfinite(r["loss_total"]) for r in train_recs.values()):
-            raise AssertionError("stage-2 trainer logged a non-finite loss")
-        for n, p in tr.renderer.stage1.named_parameters():
-            if p.grad is not None or not torch.equal(frozen[n], p.detach()):
-                raise AssertionError(f"frozen stage-1 parameter {n} changed")
-        h, w = (int(SCENE_HW * 0.25),) * 2
-        val_chunks = -(-h * w // tr.renderer.cfg["test_ray_num"])
-        want = 3 * 10 + 3 * val_chunks
-        if paths["trainer_s2"]["closest_hit"] != want:
-            raise AssertionError(f"stage-2 trainer: {paths['trainer_s2']['closest_hit']} K3 "
-                                 f"launches, expected 3 x 10 steps + 3 x {val_chunks} "
-                                 "validation chunks")
-        rn = STAGE2_CFG["train_ray_num"]
-        steady = rn / train_recs[10]["rays_per_sec"] * 1e3
-        out["stage2"] = dict(run_s=run_s, steady_step_ms=steady,
-                             rays_per_s=train_recs[10]["rays_per_sec"],
-                             tir_masked_val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"],
-                             val_s=val_s[0], loss_total=train_recs[10]["loss_total"],
-                             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                             launches=paths["trainer_s2"])
-        log(f"stage-2 trainer: 10 steps in {run_s:.1f} s (load {out['stage2_load_s']:.1f} s); "
-            f"steps 6-10 {steady:.1f} ms/step ({train_recs[10]['rays_per_sec']:.0f} rays/s); "
-            f"loss_total {train_recs[10]['loss_total']:.5f}; TIR-masked validation PSNR "
-            f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f} in {val_s[0]:.2f} s; frozen "
-            f"stage 1 bit-equal; peak memory {out['stage2']['peak_gib']:.2f} GiB; launches "
-            f"{paths['trainer_s2']}")
-        tr.logger.close()
-        del tr
-        torch.cuda.empty_cache()
-    finally:
-        os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
+        return rec, dict(fm.launches, **ri.launches), time.perf_counter() - t0
+
+    paths, out = {}, {}
+    name = SHELL_CFG["name"]
+    cfg = dict(SHELL_CFG, database_name="nerf/sphere", dataset_dir=os.path.join(work, "ds"),
+               model_dir=os.path.join(work, "model"), downsample_ratio=0.25,
+               stage1_ckpt_dir=ckpt1, stage1_mesh_dir=outer_mesh, total_step=10,
+               train_log_step=5, val_interval=10, save_interval=10)
+    cfg_path = write_cfg("shell.yaml", cfg)
+    model = os.path.join(work, "model", name)
+
+    torch.cuda.reset_peak_memory_stats()
+    _, paths["trainer_shell"], secs = run(["train", "--cfg", cfg_path])
+    recs = read_log(os.path.join(model, "train_log.jsonl"))
+    train_recs = {r["step"]: r for r in recs if r["prefix"] == "train"}
+    val = [r for r in recs if r["prefix"] == "val"]
+    if sorted(train_recs) != [5, 10] or len(val) != 1:
+        raise AssertionError(f"shell trainer logged {sorted(train_recs)}, {len(val)} "
+                             "validations")
+    last = train_recs[10]
+    for k in ("loss_total", "thickness_mean", "thickness_frozen", "kappa_r", "ior_glass"):
+        if not math.isfinite(last[k]):
+            raise AssertionError(f"shell trainer logged {k} = {last[k]}")
+    h = w = int(SCENE_HW * 0.25)
+    val_chunks = -(-h * w // 1024)
+    want = 3 * 10 + 3 * val_chunks
+    if paths["trainer_shell"]["closest_hit"] != want:
+        raise AssertionError(f"shell trainer: {paths['trainer_shell']['closest_hit']} K3 "
+                             f"launches, expected {want}")
+    _, s1_params, _ = load_jax_checkpoint(ckpt1)
+    _, s2_params, _ = load_jax_checkpoint(os.path.join(model, "model.ckpt"))
+    a, b = flat_leaves(s1_params), flat_leaves(s2_params["frozen"])
+    if sorted(a) != sorted(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("the shell checkpoint's frozen stage 1 differs from stage 1's")
+    out["trainer_shell"] = dict(
+        s=secs, steady_step_ms=SHELL_CFG["train_ray_num"] / last["rays_per_sec"] * 1e3,
+        rays_per_s=last["rays_per_sec"], loss_total=last["loss_total"],
+        thickness_mean=last["thickness_mean"], thickness_frozen=last["thickness_frozen"],
+        kappa_r=last["kappa_r"], val_psnr=val[0]["psnr"], val_ssim=val[0]["ssim"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=paths["trainer_shell"])
+    log(f"shell train (cli): 10 steps and a masked validation in {secs:.1f} s; steps 6-10 "
+        f"{out['trainer_shell']['steady_step_ms']:.1f} ms/step "
+        f"({last['rays_per_sec']:.0f} rays/s); loss_total {last['loss_total']:.5f}, "
+        f"thickness_mean {last['thickness_mean']:.5f} (frozen "
+        f"{last['thickness_frozen']:.0f}), kappa_r {last['kappa_r']:.4f}; validation PSNR "
+        f"{val[0]['psnr']:.3f} SSIM {val[0]['ssim']:.4f}; frozen stage 1 bit-equal in the "
+        f"checkpoint; peak memory {out['trainer_shell']['peak_gib']:.2f} GiB; launches "
+        f"{paths['trainer_shell']}")
+
+    ckpt = os.path.join(model, "model.ckpt")
+    rec, paths["extract_s2"], secs = run(["extract-mesh-stage2", "--cfg", cfg_path, "--ckpt",
+                                          ckpt, "--resolution", str(EXTRACT_S2_RESOLUTION)])
+    want = 2 * slab_chunks(EXTRACT_S2_RESOLUTION)
+    if paths["extract_s2"]["chain_fwd"] != want:
+        raise AssertionError(f"extract-mesh-stage2 launched {paths['extract_s2']}: {want} "
+                             "K1 expected (inner and frozen outer SDF)")
+    out["extract_s2"] = dict(rec, total_s=secs)
+    log(f"extract-mesh-stage2 at {EXTRACT_S2_RESOLUTION}^3: {secs:.2f} s: grid points "
+        f"{rec['grid_s']:.2f} s, sweep {rec['sweep_s']:.2f} s (inner and frozen outer SDF, "
+        f"{want} K1 launches), native marching {rec['march_s']:.2f} s, dedup "
+        f"{rec['dedup_s']:.2f} s, write {rec['write_s']:.3f} s; {rec['tris']} triangles")
+    if rec["tris"] == 0:
+        raise AssertionError("extract-mesh-stage2 found no inner surface")
+
+    (post, kept), paths["postprocess"], secs = run(
+        ["postprocess-stage2", "--input", rec["mesh"], "--outer", outer_mesh,
+         "--largest-component"])
+    out["postprocess"] = dict(s=secs, kept=kept, of=rec["tris"])
+    log(f"postprocess-stage2 --largest-component: {kept} of {rec['tris']} faces kept in "
+        f"{secs:.2f} s")
+
+    rs = np.random.RandomState(3)
+    gt = rs.randn(200000, 3)
+    np.save("gt_outer.npy", (0.5 * gt / np.linalg.norm(gt, axis=-1, keepdims=True))
+            .astype(np.float32))
+    geo, paths["eval_geometry"], secs = run(["eval-geometry", "--mesh", outer_mesh,
+                                             "--gt", "gt_outer.npy"])
+    if geo["chamfer"] is None or not math.isfinite(geo["chamfer"]):
+        raise AssertionError(f"eval-geometry: {geo}")
+    out["eval_geometry"] = dict(geo, s=secs)
+    log(f"eval-geometry of the outer mesh against the analytic sphere (100,000 points a "
+        f"side): chamfer {geo['chamfer']:.6f} in {secs:.2f} s")
+
+    ev, paths["eval_images"], secs = run(["eval-images", "--cfg", cfg_path, "--ckpt",
+                                          os.path.join(model, "model_best.ckpt"),
+                                          "--split", "test"])
+    if len(ev["views"]) != SCENE_VIEWS[1] or not all(
+            math.isfinite(v["psnr"]) for v in ev["views"]):
+        raise AssertionError(f"eval-images: {ev}")
+    out["eval_images"] = dict(s=secs, mean_psnr=ev["mean_psnr"], mean_ssim=ev["mean_ssim"],
+                              views=len(ev["views"]), launches=paths["eval_images"])
+    log(f"eval-images on the test split: {len(ev['views'])} views, mean PSNR "
+        f"{ev['mean_psnr']:.3f} SSIM {ev['mean_ssim']:.4f} in {secs:.1f} s; launches "
+        f"{paths['eval_images']}")
     return paths, out
 
 
@@ -1461,9 +1874,11 @@ def main():
 
     t0 = time.perf_counter()
     verts, tris = lumpy_sphere_mesh(MESH_RESOLUTION)
+    march_s = time.perf_counter() - t0
     scene = Scene((verts, tris), device=dev)
-    log(f"outer mesh: {len(tris)} triangles, {len(verts)} vertices, marched at "
-        f"{MESH_RESOLUTION}^3 in {time.perf_counter() - t0:.1f} s")
+    log(f"outer mesh: {len(tris)} triangles, {len(verts)} vertices, marched natively at "
+        f"{MESH_RESOLUTION}^3 in {march_s:.2f} s; scene built in "
+        f"{time.perf_counter() - t0 - march_s:.2f} s")
     if not 80000 <= len(tris) <= 120000:
         raise AssertionError(f"{len(tris)} triangles: outside the 80,000-120,000 "
                              "that stage 2 traces")
@@ -1477,6 +1892,7 @@ def main():
     rec["K3"] = phase_kernel_k3(scene, dev)
     phase_small_check(dev)
     phase_small_check_stage2(dev)
+    phase_small_check_shell(dev)
     # every main path: counters set to 0 just before, read just after
     paths = {}
     paths["stage1"], res = phase_main_path(dev)
@@ -1484,10 +1900,28 @@ def main():
     paths["A"], res_a = phase_main_path(dev, "fused_sdf")
     paths["B"], res_b = phase_main_path_stage2(scene, dev, fused_sdf=True)
     paths["C"], res_c = phase_main_path(dev, "fused_mlp")
-    trainer_paths, res_t = phase_trainer(dev, verts, tris, res[0]["step_ms"])
-    paths.update(trainer_paths)
+    import os
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="nunerf_smoke_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)  # validation images and meshes go under ./data
+        trainer_paths, res_t, ckpt1 = phase_trainer(dev, verts, tris, res[0]["step_ms"],
+                                                    work)
+        paths.update(trainer_paths)
+        paths["extract_s1"], res_x, outer_mesh = phase_extract(dev, ckpt1)
+        paths["shell"], res_shell = phase_main_path_shell(outer_mesh, dev)
+        pipe_paths, res_pipe = phase_shell_pipeline(dev, work, ckpt1, outer_mesh)
+        paths.update(pipe_paths)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
     for path, counter in (("trainer_s1", "chain_fwd"), ("trainer_s1", "chain_bwd"),
                           ("trainer_s2", "closest_hit"),
+                          ("extract_s1", "chain_fwd"), ("extract_s2", "chain_fwd"),
+                          ("shell", "closest_hit"), ("trainer_shell", "closest_hit"),
                           ("A", "chain_jac_fwd"), ("A", "chain_jac_bwd"),
                           ("B", "chain_jac_fwd"), ("B", "chain_jac_bwd"),
                           ("C", "chain_fwd"), ("C", "chain_bwd"),
@@ -1505,7 +1939,13 @@ def main():
                                      "(chain_mlp_with_grad0 VJP)")}
     # beside the contract's keys, only numbers this run measured or counted:
     # the bounds of other shapes and other ray counts stay in the log
-    measured = ("max_rel_err", "tol", "data_pass_dx_err", "data_pass_gz_ulps",
+    # K1 at the extraction sweep's chunk, beside its main shape
+    chunk = res_x["k1_chunk"]
+    rec["K1"].update({f"{k}_n{chunk['n']}": chunk[k]
+                      for k in ("ms", "plain_ms", "bound_ms", "rel_err")})
+    measured = (f"ms_n{chunk['n']}", f"plain_ms_n{chunk['n']}", f"bound_ms_n{chunk['n']}",
+                f"rel_err_n{chunk['n']}",
+                "max_rel_err", "tol", "data_pass_dx_err", "data_pass_gz_ulps",
                 "split_probe_f32_units", "scratch_gib", "brute_ms", "culled_ms",
                 "culled_rounds", "box_pairs_passed", "tri_pairs_tested", "ms_r131072",
                 "box_pairs_passed_r131072", "tri_pairs_tested_r131072", "mode", "ms_exact",
@@ -1549,6 +1989,9 @@ def main():
                    step_summary(res_c[25000]),
                    launches_per_step=res_c[25000]["launches_per_step"]),
                "trainer": res_t,
+               "extract": res_x,
+               "shell_step": res_shell,
+               "shell_pipeline": res_pipe,
                "seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(json.dumps({"kernels": kernels}))

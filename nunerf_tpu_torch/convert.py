@@ -10,8 +10,11 @@ dotted name once the ``params`` levels are dropped.  Two kinds of name differ:
   prefix of the module: a key (``'sdf' -> 'sdf_net'``, the stage-1
   renderer's ``PARAM_KEYS``) or a tuple of keys (``('frozen', 'sdf') ->
   'stage1.sdf_net'``, ``('train', 'iors_vec') -> 'iors_vec'``: the stage-2
-  tree is two levels deep, ``models.stage2.tree_keys()``).  A prefix that is
-  a whole path names a bare leaf, which has no ``params`` level;
+  tree is two levels deep, ``models.stage2.tree_keys()``, which serves the
+  zero-thickness renderer and the curvature shell alike: the shell's tree
+  has the same heads, its SpecInner ``shade_inner`` of other widths).  A
+  prefix that is a whole path names a bare leaf, which has no ``params``
+  level;
 * the shader's human-light head, ``human_light`` in JAX (where the name is
   free) and ``human_light_predictor`` in the port (where ``human_light`` is
   the flag).

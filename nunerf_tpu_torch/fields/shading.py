@@ -13,6 +13,8 @@ a glass interface during stage-2 tracing with these same heads, frozen.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -50,6 +52,7 @@ class AppShadingNetwork(nn.Module):
                  light_pos_freq: int = 6, inner_init: float = -0.95,
                  roughness_init: float = 0.0, metallic_init: float = 0.0,
                  light_exp_max: float = 3.0, refrac_freq: int = 6,
+                 refrac_exp_max: Optional[float] = None,
                  feature_dim: int = 256, diffuse_only: bool = False,
                  dtype=None, fused: bool = False, device=None):
         super().__init__()
@@ -79,8 +82,11 @@ class AppShadingNetwork(nn.Module):
         self.inner_weight = Predictor(pos + posenc_dim(6), 1, activation="none",
                                       final_bias=inner_init, **kw)
         self.transmission_weight = Predictor(fx, 1, **kw)
+        # ``refrac_exp_max``: the SpecInner shader caps the refraction light
+        # lower, at -0.2 (field.py:1374); None keeps ``light_exp_max``
+        r_exp = light_exp_max if refrac_exp_max is None else refrac_exp_max
         self.refrac_light = Predictor(2 * posenc_dim(refrac_freq), 3,
-                                      activation="exp", exp_max=light_exp_max,
+                                      activation="exp", exp_max=r_exp,
                                       final_bias=LOG_HALF, **kw)
         if human_light:
             self.human_light_predictor = Predictor(

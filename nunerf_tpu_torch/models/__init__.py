@@ -1,5 +1,6 @@
 from nunerf_tpu_torch.models.stage1 import ShapeRenderer
 from nunerf_tpu_torch.models.stage2 import Stage2Renderer
+from nunerf_tpu_torch.models.stage2_shell import Stage2ShellRenderer
 
 
 def build_renderer(cfg, **kwargs):
@@ -7,17 +8,14 @@ def build_renderer(cfg, **kwargs):
     ``nunerf_tpu/models/__init__.py`` (reference ``name2renderer``,
     renderer.py:2400-2403, with the thickness-mode selection of
     run_training.py:16-20).  ``kwargs`` (``device``, ``seed``, ...) go to
-    the renderer.  The stage-2 shell (``zero_thickness`` false) is not
-    ported yet."""
+    the renderer."""
     network = cfg.get("network", "shape")
     if network == "shape":
         return ShapeRenderer(cfg, **kwargs)
     if network == "stage2":
         if cfg.get("zero_thickness", False):
             return Stage2Renderer(cfg, **kwargs)
-        raise NotImplementedError(
-            "stage-2 shell mode (zero_thickness false) is not ported yet: "
-            "ROADMAP.md section 1, item 5 (Stage2ShellRenderer)")
+        return Stage2ShellRenderer(cfg, **kwargs)
     raise NotImplementedError(network)
 
 

@@ -44,13 +44,14 @@ from nunerf_tpu_torch.fields.aux import IoRNetwork, ThicknessNetwork
 from nunerf_tpu_torch.fields.sdf import (
     SDFNetwork,
     fused_sdf_all,
+    fused_sdf_apply,
     sdf_value_feature_grad,
 )
 from nunerf_tpu_torch.fields.shading import AppShadingNetwork
 from nunerf_tpu_torch.fields.variance import SingleVarianceNetwork
 from nunerf_tpu_torch.models.stage1 import PARAM_KEYS as STAGE1_PARAM_KEYS
 from nunerf_tpu_torch.models.stage1 import ShapeRenderer, masked_mean
-from nunerf_tpu_torch.ops.fused_mlp import use_fused_sdf
+from nunerf_tpu_torch.ops.fused_mlp import use_fused_sdf, use_fused_sdf_value
 from nunerf_tpu_torch.ops.geometry import normalize, safe_norm, safe_sqrt
 from nunerf_tpu_torch.ops.sampling import merge_z_vals, neus_upsample, sample_pdf
 from nunerf_tpu_torch.ops.srgb import linear_to_srgb, srgb_to_linear
@@ -148,16 +149,7 @@ class Stage2Renderer(nn.Module):
         self.var_inner = SingleVarianceNetwork(
             init_val=self.cfg["inv_s_init"], activation=self.cfg["std_act"],
             device=dev)
-        dtype = torch.bfloat16 if self.cfg.get("mixed_precision", True) else None
-        # cfg inner_diffuse_only selects the reference's DiffuseInner inner
-        # shader (field.py:1127-1283): with an opaque lambertian inner object
-        # the full shader's transmission and view-dependent refrac_light let
-        # the inner surface fake the background seen through the glass.
-        self.color_inner = AppShadingNetwork(
-            sphere_direction=bool(shader_cfg.get("sphere_direction", False)),
-            human_light=False, dtype=dtype,
-            diffuse_only=bool(self.cfg.get("inner_diffuse_only", False)),
-            device=dev)
+        self.color_inner = self._inner_shader(shader_cfg)
         self.ior_net = IoRNetwork(device=dev)
         self.ior_int_net = IoRNetwork(device=dev)
         self.thickness_net = ThicknessNetwork(device=dev)
@@ -168,6 +160,19 @@ class Stage2Renderer(nn.Module):
             # kappa 0.127)
             self.absorption = nn.Parameter(torch.full((3,), -2.0, device=dev))
         self.init_params(torch.Generator().manual_seed(seed))
+
+    def _inner_shader(self, shader_cfg):
+        """The inner object's shader.  cfg inner_diffuse_only selects the
+        reference's DiffuseInner inner shader (field.py:1127-1283): with an
+        opaque lambertian inner object the full shader's transmission and
+        view-dependent refrac_light let the inner surface fake the background
+        seen through the glass."""
+        return AppShadingNetwork(
+            sphere_direction=bool(shader_cfg.get("sphere_direction", False)),
+            human_light=False,
+            dtype=torch.bfloat16 if self.cfg.get("mixed_precision", True) else None,
+            diffuse_only=bool(self.cfg.get("inner_diffuse_only", False)),
+            device=self.device)
 
     def init_params(self, generator: torch.Generator):
         """Re-draw every trainable parameter from a CPU ``generator``."""
@@ -188,6 +193,21 @@ class Stage2Renderer(nn.Module):
     # ----- field helpers ------------------------------------------------
     def inner_sdf(self, pts):
         return self.sdf_inner(pts)[..., :1]
+
+    # ----- value-only SDFs for mesh extraction (``cli.py``) ------------
+    def stage1_sdf(self, pts):
+        """The frozen outer SDF's value [..., 1] (JAX ``stage2.py:167-169``):
+        K1 on the card, the plain chain on the CPU, as
+        ``ShapeRenderer.sdf``."""
+        return self.stage1.sdf(pts)
+
+    def inner_sdf_value(self, pts):
+        """The inner SDF's value [..., 1] for extraction: K1 on the card
+        (``fused_sdf_apply(..., value_only=True)``), the plain chain on the
+        CPU.  The training step's samplers keep ``inner_sdf``."""
+        if use_fused_sdf_value(self.device):
+            return fused_sdf_apply(self.sdf_inner, pts, value_only=True)
+        return self.inner_sdf(pts)
 
     def _inv_s_now(self):
         return self.var_inner(torch.zeros((1, 3), device=self.device))[0, 0]
@@ -629,6 +649,10 @@ class Stage2Renderer(nn.Module):
         ior_off = cfg.get("ior_offset", 1.0)
         ior_glass = (torch.sum((b0["ior_raw"][..., 0] + ior_off) * hitf)
                      / (torch.sum(hitf) + 1e-8)).detach()
+        if "thickness" in b0:  # shell mode: mean learned shell thickness
+            outputs["thickness_mean"] = (torch.sum(b0["thickness"][..., 0] * hitf)
+                                         / (torch.sum(hitf) + 1e-8)).detach()
+            outputs["thickness_frozen"] = b0["thickness_frozen"]
         if cfg.get("learn_absorption", False):
             kappa_log = F.softplus(self.absorption).detach()
             outputs["kappa_r"] = kappa_log[0]

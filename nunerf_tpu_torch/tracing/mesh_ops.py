@@ -1,23 +1,55 @@
-"""Host-side mesh operations in numpy: isosurface extraction, PLY IO, vertex
+"""Host-side mesh operations: isosurface extraction, PLY IO, vertex
 normals, curvature, vertex-cluster decimation.
 
-The port's own copy of the numpy paths of ``nunerf_tpu/tracing/mesh_ops.py``
-(reference: PyMCubes ``network/field.py:1310-1317``, trimesh/pymesh vertex
-attributes ``network/DiffRender.py:330-394``, the pymeshlab remesh of
-``extract_mesh_stage1.py:46-50``).  Everything here runs once, at
-construction time, on the host.
+The port's copy of ``nunerf_tpu/tracing/mesh_ops.py`` (reference: PyMCubes
+``network/field.py:1310-1317``, trimesh/pymesh vertex attributes
+``network/DiffRender.py:330-394``, the pymeshlab remesh of
+``extract_mesh_stage1.py:46-50``).  ``extract_geometry``,
+``vertex_normals_curvature`` and ``isotropic_remesh`` run the native library
+(``native/meshops.cpp``) by default, as the JAX package does; their numpy
+versions are the plain versions, chosen only by ``native=False``.  They do
+not compute the same remesh or curvature: the native remesh keys cells by
+``floor((v - min_corner) / cell)`` in first-seen order and accumulates the
+curvature in f32.  Everything here runs on the host.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
+
+from nunerf_tpu_torch.native.build import get_lib
 
 
 # ---------------------------------------------------------------------------
 # Isosurface extraction
 # ---------------------------------------------------------------------------
+
+def _take(ptr, shape, dtype, lib):
+    """Copy a buffer the library allocated into numpy and free it."""
+    out = (np.ctypeslib.as_array(ptr, shape=shape).copy() if shape[0]
+           else np.zeros(shape, dtype))
+    lib.meshops_free(ptr)
+    return out
+
+
+def marching_tetrahedra_native(grid: np.ndarray, iso: float):
+    """The native marching-tetrahedra extractor (``meshops.cpp``): the
+    surface of ``marching_tetrahedra_np``, with its vertices shared along
+    grid edges."""
+    from ctypes import POINTER, byref, c_float, c_int32, c_int64
+    lib = get_lib()
+    grid = np.ascontiguousarray(grid, np.float32)
+    vp, tp = POINTER(c_float)(), POINTER(c_int32)()
+    nv, nt = c_int64(), c_int64()
+    lib.extract_isosurface(
+        grid.ctypes.data_as(POINTER(c_float)), grid.shape[0], grid.shape[1],
+        grid.shape[2], c_float(iso), byref(vp), byref(nv), byref(tp), byref(nt))
+    return (_take(vp, (nv.value, 3), np.float32, lib),
+            _take(tp, (nt.value, 3), np.int32, lib))
+
 
 def marching_tetrahedra_np(grid: np.ndarray, iso: float):
     """Marching-tetrahedra isosurface extractor in numpy.
@@ -129,24 +161,37 @@ def extract_fields(query_fn: Callable[[np.ndarray], np.ndarray],
 
 def extract_geometry(query_fn, resolution: int = 512, bound: float = 1.0,
                      threshold: float = 0.0, outside_val: float = 1.0,
-                     slab: int = 128):
+                     slab: int = 128, native: bool = True, times=None):
     """Grid-evaluate + extract the isosurface, processing z-slabs to bound
     memory at high resolutions (the reference runs res 1024,
-    extract_mesh_stage1.py:56).  Returns (verts [V,3] world coords, tris)."""
+    extract_mesh_stage1.py:56).  Returns (verts [V,3] world coords, tris).
+    ``native=False`` marches with the numpy extractor.  A dict ``times``
+    gets the seconds of the grid points (``grid_s``), of ``query_fn``
+    (``sweep_s``), of the marching (``march_s``) and of the dedup
+    (``dedup_s``)."""
+    march = marching_tetrahedra_native if native else marching_tetrahedra_np
+    clock = {"grid_s": 0.0, "sweep_s": 0.0, "march_s": 0.0, "dedup_s": 0.0}
     xs = np.linspace(-bound, bound, resolution, dtype=np.float32)
     all_verts, all_tris = [], []
     voff = 0
     for i0 in range(0, resolution - 1, slab - 1):
+        t0 = time.perf_counter()
         i1 = min(i0 + slab, resolution)
         xi = xs[i0:i1]
         xx, yy, zz = np.meshgrid(xi, xs, xs, indexing="ij")
         pts = np.stack([xx, yy, zz], -1).reshape(-1, 3)
+        t1 = time.perf_counter()
         vals = np.asarray(query_fn(pts)).reshape(-1)
+        t2 = time.perf_counter()
         outside = np.linalg.norm(pts, axis=-1) >= 1.0
         vals = np.where(outside, outside_val, vals).astype(np.float32)
         grid = vals.reshape(len(xi), resolution, resolution)
-
-        verts, tris = marching_tetrahedra_np(grid, threshold)
+        t3 = time.perf_counter()
+        verts, tris = march(grid, threshold)
+        t4 = time.perf_counter()
+        clock["grid_s"] += (t1 - t0) + (t3 - t2)
+        clock["sweep_s"] += t2 - t1
+        clock["march_s"] += t4 - t3
         if len(verts) == 0:
             continue
         verts = verts.copy()
@@ -157,13 +202,18 @@ def extract_geometry(query_fn, resolution: int = 512, bound: float = 1.0,
         if i1 == resolution:
             break
 
+    if times is not None:
+        times.update(clock)
     if not all_verts:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    t0 = time.perf_counter()
     verts = np.concatenate(all_verts, 0)
     tris = np.concatenate(all_tris, 0)
     verts, tris = dedup_vertices(verts, tris)
     # index space -> world
     verts = verts / (resolution - 1.0) * 2.0 * bound - bound
+    if times is not None:
+        times["dedup_s"] = time.perf_counter() - t0
     return verts.astype(np.float32), tris
 
 
@@ -171,12 +221,26 @@ def extract_geometry(query_fn, resolution: int = 512, bound: float = 1.0,
 # Normals / curvature / remesh
 # ---------------------------------------------------------------------------
 
-def vertex_normals_curvature(verts: np.ndarray, tris: np.ndarray):
+def vertex_normals_curvature(verts: np.ndarray, tris: np.ndarray,
+                             native: bool = True):
     """Angle-weighted vertex normals + angle-defect Gaussian curvature
     (replaces DiffRender.py:342-360 trimesh/pymesh attributes).  Curvature is
-    clipped to +-10 like the reference (DiffRender.py:360)."""
+    clipped to +-10 like the reference (DiffRender.py:360).  The native
+    version accumulates in f32; ``native=False`` is the numpy version, which
+    accumulates in f64."""
     verts = np.ascontiguousarray(verts, np.float32)
     tris = np.ascontiguousarray(tris, np.int32)
+    if native:
+        from ctypes import POINTER, c_float, c_int32
+        lib = get_lib()
+        normals = np.zeros_like(verts)
+        curv = np.zeros(len(verts), np.float32)
+        lib.vertex_normals_curvature(
+            verts.ctypes.data_as(POINTER(c_float)), len(verts),
+            tris.ctypes.data_as(POINTER(c_int32)), len(tris),
+            normals.ctypes.data_as(POINTER(c_float)),
+            curv.ctypes.data_as(POINTER(c_float)))
+        return normals, np.clip(curv, -10.0, 10.0)
     e01 = verts[tris[:, 1]] - verts[tris[:, 0]]
     e02 = verts[tris[:, 2]] - verts[tris[:, 0]]
     e12 = verts[tris[:, 2]] - verts[tris[:, 1]]
@@ -229,11 +293,25 @@ def smooth_vertex_scalar(values: np.ndarray, tris: np.ndarray,
 
 
 def isotropic_remesh(verts: np.ndarray, tris: np.ndarray,
-                     target_edge: float = 0.01):
+                     target_edge: float = 0.01, native: bool = True):
     """Uniform decimation by grid vertex clustering - stands in for the
-    pymeshlab isotropic remesh of ``extract_mesh_stage1.py:46-50``."""
+    pymeshlab isotropic remesh of ``extract_mesh_stage1.py:46-50``.  The
+    native version clusters by ``floor((v - min_corner) / target_edge)``;
+    ``native=False`` snaps to ``round(v / target_edge)`` in numpy.  An empty
+    mesh takes the numpy version, as in the JAX package."""
     verts = np.ascontiguousarray(verts, np.float32)
     tris = np.ascontiguousarray(tris, np.int32)
+    if native and len(verts):
+        from ctypes import POINTER, byref, c_float, c_int32, c_int64
+        lib = get_lib()
+        vp, tp = POINTER(c_float)(), POINTER(c_int32)()
+        nv, nt = c_int64(), c_int64()
+        lib.cluster_remesh(
+            verts.ctypes.data_as(POINTER(c_float)), len(verts),
+            tris.ctypes.data_as(POINTER(c_int32)), len(tris),
+            c_float(target_edge), byref(vp), byref(nv), byref(tp), byref(nt))
+        return (_take(vp, (nv.value, 3), np.float32, lib),
+                _take(tp, (nt.value, 3), np.int32, lib))
     # snap to grid
     key = np.round(verts / target_edge).astype(np.int64)
     uniq, inverse = np.unique(key, axis=0, return_inverse=True)

@@ -159,9 +159,11 @@ def load_checkpoint(path: str):
 
 
 class Trainer:
-    """End-to-end trainer of stage 1 (``network: shape``) and the
-    zero-thickness stage 2 (``network: stage2``), on ``device`` ("cuda"
-    unless the caller asks for the CPU)."""
+    """End-to-end trainer of stage 1 (``network: shape``) and stage 2
+    (``network: stage2``: zero-thickness, or the curvature shell when
+    ``zero_thickness`` is false), on ``device`` ("cuda" unless the caller
+    asks for the CPU).  Stage 2's validation scores TIR-masked pixels, and
+    the shell also masks its validation loss by the object mask."""
 
     def __init__(self, cfg: Dict[str, Any], device="cuda"):
         self.device = resolve_device(device)

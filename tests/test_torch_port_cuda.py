@@ -554,3 +554,44 @@ def test_trainer_runs_on_the_card(cuda, tmp_path, monkeypatch):
         if p.requires_grad:
             assert torch.equal(tr.train.optimizer.state[p]["exp_avg_sq"],
                                again.train.optimizer.state[q]["exp_avg_sq"]), n
+
+
+@pytest.mark.cuda
+def test_extraction_through_k1_matches_the_plain_f32_extraction(cuda, tmp_path, monkeypatch):
+    """``extract_mesh_stage1`` at 64^3 sweeps the stage-1 SDF through K1
+    (bf16) on the card; the same weights through the plain f32 chain give a
+    mesh whose vertices lie within a chamfer of (h/4)^2, h the grid
+    spacing."""
+    from chip_smoke import BENCH_CFG
+    from nunerf_tpu_torch import cli
+    from nunerf_tpu_torch.convert import to_jax_tree
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
+    from nunerf_tpu_torch.ops.chamfer import chamfer_distance
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+    from nunerf_tpu_torch.train.trainer import save_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / "s1.ckpt")
+    save_checkpoint(ckpt, 7, to_jax_tree(ShapeRenderer(BENCH_CFG, device=cuda, seed=2),
+                                         PARAM_KEYS), {}, 0.0)
+    fm.reset_launches()
+    k1 = cli.extract_mesh_stage1(BENCH_CFG, ckpt, 64, tag="k1", device=cuda)
+    assert fm.launches["chain_fwd"] == 1  # one chunk of 2^21 points
+    plain_cfg = dict(BENCH_CFG, fused_sdf_value=False, sdf_mixed_precision=False)
+    plain = cli.extract_mesh_stage1(plain_cfg, ckpt, 64, tag="plain", device=cuda)
+    assert fm.launches["chain_fwd"] == 1
+    assert k1["mesh"] == f"data/meshes/{BENCH_CFG['name']}-7_k1.ply"
+    vk, tk = load_ply(k1["mesh"])
+    vp, tp = load_ply(plain["mesh"])
+    assert len(tk) > 1000 and abs(len(tk) - len(tp)) <= 0.01 * len(tp)
+    d1, d2 = chamfer_distance(vk, vp, device=cuda)
+    assert float(d1) + float(d2) <= (2.0 / 63 / 4) ** 2
+
+
+@pytest.mark.cuda
+def test_shell_step_on_the_card_matches_the_cpu(cuda):
+    """A small curvature-shell step with K3 on the card against the same
+    step on the CPU (``chip_smoke.phase_small_check_shell``)."""
+    from chip_smoke import phase_small_check_shell
+
+    phase_small_check_shell(cuda)

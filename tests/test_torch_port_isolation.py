@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 44, res.stdout
+    assert int(n) >= 49, res.stdout
     assert bad == "[]", bad
 
 
@@ -61,6 +61,18 @@ def test_probe_walks_the_data_and_trainer_modules():
     for mod in ("data.image_io", "data.colmap", "data.database", "data.ray_store",
                 "data.device_rays", "train.metrics", "train.trainer", "utils.debug",
                 "utils.profiling", "models", "bench"):
+        assert f"nunerf_tpu_torch.{mod}" in names, mod
+
+
+def test_probe_walks_the_pipeline_modules():
+    """The import probe reaches the native mesh library's build module, the shell,
+    the chamfer and the CLI, and importing the CLI runs nothing."""
+    import pkgutil
+
+    import nunerf_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
+                                                   "nunerf_tpu_torch.")}
+    for mod in ("native", "native.build", "models.stage2_shell", "ops.chamfer", "cli"):
         assert f"nunerf_tpu_torch.{mod}" in names, mod
 
 

@@ -257,10 +257,21 @@ def test_build_renderer_dispatch():
     from nunerf_tpu_torch.models import build_renderer, name2renderer
     from nunerf_tpu_torch.models.stage1 import ShapeRenderer
 
+    from nunerf_tpu_torch.models.stage2 import Stage2Renderer
+    from nunerf_tpu_torch.models.stage2_shell import Stage2ShellRenderer
+    from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
+    from nunerf_tpu_torch.tracing.scene import Scene
+
     r = build_renderer({"sdf_n_layers": 2}, device="cpu", seed=1)
     assert isinstance(r, ShapeRenderer) and name2renderer["shape"] is ShapeRenderer
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 5"):
-        build_renderer({"network": "stage2", "zero_thickness": False}, device="cpu")
+    # stage 2: zero_thickness picks the renderer (run_training.py:16-20)
+    scene = Scene(extract_geometry(lambda p: np.linalg.norm(p, axis=-1) - 0.5,
+                                   resolution=8), device="cpu")
+    s2 = {"network": "stage2", "stage1_cfg": {"sdf_n_layers": 2}, "sdf_n_layers": 2}
+    for zero, cls in ((True, Stage2Renderer), (False, Stage2ShellRenderer)):
+        r2 = build_renderer(dict(s2, zero_thickness=zero), scene=scene, stage1=r,
+                            device="cpu", seed=1)
+        assert type(r2) is cls
     with pytest.raises(NotImplementedError):
         build_renderer({"network": "what"}, device="cpu")
     assert name2renderer["stage2"].__name__ == "Stage2Renderer"
