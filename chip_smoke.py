@@ -62,7 +62,23 @@ Phases (any failure exits non-zero):
      masked validation, ``trainer_shell``), ``extract-mesh-stage2`` at 256^3
      (``extract_s2``: K1 on the inner and the frozen outer SDF),
      ``postprocess-stage2 --largest-component``, ``eval-geometry`` against
-     the analytic sphere and ``eval-images`` on the test split.
+     the analytic sphere and ``eval-images`` on the test split;
+  8. the tools (``phase_tools``), in the same working directory, each run's
+     launch counts read as a main path's: ``render-mask`` on the raw 512^3
+     mesh for every view of the trainer's scene at 800x800 (K3 on every
+     pixel, path ``render_mask``; K3 timed at the chosen chunk and a whole
+     view, its bin pass's share; two views held to the plain closest hit,
+     pixel for pixel), ``mask-erosion`` (read back by the database; the
+     device erosion against its numpy twin), ``postprocess-outer`` on the
+     remeshed mesh (``postprocess_outer``: 64 views through K3; its visible
+     faces against the plain closest hit's), ``primary_visibility`` from a
+     train pose (``primary_visibility``: 2 K3 launches, equal to the plain
+     closest hit's, its ``verts`` gradient against the CPU's), ``render-orbit``
+     at 256x256 (``render_orbit``: K1; a band of a view against the CPU's
+     f32 render), ``sphere_trace`` of the same SDF (``sphere_trace``: K1,
+     against the CPU at 64x64), ``synth-scene --colmap --shell`` with
+     ``silhouette-prior``, ``hull-mesh`` and ``render-mask`` on its capture
+     database (``render_mask_prior``), and ``relight``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1850,6 +1866,474 @@ def phase_shell_pipeline(dev, work, ckpt1, outer_mesh):
     return paths, out
 
 
+def k3_device_split(fn, reps=3):
+    """Device time of K3's kernels over ``reps`` calls of ``fn``, by kernel
+    (``torch.profiler``, as ``tools/prof_k3.py`` splits it): ({name: ms a
+    call}, the bin pass's share of K3's device time), or ({}, None) where
+    the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = {e.key.split("(")[0]: e.device_time_total / (1e3 * reps)
+            for e in prof.key_averages() if "k3_" in e.key}
+    total = sum(kern.values())
+    return kern, (sum(v for k, v in kern.items() if "k3_bin" in k) / total if total else None)
+
+
+def visible_face_ties(of, verts, tris, faces, scenes, n_views=64, radius=2.0):
+    """Where ``visible_faces`` of two scenes (K3, the plain culled descent)
+    disagree on ``faces``: the (face, view) pairs whose decision differs,
+    re-traced with ``visible_faces``' own rays (each ray's answer depends on
+    that ray alone), and on those rays each query against the brute sweep
+    of its own semantics: K3 against its plain version
+    (``closest_hit_reference``, tolerant) and the culled descent against the
+    brute sweep (``ray_mesh_intersect``), by triangle index; the largest
+    relative ``t`` gap between the two scenes' hits, the pairs that are ties
+    in ``t`` (within 1e-6), and for the others the nearer triangle, which one
+    query took and the other did not: its largest distance to an edge
+    (float64 barycentric margin), its smallest |det| and area, and how many
+    of them K3 took.  Returns the counts and the first few
+    pairs (face, K3's triangle and t, the descent's, the brute sweep's)."""
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tracing import intersect as ti
+
+    rec = {"pairs": 0, "hit_differs": 0, "t_rel_max": 0.0, "t_ties": 0,
+           "edge_margin_max": 0.0, "det_min": None, "area_min": None,
+           "nearer_taken_by_k3": 0, "k3_off_its_plain": 0, "descent_off_brute": 0,
+           "first": []}
+    if len(faces) == 0:
+        return rec
+    centers = verts[tris[faces]].mean(1).astype(np.float32)
+    k3, descent = scenes
+    ro, rd, fs = [], [], []
+    for v in (of._fibonacci_sphere(n_views) * radius).astype(np.float32):
+        d = centers - v[None, :]
+        d /= np.linalg.norm(d, axis=-1, keepdims=True) + 1e-12
+        o = np.broadcast_to(v[None, :], d.shape).astype(np.float32)
+        first = []
+        for sc in scenes:
+            with torch.no_grad():
+                r = sc.dintersect(torch.as_tensor(o, device=sc.device),
+                                  torch.as_tensor(d, device=sc.device))
+            first.append((r["hit"] & (r["tri_idx"].long() == torch.as_tensor(
+                faces, device=sc.device))).cpu().numpy())
+        differ = first[0] != first[1]
+        ro.append(o[differ])
+        rd.append(d[differ])
+        fs.append(faces[differ])
+    ro, rd, fs = np.concatenate(ro), np.concatenate(rd), np.concatenate(fs)
+    rec["pairs"] = len(fs)
+    if not len(fs):
+        return rec
+    dev = k3.device
+    o, d = torch.as_tensor(ro, device=dev), torch.as_tensor(rd, device=dev)
+    got_k3, got_de = k3.intersect(o, d), descent.intersect(o, d)
+    t_ref, i_ref, h_ref = ri.closest_hit_reference(o, d, k3.v0, k3.e1, k3.e2, tol=k3.kernel_tol)
+    brute = ti.ray_mesh_intersect(o, d, descent.v0, descent.e1, descent.e2)
+    rec["hit_differs"] = int((got_k3.hit != got_de.hit).sum())
+    both = got_k3.hit & got_de.hit
+    if bool(both.any()):
+        gap = (got_k3.t - got_de.t).abs() / got_de.t.abs()
+        rec["t_rel_max"] = float(gap[both].max())
+    # a pair whose two hits lie within 1e-6 of each other is a tie in t;
+    # otherwise the nearer triangle was taken by one query and rejected by
+    # the other: its barycentric margin in float64 says how close to an edge
+    tie = both & (gap <= 1e-6) if bool(both.any()) else both
+    rec["t_ties"] = int(tie.sum())
+    near = torch.where(got_k3.t < got_de.t, got_k3.tri_idx, got_de.tri_idx)[~tie].long()
+    if len(near):
+        o64, d64 = o[~tie].double(), d[~tie].double()
+        tv = torch.as_tensor(verts, device=dev).double()[torch.as_tensor(
+            tris, device=dev).long()[near]]
+        e1, e2 = tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]
+        p = torch.linalg.cross(d64, e2)
+        inv = 1.0 / (p * e1).sum(-1)
+        tvec = o64 - tv[:, 0]
+        u = (tvec * p).sum(-1) * inv
+        v = (torch.linalg.cross(tvec, e1) * d64).sum(-1) * inv
+        margin = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+        rec["edge_margin_max"] = float(margin.abs().max())
+        # a sliver seen edge-on has |det| near the 1e-9 below which both
+        # queries skip a triangle
+        rec["det_min"] = float((1.0 / inv).abs().min())
+        rec["area_min"] = float(0.5 * torch.linalg.cross(e1, e2).norm(dim=-1).min())
+        rec["nearer_taken_by_k3"] = int((got_k3.t < got_de.t)[~tie].sum())
+    rec["k3_off_its_plain"] = int(((got_k3.tri_idx != i_ref) | (got_k3.hit != h_ref)).sum())
+    rec["descent_off_brute"] = int(((got_de.tri_idx != brute.tri_idx)
+                                    | (got_de.hit != brute.hit)).sum())
+    rec["first"] = [(int(f), int(a), float(ta), int(b), float(tb), int(c), float(tc))
+                    for f, a, ta, b, tb, c, tc in zip(
+                        fs[:6], got_k3.tri_idx[:6], got_k3.t[:6], got_de.tri_idx[:6],
+                        got_de.t[:6], brute.tri_idx[:6], brute.t[:6])]
+    return rec
+
+
+TOOL_ORBIT_VIEWS = 2      # render-orbit at --size 256: views cut from the default 12
+TOOL_SYNTH_VIEWS = 8      # synth-scene --colmap: views cut from the pipeline's 56
+# render-orbit's colours (in [0, 1]) against the CPU's f32 render, largest
+# |diff|: through K1 and the bf16 heads a colour carries a few bf16
+# roundings (2^-9 of a value each), so 1e-2; the card's plain f32 render
+# differs by sums in another order, so 1e-5
+ORBIT_TOL = 1e-2
+ORBIT_F32_TOL = 1e-5
+
+
+def phase_tools(dev, work, ckpt1, raw_mesh, outer_mesh):
+    """The mask pipeline and the mesh tools through ``cli.main`` on the
+    trainer's scene (100 train + 1 test views at 800x800) and
+    ``phase_extract``'s meshes: ``render-mask`` on the raw 512^3 mesh (K3
+    on every pixel; K3 at the chosen chunk timed, its bin pass's share;
+    two views held to the plain closest hit), ``mask-erosion`` (read back
+    by the database; the device erosion against its numpy twin),
+    ``postprocess-outer`` on the remeshed mesh (64 views; ``visible_faces``
+    with K3 against the plain closest hit), ``primary_visibility`` of the
+    remeshed mesh from a train pose (against the plain closest hit; its
+    ``verts`` gradient against the CPU's), ``render-orbit`` (K1; a band of
+    one view against the CPU's f32 render) and ``sphere_trace`` of the same
+    SDF (K1, card against CPU), ``synth-scene --colmap --shell`` with
+    ``silhouette-prior``, ``hull-mesh`` and ``render-mask`` on its capture
+    database, and ``relight``.  Every count is printed before any check
+    raises.  Returns ({path: launches}, numbers)."""
+    import os
+
+    from nunerf_tpu_torch import cli
+    from nunerf_tpu_torch.convert import load_jax_checkpoint, load_jax_params
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.data.database import parse_database_name
+    from nunerf_tpu_torch.data.ray_store import construct_ray_batch
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.ops.sphere_tracing import sphere_trace
+    from nunerf_tpu_torch.tools import outer_filter as of
+    from nunerf_tpu_torch.tools import render_mask as rm
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    def run(argv):
+        fm.reset_launches()
+        ri.reset_launches()
+        t0 = time.perf_counter()
+        rec = cli.main(argv)
+        torch.cuda.synchronize()
+        return rec, dict(fm.launches, **ri.launches), time.perf_counter() - t0
+
+    paths, out, faults = {}, {}, []
+    ds = os.path.join(work, "ds")
+    cfg_path = write_cfg("tools.yaml", dict(BENCH_CFG, database_name="nerf/sphere",
+                                            dataset_dir=ds))
+
+    # 1. render-mask on the raw mesh, every view at 800x800
+    mask_dir, paths["render_mask"], secs = run(["render-mask", "--cfg", cfg_path,
+                                                "--mesh_path", raw_mesh])
+    db = parse_database_name("nerf/sphere", ds)
+    ids = db.get_img_ids()
+    hw = SCENE_HW * SCENE_HW
+    want = len(ids) * -(-hw // rm.CHUNK)
+    n_k3 = paths["render_mask"]["closest_hit"]
+    if n_k3 != want:
+        faults.append(f"render-mask launched K3 {n_k3} times, {want} expected")
+    t0 = time.perf_counter()
+    scene = Scene(raw_mesh, device=dev)
+    build_s = time.perf_counter() - t0
+    n_tris = len(scene.tris_np)
+    o, d, _, _ = rm.view_rays(db, ids[0], True)
+    o, d = (torch.as_tensor(a, device=dev) for a in (o, d))
+    c = rm.CHUNK
+    # the chunk through the middle of the view (the top rows miss the mesh)
+    mid = slice(hw // 2 - c // 2, hw // 2 + c // 2)
+
+    def one_view():
+        for i in range(0, hw, c):
+            scene.intersect(o[i:i + c], d[i:i + c])
+
+    ms_chunk = cuda_ms(lambda: scene.intersect(o[mid], d[mid]), 5)
+    ms_top = cuda_ms(lambda: scene.intersect(o[:c], d[:c]), 5)
+    ms_view = cuda_ms(one_view, 3)
+    ms_whole = cuda_ms(lambda: scene.intersect(o, d), 3)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    ri.closest_hit_cuda(o[mid], d[mid], scene.kernel_index, stats=stats, tol=scene.kernel_tol)
+    bound, by = k3_bound(ri, scene.kernel_index, c, stats)
+    split, bin_share = k3_device_split(one_view)
+    n_tiles = scene.kernel_index.box.shape[0]
+    rec = dict(s=secs, views=len(ids), rays=len(ids) * hw, triangles=n_tris, tiles=n_tiles,
+               launches=n_k3, chunk=c, ms_chunk=ms_chunk, ms_chunk_top=ms_top,
+               ms_view=ms_view, ms_view_one_call=ms_whole,
+               rays_per_s=len(ids) * hw / secs, k3_rays_per_s=c / ms_chunk * 1e3,
+               bound_ms_chunk=bound, bound_by=by, device_ms_by_kernel=split,
+               bin_share=bin_share, box_tests_chunk=c * n_tiles,
+               pairs_passed_chunk=int(stats[0]), tri_pairs_chunk=int(stats[1]),
+               scene_build_s=build_s)
+    log(f"render-mask on the raw mesh ({n_tris} triangles, {n_tiles} K3 tiles): "
+        f"{len(ids)} views of {SCENE_HW}x{SCENE_HW} in {secs:.2f} s "
+        f"({rec['rays_per_s']:.0f} rays/s end to end); {n_k3} K3 launches of up to {c} "
+        f"rays; K3 {ms_chunk:.3f} ms for the view's middle {c} rays "
+        f"({rec['k3_rays_per_s']:.0f} rays/s; bound {bound:.4f} ms, {by}), {ms_top:.3f} ms "
+        f"for its top {c} (all miss); a view {ms_view:.3f} ms in {-(-hw // c)} launches, "
+        f"{ms_whole:.3f} ms in one; the middle chunk's box tests {c * n_tiles}, "
+        f"{int(stats[0]) / c:.1f} passed a ray, {int(stats[1]) / c:.0f} triangles swept a "
+        f"ray; device ms a view by kernel {split} (bin share {bin_share}); the tool's "
+        f"scene builds in {build_s:.2f} s")
+
+    # two views against the plain closest hit (the culled descent at this size)
+    plain = Scene(raw_mesh, device=dev, use_kernel=False)
+    diffs = {}
+    t0 = time.perf_counter()
+    for i in (ids[0], ids[len(ids) // 2]):
+        vo, vd, h, w = rm.view_rays(db, i, True)
+        ref = rm.hit_mask(plain, vo, vd, h, w, chunk=8192)
+        got = image_io.imread(rm.mask_path(db.root, "mask", db.get_image_name(i)))
+        diffs[i] = int((got != ref).sum())
+        if not (ref.any() and not ref.all()):
+            faults.append(f"view {i}: the plain mask is {'empty' if not ref.any() else 'full'}")
+    rec["plain_hit_differs"] = diffs
+    rec["plain_s"] = time.perf_counter() - t0
+    log(f"render-mask against the plain closest hit on views {list(diffs)}: pixels whose "
+        f"hit differs {diffs} (the plain masks in {rec['plain_s']:.1f} s)")
+    if any(diffs.values()):
+        faults.append(f"render-mask's K3 masks differ from the plain closest hit: {diffs}")
+    out["render_mask"] = rec
+    del scene, plain, o, d
+    torch.cuda.empty_cache()
+
+    # 2. mask-erosion, read back by the database
+    _, _, secs = run(["mask-erosion", "--cfg", cfg_path])
+    db = parse_database_name("nerf/sphere", ds)
+    bad = []
+    for i in ids[:: max(1, len(ids) // 5)]:
+        name = db.get_image_name(i)
+        e = image_io.imread(rm.mask_path(db.root, "mask_erosion", name))
+        if not np.array_equal(db.get_mask(i), e.astype(np.float32) / 255.0):
+            bad.append(i)
+    m = image_io.imread(rm.mask_path(db.root, "mask", db.get_image_name(ids[0])))
+    card, twin = rm.erode(m, 15, dev), rm.erode_reference(m, 15)
+    twin_differs = int((card != twin).sum())
+    out["mask_erosion"] = dict(s=secs, db_mismatch=bad, erode_twin_differs=twin_differs)
+    log(f"mask-erosion: {len(ids)} masks in {secs:.2f} s; the database reads back the "
+        f"eroded PNGs (mismatches {bad}); the device erosion against its numpy twin: "
+        f"{twin_differs} pixels differ")
+    if bad or twin_differs:
+        faults.append(f"mask-erosion: database mismatches {bad}, twin differs {twin_differs}")
+
+    # 3. postprocess-outer on the remeshed mesh, the defaults (64 views, radius 2)
+    (post, stats), paths["postprocess_outer"], secs = run(
+        ["postprocess-outer", "--input", outer_mesh, "--output", "outer_filtered.ply"])
+    verts, tris = load_ply(outer_mesh)
+    t0 = time.perf_counter()
+    keep_k3 = of.visible_faces(verts, tris, device=dev)
+    k3_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keep_plain = of.visible_faces(verts, tris, scene=Scene((verts, tris), device=dev,
+                                                           use_kernel=False))
+    plain_s = time.perf_counter() - t0
+    face_diff = int((keep_k3 != keep_plain).sum())
+    ties = visible_face_ties(of, verts, tris, np.flatnonzero(keep_k3 != keep_plain),
+                             [Scene((verts, tris), device=dev),
+                              Scene((verts, tris), device=dev, use_kernel=False)])
+    out["postprocess_outer"] = dict(s=secs, stats=stats, launches=paths["postprocess_outer"],
+                                    visible_k3=int(keep_k3.sum()),
+                                    visible_plain=int(keep_plain.sum()),
+                                    visible_faces_differ=face_diff, differing=ties,
+                                    visible_k3_s=k3_s, visible_plain_s=plain_s)
+    log(f"postprocess-outer on the remeshed mesh ({len(tris)} faces, 64 views): {secs:.2f} s, "
+        f"K3 launches {paths['postprocess_outer']['closest_hit']}, stats {stats}; "
+        f"visible_faces with K3 {int(keep_k3.sum())} ({k3_s:.2f} s) and with the plain "
+        f"closest hit {int(keep_plain.sum())} ({plain_s:.2f} s): {face_diff} faces differ; "
+        f"on them {ties}")
+    if ties["k3_off_its_plain"]:
+        faults.append(f"visible_faces: K3 is off its plain version on {ties}")
+    if paths["postprocess_outer"]["closest_hit"] != 64 * -(-stats["after_floaters"] // 65536):
+        faults.append(f"postprocess-outer launched {paths['postprocess_outer']}")
+
+    # 4. primary_visibility of the remeshed mesh from a train pose at 800x800
+    c2w = db.poses[int(ids[0])]
+    pose, K, origin = cli.opencv_w2c(c2w), db.get_K(ids[0]), np.float32(c2w[:3, 3])
+    k3_scene = Scene((verts, tris), device=dev)
+    w = torch.as_tensor(np.random.RandomState(4).randn(len(k3_scene.topology.edges))
+                        .astype(np.float32))
+
+    def visibility(sc):
+        v = sc.verts.clone().requires_grad_(True)
+        res = sc.primary_visibility(pose, K, origin, (SCENE_HW, SCENE_HW), verts=v)
+        torch.sum(res["value"] * w.to(v.device)).backward()
+        return {k: x.detach().cpu() for k, x in res.items()}, v.grad.cpu()
+
+    fm.reset_launches()
+    ri.reset_launches()
+    t0 = time.perf_counter()
+    res_k3, g_k3 = visibility(k3_scene)
+    torch.cuda.synchronize()
+    paths["primary_visibility"] = dict(fm.launches, **ri.launches)
+    pv_s = time.perf_counter() - t0
+    res_plain, g_plain = visibility(Scene((verts, tris), device=dev, use_kernel=False))
+    t0 = time.perf_counter()
+    res_cpu, g_cpu = visibility(Scene((verts, tris), device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    same = {k: bool(torch.equal(res_k3[k], res_plain[k])) for k in ("index", "valid", "value")}
+    g_err = float((g_k3 - g_cpu).abs().max())
+    g_scale = float(g_cpu.abs().max())
+    out["primary_visibility"] = dict(
+        s=pv_s, edges=len(w), valid=int(res_k3["valid"].sum()), same_as_plain=same,
+        grad_max_abs_err=g_err, grad_scale=g_scale, grad_equal_plain=bool(torch.equal(g_k3,
+                                                                                      g_plain)),
+        cpu_s=cpu_s, launches=paths["primary_visibility"])
+    log(f"primary_visibility of the remeshed mesh ({len(w)} edges) from train view {ids[0]} "
+        f"at {SCENE_HW}x{SCENE_HW}: {pv_s:.2f} s with its gradient, "
+        f"{paths['primary_visibility']['closest_hit']} K3 launches, "
+        f"{int(res_k3['valid'].sum())} valid edge samples; index/valid/value equal to the "
+        f"plain closest hit's {same}; d sum(value w)/d verts on the card against the CPU "
+        f"({cpu_s:.1f} s): max |diff| {g_err:.3e} of a largest {g_scale:.3e} (tol 1e-5 of it)")
+    if not all(same.values()) or paths["primary_visibility"]["closest_hit"] != 2:
+        faults.append(f"primary_visibility: {same}, launches {paths['primary_visibility']}")
+    if not (g_err <= 1e-5 * g_scale and g_scale > 0):
+        faults.append(f"primary_visibility gradient: {g_err:.3e} of {g_scale:.3e}")
+    del k3_scene
+    torch.cuda.empty_cache()
+
+    # 5. render-orbit at --size 256 (K1), a band of view 0 against the CPU's f32 render
+    size = 256
+    imgs, paths["render_orbit"], secs = run(
+        ["render-orbit", "--cfg", cfg_path, "--ckpt", ckpt1, "--output", "orbit",
+         "--n-views", str(TOOL_ORBIT_VIEWS), "--size", str(size)])
+    step, params, _ = load_jax_checkpoint(ckpt1)
+    f32_cfg = dict(BENCH_CFG, mixed_precision=False, sdf_mixed_precision=False,
+                   fused_sdf_value=False)
+    focal = 0.5 * size / np.tan(0.5 * 0.65)
+    K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]], np.float32)
+    batch, _, _ = construct_ray_batch({"imgs": np.zeros((1, size, size, 3), np.float32),
+                                       "Ks": K[None],
+                                       "poses": cli.orbit_pose(0, TOOL_ORBIT_VIEWS, 2.2,
+                                                               0.4)[None]})
+    band = slice(size * size // 2, size * size // 2 + 1024)  # rows 128-131: one chunk
+    want_band = imgs[0].reshape(-1, 3)[band]
+
+    def render_band(device):
+        r = ShapeRenderer(f32_cfg, device=device)
+        load_jax_params(r, params, PARAM_KEYS)
+        cur = {k: torch.as_tensor(np.ascontiguousarray(batch[k][band]), device=device)
+               for k in ("rays_o", "rays_d", "near", "far", "human_poses")}
+        with torch.no_grad():
+            rgb = r.render(cur["rays_o"], cur["rays_d"], cur["near"], cur["far"],
+                           cur["human_poses"], step, cos_anneal_ratio=1.0,
+                           perturb_overwrite=0.0, is_train=False, with_inter=False)["ray_rgb"]
+        return rgb.float().cpu().numpy(), r
+
+    t0 = time.perf_counter()
+    cpu_band, cpu_r = render_band("cpu")
+    cpu_band_s = time.perf_counter() - t0
+    card_band, _ = render_band(dev)
+    k1_err = float(np.abs(want_band - cpu_band).max())
+    f32_err = float(np.abs(card_band - cpu_band).max())
+    out["render_orbit"] = dict(
+        s=secs, s_per_view=secs / TOOL_ORBIT_VIEWS, views=TOOL_ORBIT_VIEWS, size=size,
+        launches=paths["render_orbit"],
+        k1_per_view=paths["render_orbit"]["chain_fwd"] / TOOL_ORBIT_VIEWS,
+        k1_vs_cpu_f32_max_abs=k1_err, k1_vs_cpu_f32_mean_abs=float(
+            np.abs(want_band - cpu_band).mean()), card_f32_vs_cpu_f32_max_abs=f32_err,
+        cpu_band_s=cpu_band_s, finite=bool(np.isfinite(imgs).all()))
+    log(f"render-orbit: {TOOL_ORBIT_VIEWS} views of {size}x{size} in {secs:.2f} s "
+        f"({secs / TOOL_ORBIT_VIEWS:.2f} s a view), {paths['render_orbit']['chain_fwd']} K1 "
+        f"launches; rows 128-131 of view 0 against the CPU's plain f32 render "
+        f"({cpu_band_s:.1f} s): K1 (bf16) max |diff| {k1_err:.2e} (tol {ORBIT_TOL}: bf16 "
+        f"heads and positions), mean {out['render_orbit']['k1_vs_cpu_f32_mean_abs']:.5f}; "
+        f"the card's plain f32 render max |diff| {f32_err:.2e} (tol {ORBIT_F32_TOL})")
+    if not (paths["render_orbit"]["chain_fwd"] > 0 and np.isfinite(imgs).all()
+            and k1_err <= ORBIT_TOL and f32_err <= ORBIT_F32_TOL):
+        faults.append(f"render-orbit: {out['render_orbit']}")
+
+    # sphere_trace of the same SDF: K1 at 256x256, and card against CPU at 64x64
+    card_r = ShapeRenderer(BENCH_CFG, device=dev)
+    load_jax_params(card_r, params, PARAM_KEYS)
+    o_all = torch.as_tensor(batch["rays_o"], device=dev)
+    d_all = torch.as_tensor(batch["rays_d"], device=dev)
+    fm.reset_launches()
+    t0 = time.perf_counter()
+    st = sphere_trace(card_r.sdf, o_all, d_all)
+    torch.cuda.synchronize()
+    paths["sphere_trace"] = dict(fm.launches)
+    st_s = time.perf_counter() - t0
+    small = construct_ray_batch({"imgs": np.zeros((1, 64, 64, 3), np.float32),
+                                 "Ks": (np.diag([0.25, 0.25, 1.0]) @ K)[None].astype(np.float32),
+                                 "poses": cli.orbit_pose(0, TOOL_ORBIT_VIEWS, 2.2, 0.4)[None]})[0]
+    so, sd = small["rays_o"], small["rays_d"]
+    runs = {}
+    for what, fn, device in (("k1", card_r.sdf, dev), ("card_f32", None, dev),
+                             ("cpu_f32", cpu_r.sdf, "cpu")):
+        if fn is None:
+            r = ShapeRenderer(f32_cfg, device=dev)
+            load_jax_params(r, params, PARAM_KEYS)
+            fn = r.sdf
+        res = sphere_trace(fn, torch.as_tensor(so, device=device),
+                           torch.as_tensor(sd, device=device))
+        runs[what] = (res.hit.cpu(), res.depth.cpu(), res.iterations)
+    hit_c, depth_c, it_c = runs["cpu_f32"]
+
+    def versus(what):
+        hit, depth, it = runs[what]
+        both = hit & hit_c
+        return dict(iterations=it, hits=int(hit.sum()), hit_differs=int((hit != hit_c).sum()),
+                    depth_max_abs=float((depth - depth_c)[both].abs().max()) if both.any()
+                    else None)
+
+    out["sphere_trace"] = dict(s=st_s, iterations=st.iterations, hits=int(st.hit.sum()),
+                               rays=len(o_all), launches=paths["sphere_trace"],
+                               cpu_64=dict(iterations=it_c, hits=int(hit_c.sum())),
+                               k1_64=versus("k1"), card_f32_64=versus("card_f32"))
+    log(f"sphere_trace of the stage-1 SDF (K1) over view 0 at {size}x{size}: {st.iterations} "
+        f"iterations, {int(st.hit.sum())} hits of {len(o_all)} in {st_s:.2f} s, "
+        f"{paths['sphere_trace']['chain_fwd']} K1 launches; at 64x64 the CPU (f32) "
+        f"{it_c} iterations and {int(hit_c.sum())} hits, against it K1 "
+        f"{out['sphere_trace']['k1_64']} and the card's plain f32 "
+        f"{out['sphere_trace']['card_f32_64']}")
+    if paths["sphere_trace"]["chain_fwd"] != st.iterations + 1 or int(hit_c.sum()) == 0:
+        faults.append(f"sphere_trace: {out['sphere_trace']}")
+    f32 = out["sphere_trace"]["card_f32_64"]
+    if f32["hit_differs"] > 0.01 * len(so) or not (f32["depth_max_abs"] or 0) <= 1e-4:
+        faults.append(f"sphere_trace: the card's f32 march is off the CPU's: {f32}")
+    del card_r, cpu_r
+    torch.cuda.empty_cache()
+
+    # 6. synth-scene --colmap --shell, the silhouette prior, its hull, its masks; relight
+    root, _, secs = run(["synth-scene", "--output", os.path.join(ds, "nested_real"),
+                         "--colmap", "--shell", "--n-train", str(TOOL_SYNTH_VIEWS)])
+    out["synth_scene"] = dict(s=secs, views=TOOL_SYNTH_VIEWS)
+    real_cfg = write_cfg("real.yaml", dict(BENCH_CFG, name="nested_real",
+                                           database_name="custom/nested_real/128",
+                                           dataset_dir=ds, is_nerf=False))
+    (prior, nv, nf), _, prior_s = run(["silhouette-prior", "--cfg", real_cfg])
+    (hull, hv, hf), _, hull_s = run(["hull-mesh", "--input", prior])
+    mdir, paths["render_mask_prior"], rm_s = run(["render-mask", "--cfg", real_cfg,
+                                                  "--mesh_path", prior])
+    cap = parse_database_name("custom/nested_real/128/rawmask", ds)
+    cover = [float(cap.get_mask(i).mean()) for i in cap.get_img_ids()]
+    out["capture"] = dict(synth_s=secs, prior_s=prior_s, prior_verts=nv, prior_faces=nf,
+                          hull_s=hull_s, hull_faces=hf, render_mask_s=rm_s,
+                          launches=paths["render_mask_prior"], coverage=cover)
+    log(f"synth-scene --colmap --shell: {TOOL_SYNTH_VIEWS} views of 200x264 in {secs:.2f} s; "
+        f"silhouette-prior {nv} verts / {nf} faces in {prior_s:.2f} s; hull-mesh {hv} / {hf} "
+        f"in {hull_s:.2f} s; render-mask on the prior through the capture database in "
+        f"{rm_s:.2f} s, {paths['render_mask_prior']['closest_hit']} K3 launches, coverage "
+        f"{min(cover):.3f}-{max(cover):.3f}")
+    if not (paths["render_mask_prior"]["closest_hit"] > 0 and all(0 < x < 1 for x in cover)
+            and (hv, hf) == (nv, nf)):
+        faults.append(f"the capture tools: {out['capture']}")
+    mats, _, secs = run(["relight", "--cfg", cfg_path, "--ckpt", ckpt1,
+                                        "--mesh", outer_mesh, "--output", "materials"])
+    shapes = {k: list(v.shape) for k, v in mats.items()}
+    out["relight"] = dict(s=secs, shapes=shapes)
+    log(f"relight of the remeshed mesh's {len(verts)} vertices: {secs:.2f} s, {shapes}")
+    if shapes != {"metallic": [len(verts), 1], "roughness": [len(verts), 1],
+                  "albedo": [len(verts), 3]} or not all(
+            np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all() for v in mats.values()):
+        faults.append(f"relight: {shapes}")
+    if faults:
+        raise AssertionError("the tools phase: " + "; ".join(faults))
+    return paths, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1915,6 +2399,9 @@ def main():
         paths["shell"], res_shell = phase_main_path_shell(outer_mesh, dev)
         pipe_paths, res_pipe = phase_shell_pipeline(dev, work, ckpt1, outer_mesh)
         paths.update(pipe_paths)
+        tool_paths, res_tools = phase_tools(dev, work, ckpt1, res_x["extract_s1"]["mesh"],
+                                            outer_mesh)
+        paths.update(tool_paths)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -1926,7 +2413,11 @@ def main():
                           ("B", "chain_jac_fwd"), ("B", "chain_jac_bwd"),
                           ("C", "chain_fwd"), ("C", "chain_bwd"),
                           ("stage1", "chain_fwd"), ("stage1", "chain_bwd"),
-                          ("stage2", "closest_hit"), ("B", "closest_hit")):
+                          ("stage2", "closest_hit"), ("B", "closest_hit"),
+                          ("render_mask", "closest_hit"), ("postprocess_outer", "closest_hit"),
+                          ("primary_visibility", "closest_hit"),
+                          ("render_mask_prior", "closest_hit"),
+                          ("render_orbit", "chain_fwd"), ("sphere_trace", "chain_fwd")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -1940,6 +2431,12 @@ def main():
     # beside the contract's keys, only numbers this run measured or counted:
     # the bounds of other shapes and other ray counts stay in the log
     # K1 at the extraction sweep's chunk, beside its main shape
+    # K3 at tool scale: render-mask's chunk on the raw 512^3 mesh
+    tool = res_tools["render_mask"]
+    rec["K3"]["tool_scale"] = {k: tool[k] for k in (
+        "triangles", "tiles", "chunk", "ms_chunk", "ms_chunk_top", "ms_view",
+        "ms_view_one_call", "bound_ms_chunk", "bound_by", "bin_share", "device_ms_by_kernel",
+        "k3_rays_per_s", "plain_hit_differs")}
     chunk = res_x["k1_chunk"]
     rec["K1"].update({f"{k}_n{chunk['n']}": chunk[k]
                       for k in ("ms", "plain_ms", "bound_ms", "rel_err")})
@@ -1951,7 +2448,7 @@ def main():
                 "box_pairs_passed_r131072", "tri_pairs_tested_r131072", "mode", "ms_exact",
                 "ms_exact_r131072", "brute_sweep_agreement", "culled_descent_agreement",
                 "brute_sweep_agreement_r131072", "adversarial_agreement_tile8",
-                "adversarial_agreement_tile32")
+                "adversarial_agreement_tile32", "tool_scale")
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
         counter, desc = names[k]
@@ -1992,6 +2489,7 @@ def main():
                "extract": res_x,
                "shell_step": res_shell,
                "shell_pipeline": res_pipe,
+               "tools": res_tools,
                "seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(json.dumps({"kernels": kernels}))

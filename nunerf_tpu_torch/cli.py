@@ -1,26 +1,34 @@
 """Command-line entry points of the port; counterpart of
 ``nunerf_tpu/cli.py`` (reference ``run_training.py``,
-``extract_mesh_stage1.py``, ``extract_mesh_stage2.py``,
-``postprocess_stage2_mesh.py``), with the same arguments, output paths and
-printed lines:
+``extract_mesh_stage1.py``, ``extract_mesh_stage2.py``, ``render_mask.py``,
+``mask_erosion.py``, ``postprocess_stage2_mesh.py``, ``relight.py``), with
+the same fourteen subcommands, arguments, output paths and printed lines:
 
     python -m nunerf_tpu_torch.cli train --cfg configs/shape/nerf/nested.yaml
     python -m nunerf_tpu_torch.cli extract-mesh-stage1 --cfg ... --resolution 512
     python -m nunerf_tpu_torch.cli extract-mesh-stage2 --cfg ... --resolution 256
+    python -m nunerf_tpu_torch.cli render-mask --cfg ... --mesh_path mesh.ply
+    python -m nunerf_tpu_torch.cli mask-erosion --cfg ... [--erosion 15]
     python -m nunerf_tpu_torch.cli postprocess-stage2 --input in.ply --outer outer.ply
+    python -m nunerf_tpu_torch.cli postprocess-outer --input mesh.ply [--smooth 20]
+    python -m nunerf_tpu_torch.cli hull-mesh --input mesh.ply
+    python -m nunerf_tpu_torch.cli silhouette-prior --cfg ...
     python -m nunerf_tpu_torch.cli eval-geometry --mesh pred.ply --gt gt.npy
     python -m nunerf_tpu_torch.cli eval-images --cfg ... --split test
+    python -m nunerf_tpu_torch.cli render-orbit --cfg ... [--n-views 12 --size 256]
+    python -m nunerf_tpu_torch.cli synth-scene --output ./datasets/nested [--colmap --shell]
+    python -m nunerf_tpu_torch.cli relight --cfg ... --ckpt model.ckpt --mesh mesh.ply
 
 Every subcommand runs on the card unless it is given ``--device cpu``, and
 wraps a library function of the same name.  In the extractions
 (``extract_mesh_stage1``, ``extract_mesh_stage2``) the SDF is swept in
 chunks of 2^21 points on the device (K1 on the card), the grid is marched by
-the native library and the stage-1 mesh is remeshed.  They read the port's
-checkpoints and the JAX package's (``convert.load_jax_checkpoint``).
-
-Not ported yet (ROADMAP.md section 1, items 6-7): ``render-mask``,
-``mask-erosion``, ``postprocess-outer``, ``hull-mesh``, ``silhouette-prior``,
-``render-orbit``, ``synth-scene``, ``relight``.
+the native library and the stage-1 mesh is remeshed; ``render_orbit``
+renders through ``ShapeRenderer.nvs`` (K1's value-only sweeps on the card).
+``render_mask`` and ``postprocess_outer`` trace through ``Scene`` (K3 on the
+card).  They read the port's checkpoints and the JAX package's
+(``convert.load_jax_checkpoint``).  The port's masks are PNG, not JPEG
+(``tools/render_mask.py``).
 """
 
 from __future__ import annotations
@@ -284,6 +292,174 @@ def eval_images(cfg, ckpt=None, split="validation", device="cuda"):
     return rec
 
 
+def render_mask(cfg, mesh_path, device="cuda"):
+    """render_mask.py: a hit mask of the outer mesh for every view of the
+    config's database (PNG, under ``<scene>/mask/``).  Returns the
+    directory."""
+    from nunerf_tpu_torch.tools.render_mask import render_masks
+
+    return render_masks(cfg, mesh_path, device=device)
+
+
+def mask_erosion(cfg, erosion=15, device="cuda"):
+    """mask_erosion.py:29-35: the masks eroded and united with their
+    complement (PNG, under ``<scene>/mask_erosion/``).  Returns the
+    directory."""
+    from nunerf_tpu_torch.tools.render_mask import erode_masks
+
+    return erode_masks(cfg, erosion=erosion, device=device)
+
+
+def postprocess_outer(input, output=None, views=64, radius=2.0, smooth=0, device="cuda"):
+    """Keep the outside-visible surface of a stage-1 mesh
+    (``tools/outer_filter.py``), then ``smooth`` Taubin iterations.  Returns
+    (output path, stats)."""
+    from nunerf_tpu_torch.tools.outer_filter import filter_outer, taubin_smooth
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply, save_ply
+
+    verts, tris = load_ply(input)
+    v2, t2, stats = filter_outer(verts, tris, n_views=views, radius=radius, device=device)
+    if smooth > 0:
+        v2 = taubin_smooth(v2, t2, iters=smooth)
+        stats["smooth_iters"] = smooth
+    out = output or input.replace(".ply", "_outer.ply")
+    save_ply(out, v2, t2)
+    print(f"outer filter: {stats} -> {out}")
+    return out, stats
+
+
+def hull_mesh(input, output=None):
+    """The convex hull of a mesh's vertices (the bootstrap mask prior).
+    Returns (output path, vertices, faces)."""
+    from nunerf_tpu_torch.tools.outer_filter import convex_hull_mesh
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply, save_ply
+
+    verts, _ = load_ply(input)
+    hv, ht = convex_hull_mesh(verts)
+    out = output or input.replace(".ply", "_hull.ply")
+    save_ply(out, hv, ht)
+    print(f"hull: {len(verts)} verts -> {len(hv)} verts / {len(ht)} faces -> {out}")
+    return out, len(hv), len(ht)
+
+
+def silhouette_prior(cfg, output=None, knn=5, thresh=2.0):
+    """The convex hull of the density-filtered COLMAP object cloud, the
+    bootstrap silhouette prior of real captures.  Returns (output path,
+    vertices, faces)."""
+    from nunerf_tpu_torch.data.database import parse_database_name
+    from nunerf_tpu_torch.tools.outer_filter import density_filtered_hull
+    from nunerf_tpu_torch.tracing.mesh_ops import save_ply
+
+    db = parse_database_name(cfg["database_name"], cfg["dataset_dir"])
+    if not hasattr(db, "ref_points"):
+        raise SystemExit("silhouette-prior needs a COLMAP-style database "
+                         "with an object point cloud")
+    hv, ht = density_filtered_hull(db.ref_points, k=knn, thresh=thresh)
+    out = output or os.path.join("data/meshes", f"{cfg['name']}_silhouette.ply")
+    # guarded: a bare file name has no directory to make (ROADMAP.md 3.4)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    save_ply(out, hv, ht)
+    print(f"silhouette prior: {len(db.ref_points)} cloud pts -> hull "
+          f"{len(hv)} verts / {len(ht)} faces -> {out}")
+    return out, len(hv), len(ht)
+
+
+def relight(cfg, ckpt, mesh, output="data/materials", device="cuda"):
+    """relight.py: per-vertex metallic, roughness and albedo of ``mesh`` from
+    the stage-1 SDF's features and the shader's material heads, in chunks
+    of 8192 vertices, as ``.npy`` under ``output``.  Returns {name: array}."""
+    import torch
+
+    from nunerf_tpu_torch.convert import load_jax_params
+    from nunerf_tpu_torch.device import resolve_device
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+
+    dev = resolve_device(device)
+    renderer = ShapeRenderer(cfg, device=dev)
+    _, params = _checkpoint(cfg, ckpt)
+    load_jax_params(renderer, params, PARAM_KEYS)
+    verts, _ = load_ply(mesh)
+    out = {"metallic": [], "roughness": [], "albedo": []}
+    with torch.no_grad():
+        for i in range(0, len(verts), 8192):
+            chunk = torch.as_tensor(np.asarray(verts[i:i + 8192], np.float32), device=dev)
+            feats = renderer.sdf_net(chunk)[:, 1:]
+            for k, v in zip(out, renderer.color_net.predict_materials(chunk, feats)):
+                out[k].append(v.float().cpu().numpy())
+    os.makedirs(output, exist_ok=True)
+    arrays = {k: np.concatenate(v, 0) for k, v in out.items()}
+    for k, v in arrays.items():
+        np.save(os.path.join(output, f"{k}.npy"), v)
+    print(f"materials written to {output}")
+    return arrays
+
+
+def opencv_w2c(c2w):
+    """The OpenCV world->cam pose [3,4] (``nvs``, ``primary_visibility``) of
+    an OpenGL cam->world pose: flip y and z, then invert."""
+    c2w = np.asarray(c2w, np.float64)
+    R = (c2w[:3, :3] @ np.diag([1.0, -1.0, -1.0])).T
+    return np.concatenate([R, (-R @ c2w[:3, 3])[:, None]], -1).astype(np.float32)
+
+
+def orbit_pose(k, n_views, radius, elevation):
+    """The OpenCV world->cam pose [3,4] of view ``k`` of ``n_views`` on a
+    circular orbit of ``radius`` at ``elevation``, looking at the origin."""
+    from nunerf_tpu_torch.tools.synth_nested import _look_at
+
+    phi = 2 * np.pi * k / n_views
+    pos = radius * np.array([np.cos(phi) * np.cos(elevation),
+                             np.sin(phi) * np.cos(elevation), np.sin(elevation)])
+    return opencv_w2c(_look_at(pos))
+
+
+def render_orbit(cfg, ckpt=None, output="data/orbit", n_views=12, size=256, radius=2.2,
+                 elevation=0.4, fov=0.65, device="cuda"):
+    """Headless novel views on a circular orbit (the reference viewer's
+    capability, raytracing/renderer.py:195-443, as a batch tool), written as
+    ``orbit_<k>.png``.  Returns the images, [n_views, size, size, 3] in
+    [0, 1]."""
+    from nunerf_tpu_torch.convert import load_jax_params
+    from nunerf_tpu_torch.data.image_io import imwrite
+    from nunerf_tpu_torch.device import resolve_device
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
+
+    dev = resolve_device(device)
+    renderer = ShapeRenderer(cfg, device=dev)
+    step, params = _checkpoint(
+        cfg, ckpt or os.path.join("data/model", cfg["name"], "model_best.ckpt"))
+    load_jax_params(renderer, params, PARAM_KEYS)
+    h = w = size
+    focal = 0.5 * w / np.tan(0.5 * fov)
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]], np.float32)
+    os.makedirs(output, exist_ok=True)
+    imgs = []
+    for k in range(n_views):
+        img = renderer.nvs(orbit_pose(k, n_views, radius, elevation), K, h, w, step=step)
+        imwrite(os.path.join(output, f"orbit_{k:03d}.png"),
+                (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        imgs.append(img)
+    print(f"wrote {n_views} views to {output}")
+    return np.stack(imgs)
+
+
+def synth_scene(output="./datasets/nested", n_train=48, n_test=8, size=128, shell=False,
+                colmap=False):
+    """The synthetic nested-glass scene (``tools/synth_nested.py``): the
+    Blender layout, or with ``colmap`` the capture layout.  Returns its
+    root."""
+    from nunerf_tpu_torch.tools.synth_nested import make_colmap_scene, make_nested_scene
+
+    if colmap:
+        root = make_colmap_scene(output, n_views=n_train, shell=shell)
+    else:
+        root = make_nested_scene(output, n_train=n_train, n_test=n_test, h=size, w=size,
+                                 shell=shell)
+    print(f"wrote nested-glass scene to {root}")
+    return root
+
+
 # ---------------------------------------------------------------------------
 # subcommands
 # ---------------------------------------------------------------------------
@@ -324,6 +500,41 @@ def cmd_eval_geometry(args):
 
 def cmd_eval_images(args):
     return eval_images(_load(args), args.ckpt, args.split, args.device)
+
+
+def cmd_render_mask(args):
+    return render_mask(_load(args), args.mesh_path, args.device)
+
+
+def cmd_mask_erosion(args):
+    return mask_erosion(_load(args), args.erosion, args.device)
+
+
+def cmd_postprocess_outer(args):
+    return postprocess_outer(args.input, args.output, args.views, args.radius, args.smooth,
+                             args.device)
+
+
+def cmd_hull_mesh(args):
+    return hull_mesh(args.input, args.output)
+
+
+def cmd_silhouette_prior(args):
+    return silhouette_prior(_load(args), args.output, args.knn, args.thresh)
+
+
+def cmd_relight(args):
+    return relight(_load(args), args.ckpt, args.mesh, args.output, args.device)
+
+
+def cmd_render_orbit(args):
+    return render_orbit(_load(args), args.ckpt, args.output, args.n_views, args.size,
+                        args.radius, args.elevation, args.fov, args.device)
+
+
+def cmd_synth_scene(args):
+    return synth_scene(args.output, args.n_train, args.n_test, args.size, args.shell,
+                       args.colmap)
 
 
 def main(argv=None):
@@ -375,6 +586,59 @@ def main(argv=None):
     sp.add_argument("--split", default="validation", choices=["validation", "test"],
                     help="which split to evaluate every view of "
                          "(reference: dataset/database.py:667-679)")
+
+    sp = add("render-mask", cmd_render_mask)
+    sp.add_argument("--cfg", required=True)
+    sp.add_argument("--mesh_path", required=True)
+
+    sp = add("mask-erosion", cmd_mask_erosion)
+    sp.add_argument("--cfg", required=True)
+    sp.add_argument("--erosion", type=int, default=15)
+
+    sp = add("hull-mesh", cmd_hull_mesh)
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--output", default=None)
+
+    sp = add("silhouette-prior", cmd_silhouette_prior)
+    sp.add_argument("--cfg", required=True)
+    sp.add_argument("--output", default=None)
+    sp.add_argument("--knn", type=int, default=5)
+    sp.add_argument("--thresh", type=float, default=2.0)
+
+    sp = add("postprocess-outer", cmd_postprocess_outer)
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--output", default=None)
+    sp.add_argument("--views", type=int, default=64)
+    sp.add_argument("--radius", type=float, default=2.0)
+    sp.add_argument("--smooth", type=int, default=0,
+                    help="Taubin smoothing iterations on the filtered mesh")
+
+    sp = add("render-orbit", cmd_render_orbit)
+    sp.add_argument("--cfg", required=True)
+    sp.add_argument("--ckpt", default=None)
+    sp.add_argument("--output", default="data/orbit")
+    sp.add_argument("--n-views", type=int, default=12)
+    sp.add_argument("--size", type=int, default=256)
+    sp.add_argument("--radius", type=float, default=2.2)
+    sp.add_argument("--elevation", type=float, default=0.4)
+    sp.add_argument("--fov", type=float, default=0.65)
+
+    sp = add("synth-scene", cmd_synth_scene)
+    sp.add_argument("--output", default="./datasets/nested")
+    sp.add_argument("--n-train", type=int, default=48)
+    sp.add_argument("--n-test", type=int, default=8)
+    sp.add_argument("--size", type=int, default=128)
+    sp.add_argument("--shell", action="store_true",
+                    help="hollow-glass (thick shell) variant")
+    sp.add_argument("--colmap", action="store_true",
+                    help="capture-style layout: COLMAP model + full frames "
+                         "+ object point cloud (CustomDatabase, real path)")
+
+    sp = add("relight", cmd_relight)
+    sp.add_argument("--cfg", required=True)
+    sp.add_argument("--ckpt", required=True)
+    sp.add_argument("--mesh", required=True)
+    sp.add_argument("--output", default="data/materials")
 
     args = p.parse_args(argv)
     return args.fn(args)

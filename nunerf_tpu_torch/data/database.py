@@ -210,11 +210,13 @@ class NeRFSyntheticDatabase(BaseDatabase):
 
     def get_mask(self, img_id):
         # prefer the eroded masks written by the mask pipeline
-        # (reference :579-583), else the alpha channel
+        # (reference :579-583): the port's PNG, then the JAX package's JPEG
+        # (read where cv2 is installed); else the alpha channel
         rel = os.path.splitext(self.image_names[int(img_id)])[0]
-        fp = os.path.join(self.root, "mask_erosion", rel + ".jpg")
-        if os.path.exists(fp):
-            return image_io.imread(fp).astype(np.float32) / 255.0
+        for ext in (".png", ".jpg"):
+            fp = os.path.join(self.root, "mask_erosion", rel + ext)
+            if os.path.exists(fp):
+                return image_io.imread(fp).astype(np.float32) / 255.0
         img = self.imgs[int(img_id)]
         if img.shape[-1] == 4:
             return (img[..., 3] > 0).astype(np.float32)
@@ -489,12 +491,13 @@ class CustomDatabase(_ColmapDatabase):
         parts = self.database_name.split("/")
         sub = "mask" if len(parts) > 3 and parts[3] == "rawmask" \
             else "mask_erosion"
-        # render-mask writes .jpg regardless of the capture's image format
-        # (reference render_mask_synthetic.py:76 vs database.py:532 reads the
-        # raw image name — which only lines up for .jpg captures)
-        for fp in (f"{self.root}/{sub}/{name}",
-                   f"{self.root}/{sub}/{stem}.jpg",
-                   f"{self.root}/{sub}/{stem}.png"):
+        # the port's render-mask writes <stem>.png; the JAX package's writes
+        # .jpg regardless of the capture's image format (reference
+        # render_mask_synthetic.py:76 vs database.py:532 reads the raw image
+        # name, which only lines up for .jpg captures)
+        for fp in (f"{self.root}/{sub}/{stem}.png",
+                   f"{self.root}/{sub}/{name}",
+                   f"{self.root}/{sub}/{stem}.jpg"):
             if os.path.exists(fp):
                 m = image_io.imread(fp)
                 if m.ndim == 3:

@@ -598,6 +598,36 @@ class ShapeRenderer(nn.Module):
             outputs["loss_mask"] = torch.mean(torch.abs(batch["masks"] - target))
         return outputs
 
+    @torch.no_grad()
+    def nvs(self, pose, K, h: int, w: int, chunk: int = 1024, step: int = 300000):
+        """Novel-view synthesis (renderer.py:295-328): the full image [h, w, 3]
+        (numpy) seen by an arbitrary camera (pose [3,4] world->cam, K).  No
+        random draw: no perturbation, cos_anneal_ratio 1, eval mode; chunks
+        of ``chunk`` rays, the last padded with copies of its last ray."""
+        from nunerf_tpu_torch.data.ray_store import construct_ray_batch
+
+        info = {"imgs": np.zeros((1, h, w, 3), np.float32),
+                "Ks": np.asarray(K, np.float32)[None],
+                "poses": np.asarray(pose, np.float32)[None]}
+        batch, _, _ = construct_ray_batch(info)
+        dev = {k: torch.as_tensor(np.ascontiguousarray(batch[k]), device=self.device)
+               for k in ("rays_o", "rays_d", "near", "far", "human_poses")}
+        out = []
+        for i0 in range(0, h * w, chunk):
+            cur = {}
+            for k, v in dev.items():
+                sl = v[i0:i0 + chunk]
+                if sl.shape[0] < chunk:
+                    sl = torch.cat([sl, sl[-1:].expand(chunk - sl.shape[0], *sl.shape[1:])])
+                cur[k] = sl
+            n = min(chunk, h * w - i0)
+            rgb = self.render(cur["rays_o"], cur["rays_d"], cur["near"], cur["far"],
+                              cur["human_poses"], step, cos_anneal_ratio=1.0,
+                              perturb_overwrite=0.0, is_train=False,
+                              with_inter=False)["ray_rgb"]
+            out.append(rgb[:n].float().cpu().numpy())
+        return np.concatenate(out, 0).reshape(h, w, 3)
+
     def test_outputs(self, batch, step: int, generator=None):
         """Full-channel eval forward (renderer.py:414-461 per-chunk body)."""
         outputs = self.render(

@@ -9,8 +9,9 @@ the hit triangle, interpolating the vertex normal and curvature
 
 Everything the traced path touches is a fixed-shape tensor on the scene's
 device; the host side runs only at construction.  The silhouette and
-mesh-regulariser queries of the JAX scene (``topology``, ``silhouette_edge``,
-``primary_visibility``) are not ported yet.
+mesh-regulariser queries (``topology``, ``silhouette_edge``,
+``primary_visibility``) go through ``tracing/mesh_reg.py`` and
+``tracing/silhouette.py``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ from nunerf_tpu_torch.tracing.mesh_ops import (
     smooth_vertex_scalar,
     vertex_normals_curvature,
 )
+from nunerf_tpu_torch.tracing.mesh_reg import build_topology
+from nunerf_tpu_torch.tracing.silhouette import primary_visibility, silhouette_edges
 
 
 class Scene:
@@ -157,6 +160,14 @@ class Scene:
         }
 
     # ------------------------------------------------------------------
+    @property
+    def topology(self):
+        """The watertight edge table (DiffRender.py:362-379) of the
+        silhouette and regulariser queries, built at first use."""
+        if not hasattr(self, "_topology"):
+            self._topology = build_topology(self.tris_np, len(self.verts_np))
+        return self._topology
+
     def refract_ray(self, inter: Dict[str, torch.Tensor], rays_d,
                     ext_ior: float = 1.00029, int_ior: float = 1.5):
         """Snell refraction at a ``dintersect`` result (DiffRender.py:551-583):
@@ -205,6 +216,23 @@ class Scene:
     def render_mask(self, rays_o, rays_d):
         """Binary hit mask (DiffRender.py:458-462)."""
         return self.intersect(rays_o, rays_d).hit.to(torch.float32)
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def silhouette_edge(self, origin):
+        """The silhouette-edge mask seen from ``origin`` (DiffRender.py:469-481):
+        (edges [E,2], mask [E]), fixed shape, no compaction."""
+        topo = self.topology
+        return (torch.as_tensor(topo.edges, device=self.device),
+                silhouette_edges(self.verts, topo, self._tensor(origin)))
+
+    def primary_visibility(self, pose, K, origin, res_hw, verts=None,
+                           detach_depth: bool = False):
+        """Edge-sampled differentiable visibility (DiffRender.py:483-526)."""
+        return primary_visibility(self, self._tensor(pose), self._tensor(K),
+                                  self._tensor(origin), res_hw, verts=verts,
+                                  detach_depth=detach_depth)
 
     # ------------------------------------------------------------------
     def unsigned_distance(self, points: np.ndarray, chunk: int = 4096):

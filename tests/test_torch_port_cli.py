@@ -5,7 +5,12 @@ On a ``make_test_scene`` scene (a sphere of radius 0.5), in a temporary
 working directory: ``train`` of stage 1 (3 steps), ``extract-mesh-stage1``
 at 32^3, a curvature-shell ``train`` of 2 steps with a validation,
 ``extract-mesh-stage2``, ``postprocess-stage2 --largest-component`` (and
-with every face dropped), ``eval-geometry`` and ``eval-images``.
+with every face dropped), ``eval-geometry`` and ``eval-images``; then the
+tools on the same files: ``render-mask``, ``mask-erosion``,
+``postprocess-outer``, ``hull-mesh``, ``render-orbit``, and ``synth-scene
+--colmap --shell`` followed by ``silhouette-prior``, ``hull-mesh`` and
+``render-mask`` on its capture-layout database (``relight`` goes through
+``cli.main`` in ``tests/test_torch_port_relight.py``).
 
 The meshes are held to the JAX package's extraction over the JAX renderers'
 SDFs with the same checkpoints (f32 on the CPU on both sides): the same
@@ -16,7 +21,9 @@ dedup numbers vertices in the order of their rounded coordinates, which such
 a difference can swap.  The postprocess keeps the same faces as the JAX
 command, and ``eval-geometry`` reads the chamfer of the JAX function on the
 same points to 1e-6 of itself.
-Printed lines have the JAX commands' formats.
+Printed lines have the JAX commands' formats.  ``render-orbit``'s views are
+held to the JAX ``nvs`` of the same checkpoint, f32 on both sides, within
+1e-5 (per-ray sums of a few dozen samples in another order).
 """
 
 import json
@@ -260,5 +267,146 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
                                            resolution=8))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["postprocess-stage2", "--input", "m.ply", "--outer", "m.ply"])
-    with pytest.raises(SystemExit):
-        cli.main(["render-mask", "--cfg", "x"])  # not ported: not registered
+    with open("c.yaml", "w") as f:
+        yaml.safe_dump(dict(S1, dataset_dir=str(tmp_path)), f)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["render-mask", "--cfg", "c.yaml", "--mesh_path", "m.ply"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["postprocess-outer", "--input", "m.ply"])
+
+
+def _run(argv):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = cli.main(argv + ["--device", "cpu"])
+    return rec, buf.getvalue().strip().splitlines()
+
+
+@pytest.fixture(scope="module")
+def tools(pipeline):
+    """The tools through ``cli.main`` in the pipeline's working directory;
+    returns {subcommand: (what it returned, printed lines)}."""
+    work, dataset, _ = pipeline
+    prev = os.getcwd()
+    os.chdir(work)
+    out = {}
+    try:
+        outer = "data/meshes/tiny-3_simplified.ply"
+        hull = "data/meshes/tiny-3_simplified_hull.ply"
+        with open("c.yaml", "w") as f:
+            yaml.safe_dump({"name": "cap", "database_name": "custom/synth_c/32",
+                            "dataset_dir": str(work), "is_nerf": False}, f)
+        for key, argv in [
+            ("render_mask", ["render-mask", "--cfg", "s1.yaml", "--mesh_path", outer]),
+            ("mask_erosion", ["mask-erosion", "--cfg", "s1.yaml", "--erosion", "3"]),
+            ("hull_mesh", ["hull-mesh", "--input", outer]),
+            # on the hull (1,578 faces): the plain closest hit is slow on the CPU
+            ("postprocess_outer", ["postprocess-outer", "--input", hull, "--views", "8",
+                                   "--smooth", "2"]),
+            ("render_orbit", ["render-orbit", "--cfg", "s1.yaml", "--ckpt",
+                              "data/model/tiny/model.ckpt", "--n-views", "2", "--size", "16"]),
+            ("synth_scene", ["synth-scene", "--output", "synth_c", "--colmap", "--shell",
+                             "--n-train", "3"]),
+            ("silhouette_prior", ["silhouette-prior", "--cfg", "c.yaml", "--output",
+                                  "prior.ply"]),
+            ("hull_prior", ["hull-mesh", "--input", "prior.ply"]),
+            ("render_mask_prior", ["render-mask", "--cfg", "c.yaml", "--mesh_path",
+                                   "prior.ply"]),
+        ]:
+            out[key] = _run(argv)
+        with pytest.raises(SystemExit, match="COLMAP-style"):
+            _run(["silhouette-prior", "--cfg", "s1.yaml"])
+    finally:
+        os.chdir(prev)
+    return work, dataset, out
+
+
+def test_mask_tools_through_the_cli(tools):
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.data.database import parse_database_name
+
+    work, dataset, out = tools
+    mask_dir = os.path.join(dataset, "tiny", "mask")
+    # 3 train views and every 64th of the 2 test views
+    assert out["render_mask"] == (mask_dir, [f"wrote 4 masks to {mask_dir}"])
+    ero = os.path.join(dataset, "tiny", "mask_erosion")
+    assert out["mask_erosion"] == (ero, [f"wrote 4 eroded masks to {ero}"])
+    db = parse_database_name("nerf/tiny", dataset)
+    for i in db.get_img_ids():
+        stem = os.path.splitext(db.get_image_name(i))[0]
+        m = image_io.imread(os.path.join(mask_dir, stem + ".png"))
+        assert m.shape == (20, 24) and m.any() and not m.all()
+        e = image_io.imread(os.path.join(ero, stem + ".png"))
+        np.testing.assert_array_equal(db.get_mask(i), e.astype(np.float32) / 255.0)
+        assert (e >= 255 - m).all()  # outside the mask stays 255
+
+
+def test_outer_and_hull_tools_match_jax(tools, capsys):
+    import argparse
+
+    from nunerf_tpu import cli as jcli
+
+    work, _, out = tools
+    outer = str(work / "data/meshes/tiny-3_simplified.ply")
+    hull = "data/meshes/tiny-3_simplified_hull.ply"
+    jcli.cmd_hull_mesh(argparse.Namespace(input=outer, output=str(work / "j_hull.ply")))
+    jcli.cmd_postprocess_outer(argparse.Namespace(input=str(work / hull),
+                                                  output=str(work / "j_outer.ply"),
+                                                  views=8, radius=2.0, smooth=2))
+    jlines = capsys.readouterr().out.strip().splitlines()
+    assert out["hull_mesh"][1] == [jlines[0].replace(str(work / "j_hull.ply"), hull)]
+    path, stats = out["postprocess_outer"][0]
+    assert path == "data/meshes/tiny-3_simplified_hull_outer.ply" and stats["smooth_iters"] == 2
+    assert out["postprocess_outer"][1] == [
+        jlines[1].replace(str(work / "j_outer.ply"), path)]
+    for mine, theirs in ((path, "j_outer.ply"), (hull, "j_hull.ply")):
+        for a, b in zip(load_ply(str(work / mine)), load_ply(str(work / theirs))):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_render_orbit_matches_jax_nvs(tools):
+    import jax
+
+    from nunerf_tpu.models.stage1 import ShapeRenderer as JShapeRenderer
+    from nunerf_tpu_torch.convert import load_jax_checkpoint
+    from nunerf_tpu_torch.data import image_io
+
+    work, dataset, out = tools
+    imgs, printed = out["render_orbit"]
+    assert printed == ["wrote 2 views to data/orbit"] and imgs.shape == (2, 16, 16, 3)
+    step, params, _ = load_jax_checkpoint(str(work / "data/model/tiny/model.ckpt"))
+    jr = JShapeRenderer(dict(S1, dataset_dir=dataset))
+    focal = 0.5 * 16 / np.tan(0.5 * 0.65)
+    K = np.array([[focal, 0, 8], [0, focal, 8], [0, 0, 1]], np.float32)
+    params = jax.tree_util.tree_map(jax.numpy.asarray, params)
+    for k in range(2):
+        want = jr.nvs(params, cli.orbit_pose(k, 2, 2.2, 0.4), K, 16, 16, step=step)
+        np.testing.assert_allclose(imgs[k], want, rtol=0, atol=1e-5)
+        png = image_io.imread(str(work / f"data/orbit/orbit_{k:03d}.png"))
+        np.testing.assert_array_equal(png, (np.clip(imgs[k], 0, 1) * 255).astype(np.uint8))
+
+
+def test_capture_layout_tools_through_the_cli(tools):
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.data.database import parse_database_name
+
+    work, _, out = tools
+    assert out["synth_scene"] == ("synth_c", ["wrote nested-glass scene to synth_c"])
+    path, nv, nf = out["silhouette_prior"][0]
+    assert path == "prior.ply" and nv > 10 and nf == 2 * nv - 4  # a closed convex hull
+    assert re.fullmatch(rf"silhouette prior: \d+ cloud pts -> hull {nv} verts / {nf} faces "
+                        r"-> prior\.ply", out["silhouette_prior"][1][0])
+    assert out["hull_prior"][1] == [f"hull: {nv} verts -> {nv} verts / {nf} faces -> "
+                                    "prior_hull.ply"]
+    mask_dir = str(work / "synth_c" / "mask")
+    assert out["render_mask_prior"] == (mask_dir, [f"wrote 3 masks to {mask_dir}"])
+    db = parse_database_name("custom/synth_c/32/rawmask", str(work))
+    for i in db.get_img_ids():
+        m = db.get_mask(i)
+        assert m.shape == db.get_image(i).shape[:2] and 0 < m.mean() < 1
+        np.testing.assert_array_equal(
+            m, image_io.imread(str(work / "synth_c" / "mask" / db.get_image_name(i)))
+            .astype(np.float32) / 255.0)

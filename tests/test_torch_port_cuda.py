@@ -595,3 +595,45 @@ def test_shell_step_on_the_card_matches_the_cpu(cuda):
     from chip_smoke import phase_small_check_shell
 
     phase_small_check_shell(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 15])
+def test_device_erosion_equals_its_twin(cuda, k):
+    """The mask eroder's max-pool on the card against the numpy minimum
+    filter: integers in f32, exact."""
+    from nunerf_tpu_torch.tools.render_mask import erode, erode_reference
+
+    rs = np.random.RandomState(k)
+    m = (rs.rand(203, 317) > 0.2).astype(np.uint8) * 255
+    m[40:150, 60:250] = 255
+    np.testing.assert_array_equal(erode(m, k, cuda), erode_reference(m, k))
+
+
+@pytest.mark.cuda
+def test_render_masks_with_k3_match_the_plain_closest_hit(cuda, tmp_path):
+    """``render_masks`` on the card (K3, tolerant) writes the masks that the
+    plain closest hit of the same scene gives, pixel for pixel."""
+    from chip_smoke import lumpy_sphere_mesh, write_blender_scene
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.data.database import parse_database_name
+    from nunerf_tpu_torch.tools import render_mask as rm
+    from nunerf_tpu_torch.tracing.mesh_ops import save_ply
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    write_blender_scene(str(tmp_path / "ds" / "tiny"), 3, 1, 64)
+    mesh = str(tmp_path / "outer.ply")
+    save_ply(mesh, *lumpy_sphere_mesh(48))
+    cfg = {"database_name": "nerf/tiny", "dataset_dir": str(tmp_path / "ds"), "is_nerf": True}
+    before = ri.launches["closest_hit"]
+    out = rm.render_masks(cfg, mesh, chunk=1000, device=cuda)
+    assert ri.launches["closest_hit"] - before == 4 * 5  # 4 views of 4096 rays
+    plain = Scene(mesh, device=cuda, use_kernel=False)
+    db = parse_database_name("nerf/tiny", str(tmp_path / "ds"))
+    for i in db.get_img_ids():
+        o, d, h, w = rm.view_rays(db, i, True)
+        want = rm.hit_mask(plain, o, d, h, w)
+        got = image_io.imread(rm.mask_path(db.root, "mask", db.get_image_name(i)))
+        assert want.any() and not want.all()
+        np.testing.assert_array_equal(got, want)
+    assert out.endswith("mask")

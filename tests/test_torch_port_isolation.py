@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 49, res.stdout
+    assert int(n) >= 57, res.stdout
     assert bad == "[]", bad
 
 
@@ -73,6 +73,20 @@ def test_probe_walks_the_pipeline_modules():
     names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
                                                    "nunerf_tpu_torch.")}
     for mod in ("native", "native.build", "models.stage2_shell", "ops.chamfer", "cli"):
+        assert f"nunerf_tpu_torch.{mod}" in names, mod
+
+
+def test_probe_walks_the_tool_modules():
+    """The import probe reaches the tools, the silhouette and regulariser
+    queries and the sphere tracer."""
+    import pkgutil
+
+    import nunerf_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
+                                                   "nunerf_tpu_torch.")}
+    for mod in ("tools", "tools.render_mask", "tools.outer_filter", "tools.synth_nested",
+                "tools.relight_backend", "tracing.mesh_reg", "tracing.silhouette",
+                "ops.sphere_tracing"):
         assert f"nunerf_tpu_torch.{mod}" in names, mod
 
 
@@ -115,3 +129,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer({"name": "x", "model_dir": "/nonexistent"})
     assert bench.main() == 2
+
+    # the tools
+    from nunerf_tpu_torch.tools import outer_filter, render_mask
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        outer_filter.visible_faces(*tri)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_mask.erode_masks({"database_name": "nerf/x", "dataset_dir": "/nonexistent"})
