@@ -41,14 +41,23 @@ Phases (any failure exits non-zero):
      K4 and K5 once a step), path B (stage 2, ``fused_sdf``: K4 and K5 on the
      inner SDF, 3 K3) and path C (stage 1, ``fused_mlp``: K1/K2 on the NeRF++
      trunk and every shading head);
-  6. the trainer (``phase_trainer``): a 100-view 800x800 NeRF-synthetic
+  6. data parallelism (``phase_parallel``): the full-width stage-1 step at
+     25000 and stage-2 step, 3 Adam steps each, through the mesh at world
+     size 1 on ``nccl`` against the same steps with no mesh, then in two
+     ranks spawned on this one card over ``gloo`` (512 of the 1024 rays
+     each) against the one-process run and bit for bit against each other;
+     K1 and K3 counted on each rank (paths ``parallel_s1``, ``parallel_s2``);
+     the per-rank step, the gradient all-reduce's ms and bytes and each
+     rank's peak memory printed.  Two ranks on one card measure correctness
+     and overhead, not scaling;
+  7. the trainer (``phase_trainer``): a 100-view 800x800 NeRF-synthetic
      scene written with the port's PNG writer, ``Trainer(cfg).run()`` of
      stage 1 at ``BENCH_CFG``'s width (30 steps, validation, checkpoints),
      a second trainer resuming at step 30, and the zero-thickness stage 2
      from that checkpoint through K3 in its tolerant mode (10 steps, a
      validation with the TIR mask), each run's launch counts read as a main
      path's;
-  7. the pipeline between the stages, in the same working directory, each
+  8. the pipeline between the stages, in the same working directory, each
      run's launch counts read as a main path's: ``extract-mesh-stage1``
      through ``cli.main`` at 512^3 from the trainer's stage-1 checkpoint
      (``extract_s1``: K1 sweeps the SDF in chunks of 2^21 points, native
@@ -63,7 +72,7 @@ Phases (any failure exits non-zero):
      (``extract_s2``: K1 on the inner and the frozen outer SDF),
      ``postprocess-stage2 --largest-component``, ``eval-geometry`` against
      the analytic sphere and ``eval-images`` on the test split;
-  8. the tools (``phase_tools``), in the same working directory, each run's
+  9. the tools (``phase_tools``), in the same working directory, each run's
      launch counts read as a main path's: ``render-mask`` on the raw 512^3
      mesh for every view of the trainer's scene at 800x800 (K3 on every
      pixel, path ``render_mask``; K3 timed at the chosen chunk and a whole
@@ -2334,6 +2343,382 @@ def phase_tools(dev, work, ckpt1, raw_mesh, outer_mesh):
     return paths, out
 
 
+# ---------------------------------------------------------------------------
+# phase_parallel: data parallelism (nunerf_tpu_torch/parallel/)
+
+PARALLEL_STEPS = 3
+PARALLEL_LR = 5e-4
+PARALLEL_LIMIT = 300.0   # seconds the two spawned ranks may take
+# the f32 twins of BENCH_CFG and STAGE2_CFG: no bf16 anywhere in the step
+PARALLEL_F32_S1 = dict(BENCH_CFG, mixed_precision=False, sdf_mixed_precision=False)
+PARALLEL_F32_S2 = dict(STAGE2_CFG, stage1_cfg=PARALLEL_F32_S1, mixed_precision=False,
+                       sdf_mixed_precision=False)
+# the two-rank runs: name -> (stage, stage-1 config, stage-2 config)
+PARALLEL_RUNS = {"s1": ("s1", BENCH_CFG, STAGE2_CFG), "s2": ("s2", BENCH_CFG, STAGE2_CFG),
+                 "s1_f32": ("s1", PARALLEL_F32_S1, PARALLEL_F32_S2),
+                 "s2_f32": ("s2", PARALLEL_F32_S1, PARALLEL_F32_S2)}
+# the parameters after the steps, of each tensor's update norm, by stage.
+# Adam divides each gradient element by its own running magnitude, so
+# elements whose gradient is rounding noise (in f32 too) step either way: on
+# an H100 80GB HBM3 (700 W) the two-rank runs read up to 0.134 in stage 1
+# (0.054 in f32) and 0.031 in stage 2, the naive control 0.32 and 0.078
+PARALLEL_NORM_TOL = {"s1": 0.2, "s2": 0.05}
+
+
+def parallel_run(name, dev, mesh, scene, naive=False):
+    """``parallel_steps`` of the run ``name`` of ``PARALLEL_RUNS``."""
+    kind, s1_cfg, s2_cfg = PARALLEL_RUNS[name]
+    return parallel_steps(kind, dev, mesh, scene, PARALLEL_STEPS, s1_cfg, s2_cfg, naive)
+
+
+def parallel_steps(kind, dev, mesh, scene, n_steps=PARALLEL_STEPS, s1_cfg=None,
+                   s2_cfg=None, naive=False):
+    """``n_steps`` Adam steps from seeded weights on this rank's rows of the
+    full batch under ``mesh`` (``None``: one process, the whole batch):
+    stage 1 (``kind`` "s1") at step 25000, or the zero-thickness stage 2
+    ("s2") at step 1000 through ``scene``.  Launch counts are set to 0 just
+    before the steps and read just after.  The configurations default to
+    ``BENCH_CFG`` and ``STAGE2_CFG``.  ``naive``: the control of a naive
+    port, each rank's own loss on its rows (the renderer keeps its
+    one-process mesh) with the gradients averaged over ``mesh``."""
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.models.stage2 import Stage2Renderer
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.parallel.mesh import shard_batch
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    s1_cfg = BENCH_CFG if s1_cfg is None else s1_cfg
+    s2_cfg = STAGE2_CFG if s2_cfg is None else s2_cfg
+
+    if kind == "s1":
+        renderer, step = ShapeRenderer(s1_cfg, device=dev, seed=0), 25000
+        batch = batch_for(s1_cfg, dev)
+    else:
+        stage1 = ShapeRenderer(s2_cfg["stage1_cfg"], device=dev, seed=0)
+        renderer, step = Stage2Renderer(s2_cfg, scene, stage1, device=dev, seed=1), 1000
+        batch = stage2_batch(s2_cfg["train_ray_num"], dev)
+    frozen = [p.detach().clone() for p in renderer.parameters() if not p.requires_grad]
+    if mesh is not None and not naive:  # else the renderer's one-process mesh
+        renderer.mesh = mesh
+    mesh = renderer.mesh if mesh is None else mesh
+    batch = shard_batch(batch, mesh)
+    train = TrainStep(renderer, PARALLEL_LR)
+    init = {n: p.detach().cpu().clone() for n, p in renderer.named_parameters()
+            if p.requires_grad}
+    reduce_ms, collectives = [], [0]
+    if mesh.distributed:
+        reduce = train.reduce_grads
+        count = mesh.all_reduce_
+
+        def timed_reduce(m):
+            # events on the stream: no host synchronisation inside the step
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            reduce(m)
+            e1.record()
+            reduce_ms.append((e0, e1))
+
+        def counted(x):
+            collectives[0] += 1
+            return count(x)
+
+        train.reduce_grads, mesh.all_reduce_ = timed_reduce, counted
+    torch.cuda.reset_peak_memory_stats()
+    ri.reset_launches()
+    fm.reset_launches()
+    terms, times, grads0 = [], [], None
+    try:
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = train.compute_grads(batch, step)
+            if naive:
+                train.reduce_grads(mesh)
+            if i == 0:  # the first step's gradients: the same weights everywhere
+                grads0 = {n: p.grad.detach().cpu().clone()
+                          for n, p in renderer.named_parameters() if p.requires_grad}
+            train.apply()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            terms.append({k: float(torch.as_tensor(v).detach()) for k, v in t.items()})
+    finally:
+        if mesh.distributed:
+            del mesh.all_reduce_
+    reduce_ms = [e0.elapsed_time(e1) for e0, e1 in reduce_ms]
+    launches = dict(ri.launches, **fm.launches)
+    still = [p for p in renderer.parameters() if not p.requires_grad]
+    if not all(torch.equal(a, b.detach()) for a, b in zip(frozen, still)):
+        raise AssertionError(f"{kind}: a frozen parameter changed")
+    return dict(terms=terms, step_ms=times, reduce_ms=reduce_ms,
+                grad_bytes=4 * sum(p.numel() for p in train.params),
+                collectives_per_step=collectives[0] / n_steps,
+                launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                rays=int(batch["rays_o"].shape[0]), init=init, grads0=grads0,
+                params={n: p.detach().cpu().clone() for n, p in renderer.named_parameters()
+                        if p.requires_grad})
+
+
+def parallel_shares(got, ref, grad_tol):
+    """How far ``got``'s steps are from ``ref``'s: the loss terms at every
+    step as shares of the card's small-check tolerances (loss_total 1e-2
+    relative, each term 5e-2 of itself plus 1e-3 of loss_total; a value that
+    is not finite counts as infinitely far), the first step's gradients (the
+    same weights on both sides) as shares of ``grad_tol`` of each tensor's
+    largest magnitude, and each parameter tensor after the steps as a share
+    of its update norm; the worst of each, with its name."""
+    equal = (got["terms"] == ref["terms"]
+             and all(torch.equal(got["params"][n], p) for n, p in ref["params"].items()))
+    grads, terms, params = [], [], []
+    for n, g in ref["grads0"].items():
+        scale = float(g.abs().max())
+        err = float((got["grads0"][n] - g).abs().max())
+        grads.append((err / (grad_tol * scale) if scale > 0 else float(err > 0), n))
+    for i, (g, r) in enumerate(zip(got["terms"], ref["terms"])):
+        total = abs(r["loss_total"])
+        for k, v in r.items():
+            tol = 1e-2 * abs(v) if k == "loss_total" else 5e-2 * abs(v) + 1e-3 * total
+            err = abs(g[k] - v) if math.isfinite(g[k]) else math.inf
+            terms.append((err / tol if tol > 0 else (math.inf if err > 0 else 0.0),
+                          f"step {i} {k}"))
+    for n, p in ref["params"].items():
+        d = got["params"][n] - p
+        upd = float(torch.linalg.norm(p - ref["init"][n]))
+        params.append((float(torch.linalg.norm(d)) / upd if upd > 0
+                       else float(d.abs().max() > 0), n))
+    (gs, gn), (ts, tn), (ps, pn) = (max(x, key=lambda e: e[0], default=(0.0, None))
+                                    for x in (grads, terms, params))
+    return dict(bit_equal=equal, worst_grad_share=gs, worst_grad=gn, worst_term_share=ts,
+                worst_term=tn, worst_param_norm_ratio=ps, worst_param=pn)
+
+
+def parallel_agreement(what, got, ref, grad_tol, norm_tol=None):
+    """``parallel_shares`` of ``got`` against ``ref``, held: the terms and
+    the first step's gradients within their tolerances and, where
+    ``norm_tol`` is given, every parameter tensor within ``norm_tol`` of its
+    update norm (reported in any case).  Returns the shares."""
+    sh = parallel_shares(got, ref, grad_tol)
+    for key in ("term", "grad"):
+        if not sh[f"worst_{key}_share"] <= 1.0:
+            raise AssertionError(f"{what}: {key} {sh[f'worst_{key}']} off by "
+                                 f"{sh[f'worst_{key}_share']:.3g} of its tolerance")
+    if norm_tol is not None and not sh["worst_param_norm_ratio"] <= norm_tol:
+        raise AssertionError(f"{what}: parameter {sh['worst_param']} off by "
+                             f"{sh['worst_param_norm_ratio']:.3g} of its update norm "
+                             f"(tol {norm_tol})")
+    log(f"{what}: {'bit-equal' if sh['bit_equal'] else 'not bit-equal'}; terms at "
+        f"{sh['worst_term_share']:.3g} of their tolerance, first-step gradients at "
+        f"{sh['worst_grad_share']:.3g} of theirs ({grad_tol}; {sh['worst_grad']}), "
+        f"parameters {sh['worst_param_norm_ratio']:.4g} of an update norm at most "
+        f"({sh['worst_param']}; tol {norm_tol if norm_tol is not None else 'none'})")
+    return dict(sh, param_norm_tol=norm_tol)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_rank(rank, world, init_method, out_dir, dev, verts, tris):
+    """One of the ranks that share the card over gloo (spawned)."""
+    import os
+    import pickle
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from nunerf_tpu_torch.parallel.mesh import make_mesh
+        from nunerf_tpu_torch.parallel.multihost import init_multihost
+        from nunerf_tpu_torch.tracing.scene import Scene
+
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        init_multihost(init_method, world, rank, backend="gloo")
+        try:
+            mesh = make_mesh(world, device=dev)
+            scene = Scene((verts, tris), device=dev)
+            res = {"ready_s": time.perf_counter() - t0}
+            for name in PARALLEL_RUNS:
+                res[name] = parallel_run(name, dev, mesh, scene)
+                res[f"{name}_naive"] = parallel_run(name, dev, mesh, scene, naive=True)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
+def spawn_ranks(world, dev, verts, tris, limit=PARALLEL_LIMIT):
+    """Run ``_parallel_rank`` in ``world`` spawned processes joined over gloo
+    on this card; each rank's result.  A rank that fails or outlives
+    ``limit`` fails the phase, and every rank is stopped."""
+    import multiprocessing as mp
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="nunerf_ranks_")
+    init_method = f"file://{os.path.join(out_dir, 'rendezvous')}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, world, init_method, out_dir, dev, verts, tris))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + limit
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        errors = []
+        for r, p in enumerate(procs):
+            err = os.path.join(out_dir, f"rank{r}.err")
+            if p.is_alive():
+                errors.append(f"rank {r} still running after {limit:.0f} s")
+            elif os.path.exists(err):
+                errors.append(f"rank {r}:\n" + open(err).read())
+            elif p.exitcode != 0:
+                errors.append(f"rank {r} exited with {p.exitcode}")
+        if errors:
+            raise AssertionError("phase_parallel: " + "\n".join(errors))
+        out = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_parallel(scene, verts, tris, dev):
+    """Data parallelism: the full-width stage-1 step at 25000 and stage-2
+    step at 1000, ``PARALLEL_STEPS`` each, (a) in one process; (b) through
+    the mesh at world size 1 on ``nccl`` (every collective runs), bit-equal
+    to (a); (c) in two ranks spawned on this one card over ``gloo``
+    (``nccl`` refuses two ranks on one device), 512 of the 1024 rays each,
+    the ranks bit-equal to each other, and held to (a) by
+    ``parallel_agreement``: the loss terms, the first step's gradients at
+    the backward tolerance of the route (bf16, and the f32 twins at 1e-4)
+    and the parameters after the steps (``PARALLEL_NORM_TOL``).  A naive
+    control on the same ranks (each rank's own loss, the gradients averaged)
+    must fail one of those gates.  K1 and K3 must launch on each rank (paths
+    ``parallel_s1``, ``parallel_s2`` and their ``_f32`` twins).  Two ranks on one card
+    measure correctness and the overhead of the collectives, not scaling."""
+    import os
+
+    import torch.distributed as dist
+
+    from nunerf_tpu_torch.parallel.mesh import make_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        if not mesh.distributed:
+            raise AssertionError(f"world size 1: mesh {mesh}")
+        # one process, mesh, mesh, one process: the overhead read in turns
+        ref, ws1, ws1b, ref2 = ({k: parallel_run(k, dev, m, scene) for k in ("s1", "s2")}
+                                for m in (None, mesh, mesh, None))
+    finally:
+        dist.destroy_process_group()
+    res = {"ws1_nccl": {}, "gloo_2_ranks": {}}
+    for k in ("s1", "s2"):
+        agree = parallel_agreement(f"parallel {k}: world size 1 on nccl against one process",
+                                   ws1[k], ref[k], CHAIN_TOL[("bwd", "bfloat16")])
+        if not agree["bit_equal"]:
+            raise AssertionError(f"parallel {k}: world size 1 on nccl is not bit-equal "
+                                 "to one process")
+        r = ws1[k]
+        res["ws1_nccl"][k] = dict(
+            agree, step_ms=[r["step_ms"], ws1b[k]["step_ms"]],
+            plain_step_ms=[ref[k]["step_ms"], ref2[k]["step_ms"]],
+            allreduce_ms=r["reduce_ms"] + ws1b[k]["reduce_ms"],
+            allreduce_bytes=r["grad_bytes"],
+            collectives_per_step=r["collectives_per_step"], peak_gib=r["peak_gib"],
+            plain_peak_gib=ref[k]["peak_gib"])
+        log(f"parallel {k} world size 1 on nccl: step ms {r['step_ms']}, "
+            f"{ws1b[k]['step_ms']} (one process {ref[k]['step_ms']}, {ref2[k]['step_ms']}), "
+            f"gradient all-reduce {res['ws1_nccl'][k]['allreduce_ms']} ms of "
+            f"{r['grad_bytes']} bytes, {r['collectives_per_step']:.0f} all-reduces a step, "
+            f"peak {r['peak_gib']:.2f} GiB (one process {ref[k]['peak_gib']:.2f})")
+    for k in ("s1_f32", "s2_f32"):
+        ref[k] = parallel_run(k, dev, None, scene)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, dev, verts, tris)
+    spawn_s = time.perf_counter() - t0
+    paths = {}
+    for k in PARALLEL_RUNS:
+        stage = PARALLEL_RUNS[k][0]
+        counter = "chain_fwd" if stage == "s1" else "closest_hit"
+        path = f"parallel_{k}"
+        got = [r[k] for r in ranks]
+        for name, p in got[0]["params"].items():
+            if not torch.equal(p, got[1]["params"][name]):
+                raise AssertionError(f"parallel {k}: ranks differ in {name}")
+        if got[0]["terms"] != got[1]["terms"]:
+            raise AssertionError(f"parallel {k}: ranks differ in their loss terms")
+        if [g["rays"] for g in got] != [ref[k]["rays"] // 2] * 2:
+            raise AssertionError(f"parallel {k}: rays a rank {[g['rays'] for g in got]}")
+        for r, g in enumerate(got):
+            if not g["launches"].get(counter, 0) > 0:
+                raise AssertionError(f"path {path}: rank {r} launched {counter} no time")
+        grad_tol = CHAIN_TOL[("bwd", "float32" if k.endswith("_f32") else "bfloat16")]
+        norm_tol = PARALLEL_NORM_TOL[stage]
+        agree = parallel_agreement(
+            f"parallel {k}: two ranks over gloo against one process", got[0], ref[k],
+            grad_tol, norm_tol)
+        # the gates must tell the global loss from each rank's own
+        naive = parallel_shares(ranks[0][f"{k}_naive"], ref[k], grad_tol)
+        log(f"parallel {k}: the naive control (each rank's own loss, the gradients "
+            f"averaged): first-step gradients at {naive['worst_grad_share']:.3g} of their "
+            f"tolerance ({naive['worst_grad']}), terms at {naive['worst_term_share']:.3g} "
+            f"({naive['worst_term']}), parameters {naive['worst_param_norm_ratio']:.4g} of "
+            f"an update norm ({naive['worst_param']}; tol {norm_tol})")
+        if not (naive["worst_grad_share"] > 1 or naive["worst_term_share"] > 1
+                or naive["worst_param_norm_ratio"] > norm_tol):
+            raise AssertionError(f"parallel {k}: the naive control passes every gate")
+        paths[path] = {c: sum(g["launches"][c] for g in got) for c in got[0]["launches"]}
+        res["gloo_2_ranks"][k] = dict(
+            agree, naive_control=naive, rank_step_ms=[g["step_ms"] for g in got],
+            plain_step_ms=ref[k]["step_ms"],
+            allreduce_ms=[g["reduce_ms"] for g in got], allreduce_bytes=got[0]["grad_bytes"],
+            collectives_per_step=got[0]["collectives_per_step"],
+            peak_gib=[g["peak_gib"] for g in got],
+            launches_by_rank=[g["launches"] for g in got])
+        for r, g in enumerate(got):
+            log(f"parallel {k} rank {r} of 2 (gloo, one card): {g['rays']} rays, step ms "
+                f"{g['step_ms']}, gradient all-reduce {g['reduce_ms']} ms of "
+                f"{g['grad_bytes']} bytes, {g['collectives_per_step']:.0f} all-reduces a "
+                f"step, peak {g['peak_gib']:.2f} GiB, launches {g['launches']}")
+    res["ranks_ready_s"] = [r["ready_s"] for r in ranks]
+    res["spawn_s"] = spawn_s
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"parallel: two ranks share one card ({card_line()}): they measure correctness "
+        f"and the collectives' overhead, not scaling; ranks ready after "
+        f"{res['ranks_ready_s']} s, the spawn {spawn_s:.1f} s, the phase "
+        f"{res['seconds']:.1f} s")
+    return paths, res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2384,6 +2769,8 @@ def main():
     paths["A"], res_a = phase_main_path(dev, "fused_sdf")
     paths["B"], res_b = phase_main_path_stage2(scene, dev, fused_sdf=True)
     paths["C"], res_c = phase_main_path(dev, "fused_mlp")
+    par_paths, res_par = phase_parallel(scene, verts, tris, dev)
+    paths.update(par_paths)
     import os
     import shutil
     import tempfile
@@ -2417,7 +2804,10 @@ def main():
                           ("render_mask", "closest_hit"), ("postprocess_outer", "closest_hit"),
                           ("primary_visibility", "closest_hit"),
                           ("render_mask_prior", "closest_hit"),
-                          ("render_orbit", "chain_fwd"), ("sphere_trace", "chain_fwd")):
+                          ("render_orbit", "chain_fwd"), ("sphere_trace", "chain_fwd"),
+                          ("parallel_s1", "chain_fwd"), ("parallel_s2", "closest_hit"),
+                          ("parallel_s1_f32", "chain_fwd"),
+                          ("parallel_s2_f32", "closest_hit")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -2490,6 +2880,7 @@ def main():
                "shell_step": res_shell,
                "shell_pipeline": res_pipe,
                "tools": res_tools,
+               "parallel": res_par,
                "seconds": time.perf_counter() - t_start}
     log(json.dumps(summary))
     log(json.dumps({"kernels": kernels}))

@@ -29,11 +29,19 @@ renders through ``ShapeRenderer.nvs`` (K1's value-only sweeps on the card).
 card).  They read the port's checkpoints and the JAX package's
 (``convert.load_jax_checkpoint``).  The port's masks are PNG, not JPEG
 (``tools/render_mask.py``).
+
+``train`` and ``eval-images`` run data-parallel when ``torchrun`` started
+them: every process joins the group (``nccl``, each on ``cuda:LOCAL_RANK``;
+``gloo`` with ``--device cpu``) and renders its share of each ray batch;
+rank 0 writes and prints.  On N cards:
+
+    torchrun --nproc_per_node=N -m nunerf_tpu_torch.cli train --cfg ...
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -235,22 +243,24 @@ def eval_images(cfg, ckpt=None, split="validation", device="cuda"):
     """Render every view of ``split`` and write a per-view PSNR/SSIM table
     with its means to ``data/eval/{name}/eval_{split}.json`` (reference:
     dataset/database.py:667-679, train/train_valid.py:19-53).  Returns the
-    record."""
+    record.  Under a process group every rank renders its share of each
+    chunk; rank 0 prints and writes."""
     from nunerf_tpu_torch.convert import load_jax_params
     from nunerf_tpu_torch.data.database import NeRFSyntheticDatabase, get_database_split
     from nunerf_tpu_torch.data.ray_store import build_imgs_info
     from nunerf_tpu_torch.train.metrics import compute_psnr, compute_ssim
-    from nunerf_tpu_torch.train.trainer import Trainer, load_checkpoint
+    from nunerf_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg, device=device)
+    say = print if trainer.writes else (lambda *a, **k: None)
     name = cfg["name"]
     ckpt = ckpt or os.path.join("data/model", name, "model_best.ckpt")
     step = 0
-    if os.path.exists(ckpt):
-        step, params, _, _ = load_checkpoint(ckpt)
+    if trainer.mesh.from_rank0(os.path.exists(ckpt)):  # rank 0's file decides
+        step, params, _, _ = trainer.read_checkpoint(ckpt)
         load_jax_params(trainer.renderer, params, trainer.tree_top)
     else:
-        print(f"WARNING: no checkpoint at {ckpt}; evaluating the init")
+        say(f"WARNING: no checkpoint at {ckpt}; evaluating the init")
 
     split_db = trainer.database
     if split == "test" and cfg["database_name"].startswith("nerf/"):
@@ -274,21 +284,22 @@ def eval_images(cfg, ckpt=None, split="validation", device="cuda"):
         psnr = float(compute_psnr(gt, pr))
         ssim = float(compute_ssim(gt.reshape(h, w, 3), pr.reshape(h, w, 3)))
         rows.append({"view": str(vid), "psnr": psnr, "ssim": ssim})
-        print(f"view {vid:>6}  psnr {psnr:7.3f}  ssim {ssim:.4f}")
+        say(f"view {vid:>6}  psnr {psnr:7.3f}  ssim {ssim:.4f}")
     trainer.logger.close()
 
     mean_psnr = float(np.mean([r["psnr"] for r in rows]))
     mean_ssim = float(np.mean([r["ssim"] for r in rows]))
-    print(f"split '{split}' ({len(rows)} views)  "
-          f"mean psnr {mean_psnr:.3f}  mean ssim {mean_ssim:.4f}")
-    out_dir = os.path.join("data", "eval", name)
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"eval_{split}.json")
+    say(f"split '{split}' ({len(rows)} views)  "
+        f"mean psnr {mean_psnr:.3f}  mean ssim {mean_ssim:.4f}")
     rec = {"step": int(step), "split": split, "views": rows,
            "mean_psnr": mean_psnr, "mean_ssim": mean_ssim}
-    with open(path, "w") as f:
-        json.dump(rec, f, indent=1)
-    print(f"wrote {path}")
+    if trainer.writes:
+        out_dir = os.path.join("data", "eval", name)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"eval_{split}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"wrote {path}")
     return rec
 
 
@@ -469,14 +480,38 @@ def _load(args):
     return load_cfg(args.cfg)
 
 
+@contextlib.contextmanager
+def _torchrun_group(device):
+    """This process's device; inside ``torchrun``, after joining its group
+    (left again on exit): ``nccl`` on ``cuda:LOCAL_RANK``, ``gloo`` on the
+    CPU."""
+    from nunerf_tpu_torch.parallel.multihost import (init_multihost,
+                                                     launched_by_torchrun,
+                                                     local_device)
+
+    if not launched_by_torchrun():
+        yield device
+        return
+    import torch.distributed as dist
+
+    dev = local_device(device)
+    init_multihost(backend="nccl" if dev.type == "cuda" else "gloo")
+    try:
+        yield dev
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def cmd_train(args):
     from nunerf_tpu_torch.train.trainer import Trainer
 
     # zero_thickness selects the renderer (run_training.py:16-20); both
     # stages share one Trainer
-    trainer = Trainer(_load(args), device=args.device)
-    best = trainer.run()
-    trainer.logger.close()
+    with _torchrun_group(args.device) as device:
+        trainer = Trainer(_load(args), device=device)
+        best = trainer.run()
+        trainer.logger.close()
     return best
 
 
@@ -499,7 +534,8 @@ def cmd_eval_geometry(args):
 
 
 def cmd_eval_images(args):
-    return eval_images(_load(args), args.ckpt, args.split, args.device)
+    with _torchrun_group(args.device) as device:
+        return eval_images(_load(args), args.ckpt, args.split, device)
 
 
 def cmd_render_mask(args):

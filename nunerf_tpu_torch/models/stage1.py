@@ -12,7 +12,15 @@ Differences of form from the JAX package, not of result:
   the occlusion-loss subset is a random-priority ``torch.topk``;
 * the value-only SDF sweeps run under ``torch.no_grad`` (the reference's
   ``no_grad``, the JAX package's ``stop_gradient``) and go through the fused
-  chain kernel K1 on CUDA.
+  chain kernel K1 on CUDA;
+* under data parallelism (``mesh``, set by the trainer: rays sharded over
+  the ranks of ``nunerf_tpu_torch.parallel``) the step is still the global
+  one, as XLA makes the sharded JAX step: every reduction over rays reads
+  through ``parallel.mesh.global_sum``, every draw takes the global shape
+  and keeps this rank's rows, and the occlusion loss's top-K runs over the
+  global priorities (each rank marches only its own selected points).
+  One process is the mesh of one rank (the default), where every global
+  reduction and draw is the local one.
 
 Two opt-in gates, off by default as in the JAX package (cfg key, else env):
 ``fused_sdf`` / ``NUNERF_FUSED_SDF`` sends ``sdf_all`` through the
@@ -51,15 +59,20 @@ from nunerf_tpu_torch.ops.geometry import normalize
 from nunerf_tpu_torch.ops.sampling import get_intersection, merge_z_vals, neus_upsample
 from nunerf_tpu_torch.ops.srgb import linear_to_srgb
 from nunerf_tpu_torch.ops.volume import alpha_to_weights
+from nunerf_tpu_torch.parallel.mesh import (gather_rows, global_mean, global_sum,
+                                            one_process_mesh, rand_rows)
 
 # JAX parameter-tree key -> submodule name
 PARAM_KEYS = {"sdf": "sdf_net", "var": "var_net", "nerf": "outer_nerf",
               "shade": "color_net", "inf_out": "inf_out"}
 
 
-def masked_mean(x, mask, eps: float = 1e-8):
+def masked_mean(x, mask, mesh, eps: float = 1e-8):
+    """The mean of ``x`` where ``mask`` over the global batch of ``mesh``
+    (numerator and count summed over the ranks in one collective)."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=eps)
+    num, den = global_sum(torch.stack([torch.sum(x * m), torch.sum(m)]), mesh)
+    return num / torch.clamp(den, min=eps)
 
 
 class ShapeRenderer(nn.Module):
@@ -110,6 +123,9 @@ class ShapeRenderer(nn.Module):
         self.inf_out = InfOutNetwork(device=dev)
         self.init_params(torch.Generator().manual_seed(seed))
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # the data-parallel mesh (``parallel.mesh.Mesh``) whose rank's rows
+        # this renderer renders; the trainer sets it
+        self.mesh = one_process_mesh(dev)
 
     def init_params(self, generator: torch.Generator):
         """Re-draw every parameter from a CPU ``generator``."""
@@ -135,7 +151,7 @@ class ShapeRenderer(nn.Module):
         return self.var_net(x)
 
     def _rand(self, shape, generator):
-        return torch.rand(shape, generator=generator, device=self.device)
+        return rand_rows(shape, self.mesh, generator, self.device)
 
     # ----- sampling ----------------------------------------------------
     def _bg_tail(self, far, rn, perturb, generator):
@@ -265,15 +281,12 @@ class ShapeRenderer(nn.Module):
     def _occ_loss(self, points, sdf, grads, dirs, occ_prob, reflective,
                   valid_mask, generator):
         """Occlusion loss (renderer.py:708-736) on a fixed-K random subset."""
-        k = min(int(self.cfg["occ_loss_max_pn"]), points.shape[0])
         inner = torch.linalg.norm(points, dim=-1) < 0.999
         sdf_ok = torch.abs(sdf) < self.cfg["occ_sdf_thresh"]
         facing = torch.sum(grads * dirs, dim=-1) < 0
         mask = (inner & sdf_ok & facing & valid_mask).detach()
 
-        pri = self._rand(mask.shape, generator)
-        pri = torch.where(mask, pri, torch.full_like(pri, -1.0))
-        idx = torch.topk(pri, k).indices
+        idx = self._occ_select(mask, generator)
         sel_valid = mask[idx]
         sel_pts = points[idx].detach()
         sel_ref = occ_prob[idx]
@@ -282,23 +295,43 @@ class ShapeRenderer(nn.Module):
         _, inter_prob, _ = get_intersection(self.sdf, self.inv_s, sel_pts,
                                             sel_dirs, sn0=64, sn1=16)
         occ_gt = torch.sum(inter_prob, dim=-1, keepdim=True)
-        return masked_mean(torch.abs(sel_ref - occ_gt)[..., 0], sel_valid)
+        return masked_mean(torch.abs(sel_ref - occ_gt)[..., 0], sel_valid, self.mesh)
 
-    @staticmethod
-    def _init_sdf_reg(points, sdf, step: float):
-        """InitSDFRegLoss (network/loss.py:115-149), masked fixed-shape."""
+    def _occ_select(self, mask, generator):
+        """The occlusion loss's subset: the ``occ_loss_max_pn`` points (all,
+        if fewer) of highest random priority, invalid points ranked last.
+        The priorities and the top-K are global, over every rank's mask:
+        ``occ_loss_max_pn`` points in all, and a rank keeps the indices of
+        its own, a number that varies by rank."""
+        mesh, n = self.mesh, mask.shape[0]
+        mask_all = gather_rows(mask, mesh)
+        k = min(int(self.cfg["occ_loss_max_pn"]), mask_all.shape[0])
+        pri = torch.rand(mask_all.shape, generator=generator, device=self.device)
+        pri = torch.where(mask_all, pri, torch.full_like(pri, -1.0))
+        idx = torch.topk(pri, k).indices
+        if mesh.size == 1:  # every index is this rank's: no filter, no sync
+            return idx
+        lo = mesh.rank * n
+        return idx[(idx >= lo) & (idx < lo + n)] - lo
+
+    def _init_sdf_reg(self, points, sdf, step: float):
+        """InitSDFRegLoss (network/loss.py:115-149), masked fixed-shape; its
+        means and count are global, and the non-linear gates read the global
+        values."""
         norm = torch.linalg.norm(points, dim=-1)
         small_mask = norm < 0.1
         bounds_s = norm - 0.1
         small_v = torch.clamp(sdf - bounds_s, min=0.0) * small_mask
-        small_mean = masked_mean(small_v, small_mask)
+        small_mean = masked_mean(small_v, small_mask, self.mesh)
         small_loss = small_mean / ((small_mean > 1e-5).float() + 1e-3)
 
         large_mask = norm > 1.05
         bounds_l = norm - 1.05
         large_v = torch.clamp(bounds_l - sdf, min=0.0) * large_mask
-        cnt = torch.sum((large_v > 1e-5).float())
-        large_loss = torch.sum(large_v) / (cnt + 1e-3)
+        large_sum, cnt = global_sum(
+            torch.stack([torch.sum(large_v), torch.sum((large_v > 1e-5).float())]),
+            self.mesh)
+        large_loss = large_sum / (cnt + 1e-3)
 
         anneal = (np.cos((step / 1000.0) * np.pi) + 1.0) / 2.0
         return small_loss * anneal, large_loss * anneal
@@ -365,7 +398,7 @@ class ShapeRenderer(nn.Module):
         color_bkgr = torch.sum(color_bkgr_s * weights_bkgr[..., None], dim=1)
 
         grad_norm = torch.linalg.norm(grads, dim=-1)
-        gradient_error = masked_mean((grad_norm - 1.0) ** 2, flat_inner)
+        gradient_error = masked_mean((grad_norm - 1.0) ** 2, flat_inner, self.mesh)
         normal_dir = torch.clamp(torch.sum(grads * flat_dirs, dim=-1), min=0.0) * flat_inner
         normal_ori_loss = torch.sum(normal_dir.reshape(rn, sn) * weights, dim=1)
 
@@ -382,13 +415,13 @@ class ShapeRenderer(nn.Module):
         outputs: Dict[str, Any] = {
             "ray_rgb": torch.clamp(color, 0.0, 1.0),
             "gradient_error": gradient_error,
-            "loss_normal": torch.mean(normal_ori_loss),
+            "loss_normal": global_mean(normal_ori_loss, self.mesh),
             "acc": acc,
             "acc_sdf": acc_sdf,
             "color_bkgr": color_bkgr,
             "color_spec": color_spec,
             "spec_mask": cand_inner,
-            "std": torch.mean(1.0 / inv_s),
+            "std": global_mean(1.0 / inv_s, self.mesh),
         }
 
         if step < 1000:
@@ -408,8 +441,9 @@ class ShapeRenderer(nn.Module):
                 if step >= self.cfg["occ_loss_step"] else self._zero())
 
         outputs["transmission"] = masked_mean(
-            occ_info["transmission_weight"][..., 0], flat_inner)
-        outputs["metallic"] = masked_mean(occ_info["metallic"][..., 0], flat_inner)
+            occ_info["transmission_weight"][..., 0], flat_inner, self.mesh)
+        outputs["metallic"] = masked_mean(occ_info["metallic"][..., 0], flat_inner,
+                                          self.mesh)
 
         if not is_train:
             outputs.update(self.compute_validation_info(
@@ -471,7 +505,7 @@ class ShapeRenderer(nn.Module):
         flat_inner = ((torch.linalg.norm(pts_in, dim=-1) <= 1.0)
                       & torch.repeat_interleave(sphere_hit, I))
         grad_norm = torch.linalg.norm(grads, dim=-1)
-        gradient_error = masked_mean((grad_norm - 1.0) ** 2, flat_inner)
+        gradient_error = masked_mean((grad_norm - 1.0) ** 2, flat_inner, self.mesh)
         normal_dir = torch.clamp(torch.sum(grads * dirs_in, dim=-1), min=0.0) * flat_inner
         normal_ori_loss = torch.sum(
             normal_dir.reshape(rn, I) * weights[:, F_:F_ + I], dim=1)
@@ -489,13 +523,13 @@ class ShapeRenderer(nn.Module):
         outputs: Dict[str, Any] = {
             "ray_rgb": torch.clamp(color, 0.0, 1.0),
             "gradient_error": gradient_error,
-            "loss_normal": torch.mean(normal_ori_loss),
+            "loss_normal": global_mean(normal_ori_loss, self.mesh),
             "acc": acc,
             "acc_sdf": acc_sdf,
             "color_bkgr": color_bkgr,
             "color_spec": color_spec,
             "spec_mask": cand_inner,
-            "std": torch.mean(1.0 / inv_s),
+            "std": global_mean(1.0 / inv_s, self.mesh),
         }
 
         # init SDF regulariser (first 1000 steps): the "large" half needs SDF
@@ -522,8 +556,9 @@ class ShapeRenderer(nn.Module):
                 if step >= cfg["occ_loss_step"] else self._zero())
 
         outputs["transmission"] = masked_mean(
-            occ_info["transmission_weight"][..., 0], flat_inner)
-        outputs["metallic"] = masked_mean(occ_info["metallic"][..., 0], flat_inner)
+            occ_info["transmission_weight"][..., 0], flat_inner, self.mesh)
+        outputs["metallic"] = masked_mean(occ_info["metallic"][..., 0], flat_inner,
+                                          self.mesh)
 
         if not is_train:
             outputs.update(self.compute_validation_info(
@@ -595,7 +630,7 @@ class ShapeRenderer(nn.Module):
         outputs["loss_rgb"] = self.compute_rgb_loss(outputs["ray_rgb"], batch["rgbs"])
         if "masks" in batch and (is_nerf or self.cfg.get("use_mask_loss", False)):
             target = outputs["acc"] if is_nerf else outputs["acc_sdf"]
-            outputs["loss_mask"] = torch.mean(torch.abs(batch["masks"] - target))
+            outputs["loss_mask"] = global_mean(torch.abs(batch["masks"] - target), self.mesh)
         return outputs
 
     @torch.no_grad()

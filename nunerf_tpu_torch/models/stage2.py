@@ -27,7 +27,12 @@ Differences of form from the JAX package, not of result:
 * ``step`` is a Python int; the freeze gates that read the live ``inv_s``
   stay tensors (``torch.where`` on a detached copy), so no step waits for
   the device;
-* nothing in stage 2 draws random numbers.
+* nothing in stage 2 draws random numbers;
+* under data parallelism (``mesh``, set by the trainer, as for stage 1) the
+  step's reductions over rays (the eikonal term, ``std``, the logged
+  ``ior_glass`` and shell ``thickness_mean``, and the losses of
+  ``train/loss.py``) are global; the frozen stage-1 submodule keeps the
+  one-process mesh, since stage 2 reads only its per-point fields.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from nunerf_tpu_torch.ops.geometry import normalize, safe_norm, safe_sqrt
 from nunerf_tpu_torch.ops.sampling import merge_z_vals, neus_upsample, sample_pdf
 from nunerf_tpu_torch.ops.srgb import linear_to_srgb, srgb_to_linear
 from nunerf_tpu_torch.ops.volume import alpha_to_weights
+from nunerf_tpu_torch.parallel.mesh import global_mean, global_sum, one_process_mesh
 from nunerf_tpu_torch.tracing.scene import Scene
 
 ZERO_THICK_DEFAULTS = dict(
@@ -160,6 +166,7 @@ class Stage2Renderer(nn.Module):
             # kappa 0.127)
             self.absorption = nn.Parameter(torch.full((3,), -2.0, device=dev))
         self.init_params(torch.Generator().manual_seed(seed))
+        self.mesh = one_process_mesh(dev)  # the data-parallel mesh, as ShapeRenderer's
 
     def _inner_shader(self, shader_cfg):
         """The inner object's shader.  cfg inner_diffuse_only selects the
@@ -574,8 +581,8 @@ class Stage2Renderer(nn.Module):
                 gnorm = torch.linalg.norm(grads_in, dim=-1)
                 grad_err = masked_mean(
                     (gnorm - 1.0) ** 2,
-                    inner & torch.repeat_interleave(b["active"], n_s))
-                std_out = torch.mean(1.0 / inv_s_in)
+                    inner & torch.repeat_interleave(b["active"], n_s), self.mesh)
+                std_out = global_mean(1.0 / inv_s_in, self.mesh)
             else:
                 outer = torch.linalg.norm(flat_p, dim=-1) > 1.0
                 alpha = torch.where(outer, alpha_nerf, torch.zeros_like(alpha_nerf))
@@ -647,11 +654,9 @@ class Stage2Renderer(nn.Module):
         b0 = bounces[0]
         hitf = b0["hit"].to(dt)
         ior_off = cfg.get("ior_offset", 1.0)
-        ior_glass = (torch.sum((b0["ior_raw"][..., 0] + ior_off) * hitf)
-                     / (torch.sum(hitf) + 1e-8)).detach()
+        ior_glass = self._hit_mean(b0["ior_raw"][..., 0] + ior_off, hitf)
         if "thickness" in b0:  # shell mode: mean learned shell thickness
-            outputs["thickness_mean"] = (torch.sum(b0["thickness"][..., 0] * hitf)
-                                         / (torch.sum(hitf) + 1e-8)).detach()
+            outputs["thickness_mean"] = self._hit_mean(b0["thickness"][..., 0], hitf)
             outputs["thickness_frozen"] = b0["thickness_frozen"]
         if cfg.get("learn_absorption", False):
             kappa_log = F.softplus(self.absorption).detach()
@@ -672,6 +677,13 @@ class Stage2Renderer(nn.Module):
             "specular_ref": spec_ref_out,
         })
         return outputs
+
+    def _hit_mean(self, x, hitf):
+        """The logged mean of ``x`` over the lanes that hit, global;
+        detached."""
+        x = x.detach()
+        num, den = global_sum(torch.stack([torch.sum(x * hitf), torch.sum(hitf)]), self.mesh)
+        return num / (den + 1e-8)
 
     # ----- trainer entry points -----------------------------------------
     def get_anneal_val(self, step):

@@ -14,6 +14,16 @@
   the best-PSNR checkpoint and saves at the JAX trainer's intervals.
 * ``save_checkpoint`` / ``load_checkpoint`` and ``Logger``.
 
+Data parallelism (``Trainer(cfg, n_devices=...)`` in every process of a
+``torch.distributed`` group, ``nunerf_tpu_torch.parallel``): the ranks run
+the one-process step.  Every rank draws the same global ``train_ray_num``
+indices and keeps its contiguous share; the renderer's reductions and draws
+are global (``models/stage1.py``); ``TrainStep`` averages the gradients in
+one flat all-reduce, so Adam takes the same update on every rank; the
+parameters are broadcast from rank 0 at the start and after a load; rank 0
+alone writes checkpoints, the log and validation images; ``render_image``
+splits each chunk over the ranks and gathers it.
+
 Differences of form from the JAX package, not of result:
 
 * ray indices come from ``torch.randint`` on the device with the trainer's
@@ -50,6 +60,7 @@ import torch
 
 from nunerf_tpu_torch.config import TRAINER_DEFAULTS, merge_cfg
 from nunerf_tpu_torch.device import resolve_device
+from nunerf_tpu_torch.parallel.mesh import gather_outputs, make_mesh, replicate
 from nunerf_tpu_torch.train.loss import compute_losses
 
 
@@ -57,7 +68,9 @@ class TrainStep:
     """Owns the optimizer of ``renderer``'s parameters.
 
     ``lr`` is a constant or a schedule ``optimizer step -> lr`` evaluated at
-    the number of updates taken so far, as optax evaluates its schedules."""
+    the number of updates taken so far, as optax evaluates its schedules.
+    Under the renderer's data-parallel ``mesh`` the loss is the global one and
+    the gradients are averaged over the ranks (``reduce_grads``)."""
 
     def __init__(self, renderer, lr: Union[float, Callable[[int], float]] = 5e-4):
         self.renderer = renderer
@@ -66,25 +79,46 @@ class TrainStep:
         self.optimizer = torch.optim.Adam(self.params, lr=self._lr(0),
                                           betas=(0.9, 0.999), eps=1e-8)
         self.n_updates = 0
+        self._flat_grad, self._grad_views = None, []
 
     def _lr(self, count: int) -> float:
         return self.lr(count) if callable(self.lr) else float(self.lr)
 
     def loss_fn(self, batch, step: int, generator: Optional[torch.Generator] = None):
         outputs = self.renderer.train_outputs(batch, step, generator)
-        terms = compute_losses(outputs, batch, step, self.renderer.cfg)
+        terms = compute_losses(outputs, batch, step, self.renderer.cfg, self.renderer.mesh)
         return terms["loss_total"], terms
 
     def compute_grads(self, batch, step: int, generator=None):
         """Loss terms after filling every parameter's ``.grad`` (zeros where
-        the loss does not reach a parameter, as ``jax.grad`` gives)."""
+        the loss does not reach a parameter, as ``jax.grad`` gives; the
+        ranks' average under a mesh)."""
         self.optimizer.zero_grad(set_to_none=False)
         loss, terms = self.loss_fn(batch, step, generator)
         loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.renderer.mesh.distributed:
+            self.reduce_grads(self.renderer.mesh)
         return terms
+
+    def reduce_grads(self, mesh):
+        """Average every gradient over the ranks in one flat buffer: one
+        collective a step (the average pairs with ``global_sum``'s backward,
+        ``parallel/mesh.py``).  The gradients are views of the buffer, which
+        the backward fills in place from the second step on; the first step,
+        or one whose gradients were replaced, copies them in."""
+        views = self._grad_views
+        if len(views) != len(self.params) or any(p.grad is not v
+                                                 for p, v in zip(self.params, views)):
+            self._flat_grad = torch.cat([p.grad.reshape(-1) for p in self.params])
+            self._grad_views, i = [], 0
+            for p in self.params:
+                p.grad = self._flat_grad[i:i + p.numel()].view_as(p)
+                self._grad_views.append(p.grad)
+                i += p.numel()
+        mesh.average_(self._flat_grad)
 
     def apply(self):
         for group in self.optimizer.param_groups:
@@ -97,6 +131,16 @@ class TrainStep:
         terms = self.compute_grads(batch, step, generator)
         self.apply()
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in terms.items()}
+
+
+class NullLogger:
+    """The logger of the ranks other than 0: writes nothing."""
+
+    def log(self, scalars, step, prefix="train"):
+        pass
+
+    def close(self):
+        pass
 
 
 class Logger:
@@ -163,17 +207,26 @@ class Trainer:
     (``network: stage2``: zero-thickness, or the curvature shell when
     ``zero_thickness`` is false), on ``device`` ("cuda" unless the caller
     asks for the CPU).  Stage 2's validation scores TIR-masked pixels, and
-    the shell also masks its validation loss by the object mask."""
+    the shell also masks its validation loss by the object mask.
 
-    def __init__(self, cfg: Dict[str, Any], device="cuda"):
+    ``n_devices``: the data-parallel mesh's size (``parallel.make_mesh``),
+    by default every rank of the initialised process group, one process
+    where there is none.  ``train_ray_num`` and ``test_ray_num`` must divide
+    by it."""
+
+    def __init__(self, cfg: Dict[str, Any], device="cuda", n_devices=None):
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices, device=self.device)
         self.cfg = merge_cfg(TRAINER_DEFAULTS, cfg)
         self.name = self.cfg["name"]
         self.model_dir = os.path.join(self.cfg["model_dir"], self.name)
-        os.makedirs(self.model_dir, exist_ok=True)
         self.ckpt_path = os.path.join(self.model_dir, "model.ckpt")
         self.best_ckpt_path = os.path.join(self.model_dir, "model_best.ckpt")
-        self.logger = Logger(self.model_dir)
+        if self.writes:
+            os.makedirs(self.model_dir, exist_ok=True)
+            self.logger = Logger(self.model_dir)
+        else:
+            self.logger = NullLogger()
 
         self._build_network()
         self._build_dataset()
@@ -189,6 +242,12 @@ class Trainer:
                                        seed=self.cfg["random_seed"])
         self.tree_top = (tree_keys() if self.cfg.get("network", "shape") == "stage2"
                          else PARAM_KEYS)
+        for key in ("train_ray_num", "test_ray_num"):
+            if self.renderer.cfg[key] % self.mesh.size:
+                raise ValueError(f"{key} = {self.renderer.cfg[key]} does not divide "
+                                 f"over {self.mesh.size} ranks")
+        self.renderer.mesh = self.mesh
+        replicate(self.renderer, self.mesh)
 
     def _build_dataset(self):
         from nunerf_tpu_torch.data.database import (get_database_split,
@@ -238,11 +297,16 @@ class Trainer:
             end_iter=lr_cfg["end_iter"])
         self.train = TrainStep(self.renderer, self.schedule)
 
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes checkpoints, logs and images: rank 0."""
+        return self.mesh.rank == 0
+
     # ------------------------------------------------------------------
     def sample_indices(self, step: int) -> torch.Tensor:
-        """The flat ray indices of ``step``'s batch: int64 [train_ray_num] on
-        the device.  Replace it (an attribute of the instance) to pass the
-        indices in."""
+        """The flat ray indices of ``step``'s global batch: int64
+        [train_ray_num] on the device, the same on every rank.  Replace it
+        (an attribute of the instance) to pass the indices in."""
         return torch.randint(0, self.num_rays, (self.renderer.cfg["train_ray_num"],),
                              generator=self.index_generator, device=self.device)
 
@@ -255,9 +319,11 @@ class Trainer:
         return {k: v[idx] for k, v in self.store.items()}
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
-        """One optimizer step at ``step``; the detached loss terms, on the
-        device."""
-        return self.train(self.batch(self.sample_indices(step)), step)
+        """One optimizer step at ``step`` on this rank's rows of the global
+        batch; the detached loss terms (global), on the device."""
+        idx = self.sample_indices(step)
+        idx = idx[self.mesh.rows(idx.shape[0] // self.mesh.size)]
+        return self.train(self.batch(idx), step)
 
     # ------------------------------------------------------------------
     def params_tree(self):
@@ -280,19 +346,41 @@ class Trainer:
         return out
 
     def save(self, path: str, step: int, best_para: float):
-        save_checkpoint(path, step, self.params_tree(), self.opt_state_tree(), best_para)
+        """Write a checkpoint (rank 0 only)."""
+        if self.writes:
+            save_checkpoint(path, step, self.params_tree(), self.opt_state_tree(),
+                            best_para)
+
+    def read_checkpoint(self, path: str):
+        """``load_checkpoint(path)`` as rank 0 reads it, on every rank: no
+        other rank opens the file, so ``model_dir`` need not be shared.  A
+        read that fails on rank 0 raises on every rank."""
+        sent = None
+        if self.writes:
+            try:
+                sent = load_checkpoint(path)
+            except Exception as e:
+                self.mesh.from_rank0(f"rank 0 could not read {path}: {e!r}")
+                raise
+        got = self.mesh.from_rank0(sent)
+        if isinstance(got, str):
+            raise RuntimeError(got)
+        return got
 
     def load(self, path: str):
         """Restore the parameters and Adam from a checkpoint of either
-        package; (step, best_para)."""
+        package; (step, best_para).  Rank 0 reads the file and sends every
+        rank its contents (parameters, Adam's moments and count), so the
+        ranks go on bit-equal."""
         from nunerf_tpu_torch.convert import jax_tree_to_named, load_jax_params
 
-        step, params, opt_state, best = load_checkpoint(path)
+        step, params, opt_state, best = self.read_checkpoint(path)
         load_jax_params(self.renderer, params, self.tree_top)
         self.train.optimizer.state.clear()
         if opt_state is None:
             self.train.n_updates = int(step)
-            print(f"{path}: a JAX checkpoint; its optimizer state (flax msgpack) "
+            if self.writes:
+                print(f"{path}: a JAX checkpoint; its optimizer state (flax msgpack) "
                   f"cannot be read, so Adam starts afresh at step {step}")
             return step, best
         self.train.n_updates = int(opt_state["count"])
@@ -309,9 +397,11 @@ class Trainer:
         return step, best
 
     def _load_if_exists(self):
-        if os.path.exists(self.ckpt_path):
+        # rank 0's file decides for every rank
+        if self.mesh.from_rank0(os.path.exists(self.ckpt_path)):
             step, best = self.load(self.ckpt_path)
-            print(f"resumed from {self.ckpt_path} at step {step}")
+            if self.writes:
+                print(f"resumed from {self.ckpt_path} at step {step}")
             return step, best
         return 0, 0.0
 
@@ -367,6 +457,9 @@ class Trainer:
                 self.save(self.ckpt_path, step, best_para)
 
         self.save(self.ckpt_path, cfg["total_step"], best_para)
+        # no rank leaves before rank 0's last checkpoint is on disk: a run
+        # that follows resumes from it
+        self.mesh.barrier()
         return best_para
 
     # ------------------------------------------------------------------
@@ -389,7 +482,8 @@ class Trainer:
     @torch.no_grad()
     def render_image(self, info, step: int):
         """Chunked full-image render of one view's imgs_info, chunks of
-        ``test_ray_num`` rays (the last padded with copies of its last ray).
+        ``test_ray_num`` rays (the last padded with copies of its last ray),
+        each split over the mesh's ranks and gathered on every rank.
 
         Returns (outputs dict incl. gt_rgb, h, w): numpy, on the host.
         Shared by per-step validation and the test-split evaluator
@@ -405,6 +499,8 @@ class Trainer:
             batch, h, w = construct_ray_batch(info, cfg.get("fixed_camera", False))
 
         trn = cfg["test_ray_num"]
+        n_local = trn // self.mesh.size
+        rows = self.mesh.rows(n_local)
         rn = batch["rays_o"].shape[0]
         dev_batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
                      for k, v in batch.items()}
@@ -415,10 +511,11 @@ class Trainer:
                 sl = v[i0:i0 + trn]
                 if sl.shape[0] < trn:  # fixed shapes: pad with the last ray
                     sl = torch.cat([sl, sl[-1:].expand(trn - sl.shape[0], *sl.shape[1:])])
-                cur[k] = sl
+                cur[k] = sl[rows]
             out = self.renderer.test_outputs(cur, step)
-            chunks.append({k: np.atleast_1d(v.detach().float().cpu().numpy())
-                           for k, v in out.items() if torch.is_tensor(v)})
+            out = gather_outputs({k: v.detach().float() for k, v in out.items()
+                                  if torch.is_tensor(v)}, n_local, self.mesh)
+            chunks.append({k: np.atleast_1d(v.cpu().numpy()) for k, v in out.items()})
 
         outputs = {k: np.concatenate([c[k] for c in chunks], 0)[:rn] for k in chunks[0]}
         outputs["gt_rgb"] = batch["rgbs"]
@@ -441,6 +538,8 @@ class Trainer:
         psnr = compute_psnr(gt, pr)
         ssim = compute_ssim(gt.reshape(h, w, 3), pr.reshape(h, w, 3))
         self.logger.log({"psnr": psnr, "ssim": ssim}, step, prefix="val")
+        if not self.writes:
+            return psnr
         try:
             dump_validation_images(outputs, h, w,
                                    os.path.join("data", "train_vis", self.name),

@@ -637,3 +637,35 @@ def test_render_masks_with_k3_match_the_plain_closest_hit(cuda, tmp_path):
         assert want.any() and not want.all()
         np.testing.assert_array_equal(got, want)
     assert out.endswith("mask")
+
+
+@pytest.mark.cuda
+def test_world_size_1_nccl_step_equals_the_plain_step(cuda, tmp_path):
+    """Three small stage-1 steps at 25000 (perturbed samples, an occlusion
+    subset of 64 points) and three small stage-2 steps through the mesh of a
+    one-rank ``nccl`` group, where every collective runs (the global sums,
+    the occlusion mask's gather, the gradient all-reduce): bit-equal to the
+    same steps with no mesh (``chip_smoke.phase_parallel`` at full width)."""
+    import torch.distributed as dist
+    from chip_smoke import SMALL_CFG, SMALL_S2_CFG, parallel_steps
+    from nunerf_tpu_torch.parallel.mesh import make_mesh
+    from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    scene = Scene(extract_geometry(lambda p: np.linalg.norm(p, axis=-1) - 0.5, resolution=16),
+                  tile=512, device=cuda)
+    cfgs = (dict(SMALL_CFG, perturb=1.0, occ_loss_max_pn=64), SMALL_S2_CFG)
+    ref = {k: parallel_steps(k, cuda, None, scene, 3, *cfgs) for k in ("s1", "s2")}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        got = {k: parallel_steps(k, cuda, mesh, scene, 3, *cfgs) for k in ("s1", "s2")}
+    finally:
+        dist.destroy_process_group()
+    for k in ("s1", "s2"):
+        assert got[k]["terms"] == ref[k]["terms"], k
+        assert got[k]["collectives_per_step"] > 0 and len(got[k]["reduce_ms"]) == 3
+        for n, p in ref[k]["params"].items():
+            assert torch.equal(got[k]["params"][n], p), (k, n)
+    assert got["s1"]["launches"]["chain_fwd"] > 0 and got["s2"]["launches"]["closest_hit"] > 0

@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n, bad = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 57, res.stdout
+    assert int(n) >= 60, res.stdout
     assert bad == "[]", bad
 
 
@@ -88,6 +88,20 @@ def test_probe_walks_the_tool_modules():
                 "tools.relight_backend", "tracing.mesh_reg", "tracing.silhouette",
                 "ops.sphere_tracing"):
         assert f"nunerf_tpu_torch.{mod}" in names, mod
+
+
+def test_probe_walks_the_parallel_modules():
+    """The import probe reaches data parallelism's modules, and importing
+    them joins no process group."""
+    import pkgutil
+
+    import nunerf_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
+                                                   "nunerf_tpu_torch.")}
+    for mod in ("parallel", "parallel.mesh", "parallel.multihost"):
+        assert f"nunerf_tpu_torch.{mod}" in names, mod
+    import nunerf_tpu_torch.parallel.multihost  # noqa: F401
+    assert not torch.distributed.is_initialized()
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
