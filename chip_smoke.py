@@ -17,13 +17,13 @@ Phases (any failure exits non-zero):
      259 and 512; the 217-deep layer; last layers of 1, 3, 64 and 257 with
      no activation, a relu or a softplus), f32 and bf16; K2's bf16 data pass
      also against f32 products of its own stashes, and on one-layer probes
-     whose dx is the f32 weights to the last bit; K3, tile-culled over the
-     scene's index, in its tolerant mode (the scene's default: the
-     barycentric tolerance of the sweeps and of the JAX package's default
-     closest hit) and its exact mode (the Pallas kernel's), on the
-     full-width mesh at 1024, 5000 and 131,072 rays (its pair counts and the
-     bound of its culled work beside the brute sweep's, its time in both
-     modes), against the port's brute sweep and tile-culled descent with no
+     whose dx is the f32 weights to the last bit; K3, a warp a ray over the
+     scene's two-level box index, in its tolerant mode (the scene's default:
+     the barycentric tolerance of the sweeps and of the JAX package's
+     default closest hit) and its exact mode (the Pallas kernel's), on the
+     full-width mesh at 1024, 5000 and 131,072 rays (its pair counts, the
+     bounds of the flat and of the two-level culled work beside the brute
+     sweep's, its time in both modes and its device time by kernel), against the port's brute sweep and tile-culled descent with no
      ray allowed to disagree on ``hit``, and on an adversarial box mesh;
   4. correctness: a small stage-1 step, a small stage-2 step and a small
      shell step on the card (kernels on) against the same steps on the CPU
@@ -76,7 +76,7 @@ Phases (any failure exits non-zero):
      launch counts read as a main path's: ``render-mask`` on the raw 512^3
      mesh for every view of the trainer's scene at 800x800 (K3 on every
      pixel, path ``render_mask``; K3 timed at the chosen chunk and a whole
-     view, its bin pass's share; two views held to the plain closest hit,
+     view, beside both bounds, its device time by kernel; two views held to the plain closest hit,
      pixel for pixel), ``mask-erosion`` (read back by the database; the
      device erosion against its numpy twin), ``postprocess-outer`` on the
      remeshed mesh (``postprocess_outer``: 64 views through K3; its visible
@@ -784,14 +784,35 @@ def phase_kernels_heads(dev):
 
 
 def k3_bound(ri, index, rn, stats):
-    """The least time of the culled work this run's rays needed, and what
-    bounds it: every (ray, tile) box test and every ray-triangle pair swept
-    (the kernel's own counts) at the f32 peak without tensor cores, against
-    the rays, the index and the outputs (t, index, hit) moved once."""
+    """The least time of the flat culled work this run's rays needed, and
+    what bounds it: every (ray, tile) box test and every ray-triangle pair
+    swept (the kernel's own counts) at the f32 peak without tensor cores,
+    against the rays, the index and the outputs (t, index, hit) moved once.
+    Kept beside ``k3_bound_two_level`` so that the row stays comparable
+    with the flat index's."""
     n_tiles = index.box.shape[0]
     flops = rn * n_tiles * ri.OPS_PER_BOX + int(stats[1]) * ri.OPS_PER_PAIR
     nbytes = 24 * rn + 40 * index.v0.shape[0] + 24 * n_tiles + 9 * rn
     return bound_ms(flops, nbytes, "float32")
+
+
+def k3_bound_two_level(ri, index, ro, rd, stats):
+    """The least time of the two-level culled work of these rays: every
+    (ray, group) box test, the tile box tests of the groups that pass (the
+    plain group test on these rays) and every ray-triangle pair swept (the
+    kernel's count), at the f32 peak, against the rays, the index with its
+    group boxes and the outputs moved once.  Returns (ms, what bounds it,
+    the tile box tests)."""
+    n_tiles, n_groups, g = index.box.shape[0], index.gbox.shape[0], index.group
+    sizes = torch.clamp(n_tiles - g * torch.arange(n_groups, device=ro.device), max=g)
+    tile_tests = sum(int((ri.group_candidates_reference(ro[i:i + 16384], rd[i:i + 16384],
+                                                        index).long() * sizes).sum())
+                     for i in range(0, ro.shape[0], 16384))
+    rn = ro.shape[0]
+    flops = ((rn * n_groups + tile_tests) * ri.OPS_PER_BOX
+             + int(stats[1]) * ri.OPS_PER_PAIR)
+    nbytes = 24 * rn + 40 * index.v0.shape[0] + 24 * (n_tiles + n_groups) + 9 * rn
+    return (*bound_ms(flops, nbytes, "float32"), tile_tests)
 
 
 def sweep_agreement(got, ref, ro, rd, tri, what, strict=True):
@@ -837,7 +858,7 @@ def sweep_agreement(got, ref, ro, rd, tri, what, strict=True):
 
 
 def phase_kernel_k3(scene, dev):
-    """K3, tile-culled over the scene's index, against its plain version on
+    """K3, a warp a ray over the scene's two-level index, against its plain version on
     the full-width mesh, in the scene's tolerant mode (the barycentric
     tolerance of the brute sweep and of the JAX package's default closest
     hit) and in the exact mode (the Pallas kernel's): ``t``, index and ``hit``
@@ -851,9 +872,10 @@ def phase_kernel_k3(scene, dev):
     index equal but for ties), and against the brute sweep at R = 131,072
     (``hit`` held; rays whose ``t`` or index differ otherwise counted, with
     how grazing they are: the two sweeps order their operations apart, and a
-    grazing hit's f32 ``t`` is ill-conditioned); the kernel's lists
-    against the plain box test; the pairs it tested and the bound of that
-    culled work beside the brute sweep's; its time in both modes."""
+    grazing hit's f32 ``t`` is ill-conditioned); the kernel's candidates
+    against the plain box test, exactly; the pairs it tested and the bounds
+    of the flat and the two-level culled work beside the brute sweep's; its
+    time in both modes and its device time by kernel."""
     from nunerf_tpu_torch.ops import ray_intersect as ri
     from nunerf_tpu_torch.tracing import intersect as ti
     from nunerf_tpu_torch.tracing.probes import adversarial_rays, box_mesh
@@ -912,11 +934,11 @@ def phase_kernel_k3(scene, dev):
             cand = ri.cull_candidates_cuda(ro, rd, index)
             plain = ri.cull_candidates_reference(ro, rd, index)
             torch.cuda.synchronize()
-            if (plain & ~cand).any() or int(cand.sum()) != pairs_tol:
-                raise AssertionError("K3's lists miss a pair of the plain box test, or "
+            if not torch.equal(plain, cand) or int(cand.sum()) != pairs_tol:
+                raise AssertionError("K3's candidates differ from the plain box test's, or "
                                      "its count disagrees with them")
-            log(f"K3 R={rn}: the kernel's lists hold all {int(plain.sum())} pairs of the "
-                f"plain box test ({int(cand.sum())} listed)")
+            log(f"K3 R={rn}: the kernel's walk over {index.gbox.shape[0]} groups finds the "
+                f"{int(plain.sum())} pairs of the plain box test, no more ({int(cand.sum())})")
         if rn == 1024:
             # the brute sweep and the culled descent answer the same query
             # with the same tolerance
@@ -951,9 +973,14 @@ def phase_kernel_k3(scene, dev):
             stats = torch.zeros(2, dtype=torch.int64, device=dev)
             ri.closest_hit_cuda(ro, rd, index, stats=stats, tol=tol)
             b, by = k3_bound(ri, index, rn, stats)
+            b2, by2, tile_tests = k3_bound_two_level(ri, index, ro, rd, stats)
+            split = k3_device_split(lambda: ri.closest_hit_cuda(ro, rd, index, tol=tol))
             log(f"K3 R={rn}: tolerant {ms['tolerant']:.4f} ms, exact {ms['exact']:.4f} ms, "
-                f"bound of the culled work {b:.4f} ms ({by}), bound of the brute sweep "
-                f"{brute_b:.4f} ms" + (f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
+                f"bound of the flat culled work {b:.4f} ms ({by}), of the two-level work "
+                f"{b2:.4f} ms ({by2}; {index.gbox.shape[0]} groups of {index.group} tiles, "
+                f"{tile_tests / rn:.1f} tile tests a ray), bound of the brute sweep "
+                f"{brute_b:.4f} ms; device ms a call by kernel {split}"
+                + (f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
             if rn == 1024:
                 brute_ms = cuda_ms(lambda: ti.ray_mesh_intersect(ro, rd, *tri, tile=scene.tile), 2)
                 culled_ms = cuda_ms(lambda: ti.ray_mesh_intersect_culled(
@@ -962,12 +989,17 @@ def phase_kernel_k3(scene, dev):
                     f"{culled_ms:.1f} ms ({rounds[0]} rounds, one host sync each)")
                 rec.update(max_abs_err=err_tol, ms=ms["tolerant"], ms_exact=ms["exact"],
                            plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                           bound_ms_two_level=b2, bound_by_two_level=by2,
+                           groups=index.gbox.shape[0], device_ms_by_kernel=split,
                            box_pairs_passed=pairs_tol, tri_pairs_tested=tests_tol,
                            brute_ms=brute_ms, culled_ms=culled_ms, culled_rounds=rounds[0],
-                           shape=f"R={rn} rays x T={n_tris} triangles, f32, tile-culled "
-                                 f"({index.box.shape[0]} tiles of {index.tile})")
+                           shape=f"R={rn} rays x T={n_tris} triangles, f32, a warp a ray "
+                                 f"over {index.box.shape[0]} tiles of {index.tile} in "
+                                 f"{index.gbox.shape[0]} groups of {index.group}")
             else:
                 rec.update(ms_r131072=ms["tolerant"], ms_exact_r131072=ms["exact"],
+                           bound_ms_r131072=b, bound_ms_two_level_r131072=b2,
+                           device_ms_by_kernel_r131072=split,
                            box_pairs_passed_r131072=pairs_tol,
                            tri_pairs_tested_r131072=tests_tol)
 
@@ -1877,19 +1909,16 @@ def phase_shell_pipeline(dev, work, ckpt1, outer_mesh):
 
 def k3_device_split(fn, reps=3):
     """Device time of K3's kernels over ``reps`` calls of ``fn``, by kernel
-    (``torch.profiler``, as ``tools/prof_k3.py`` splits it): ({name: ms a
-    call}, the bin pass's share of K3's device time), or ({}, None) where
-    the profiler shows no device time."""
+    (``torch.profiler``, as ``tools/prof_k3.py`` splits it): {name: ms a
+    call}, empty where the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kern = {e.key.split("(")[0]: e.device_time_total / (1e3 * reps)
+    return {e.key.split("(")[0]: e.device_time_total / (1e3 * reps)
             for e in prof.key_averages() if "k3_" in e.key}
-    total = sum(kern.values())
-    return kern, (sum(v for k, v in kern.items() if "k3_bin" in k) / total if total else None)
 
 
 def visible_face_ties(of, verts, tris, faces, scenes, n_views=64, radius=2.0):
@@ -1994,7 +2023,8 @@ def phase_tools(dev, work, ckpt1, raw_mesh, outer_mesh):
     """The mask pipeline and the mesh tools through ``cli.main`` on the
     trainer's scene (100 train + 1 test views at 800x800) and
     ``phase_extract``'s meshes: ``render-mask`` on the raw 512^3 mesh (K3
-    on every pixel; K3 at the chosen chunk timed, its bin pass's share;
+    on every pixel; K3 at the chosen chunk timed beside both bounds, its
+    device time by kernel;
     two views held to the plain closest hit), ``mask-erosion`` (read back
     by the database; the device erosion against its numpy twin),
     ``postprocess-outer`` on the remeshed mesh (64 views; ``visible_faces``
@@ -2066,25 +2096,32 @@ def phase_tools(dev, work, ckpt1, raw_mesh, outer_mesh):
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     ri.closest_hit_cuda(o[mid], d[mid], scene.kernel_index, stats=stats, tol=scene.kernel_tol)
     bound, by = k3_bound(ri, scene.kernel_index, c, stats)
-    split, bin_share = k3_device_split(one_view)
+    bound2, by2, tile_tests = k3_bound_two_level(ri, scene.kernel_index, o[mid], d[mid],
+                                                 stats)
+    split = k3_device_split(one_view)
     n_tiles = scene.kernel_index.box.shape[0]
+    n_groups = scene.kernel_index.gbox.shape[0]
     rec = dict(s=secs, views=len(ids), rays=len(ids) * hw, triangles=n_tris, tiles=n_tiles,
-               launches=n_k3, chunk=c, ms_chunk=ms_chunk, ms_chunk_top=ms_top,
+               groups=n_groups, launches=n_k3, chunk=c, ms_chunk=ms_chunk, ms_chunk_top=ms_top,
                ms_view=ms_view, ms_view_one_call=ms_whole,
                rays_per_s=len(ids) * hw / secs, k3_rays_per_s=c / ms_chunk * 1e3,
-               bound_ms_chunk=bound, bound_by=by, device_ms_by_kernel=split,
-               bin_share=bin_share, box_tests_chunk=c * n_tiles,
+               bound_ms_chunk=bound, bound_by=by, bound_ms_chunk_two_level=bound2,
+               bound_by_two_level=by2, device_ms_by_kernel=split,
+               box_tests_chunk=c * n_tiles, box_tests_chunk_two_level=c * n_groups + tile_tests,
                pairs_passed_chunk=int(stats[0]), tri_pairs_chunk=int(stats[1]),
                scene_build_s=build_s)
-    log(f"render-mask on the raw mesh ({n_tris} triangles, {n_tiles} K3 tiles): "
+    log(f"render-mask on the raw mesh ({n_tris} triangles, {n_tiles} K3 tiles in "
+        f"{n_groups} groups): "
         f"{len(ids)} views of {SCENE_HW}x{SCENE_HW} in {secs:.2f} s "
         f"({rec['rays_per_s']:.0f} rays/s end to end); {n_k3} K3 launches of up to {c} "
         f"rays; K3 {ms_chunk:.3f} ms for the view's middle {c} rays "
-        f"({rec['k3_rays_per_s']:.0f} rays/s; bound {bound:.4f} ms, {by}), {ms_top:.3f} ms "
+        f"({rec['k3_rays_per_s']:.0f} rays/s; bound of the flat work {bound:.4f} ms, {by}; "
+        f"of the two-level work {bound2:.4f} ms, {by2}), {ms_top:.3f} ms "
         f"for its top {c} (all miss); a view {ms_view:.3f} ms in {-(-hw // c)} launches, "
-        f"{ms_whole:.3f} ms in one; the middle chunk's box tests {c * n_tiles}, "
-        f"{int(stats[0]) / c:.1f} passed a ray, {int(stats[1]) / c:.0f} triangles swept a "
-        f"ray; device ms a view by kernel {split} (bin share {bin_share}); the tool's "
+        f"{ms_whole:.3f} ms in one; the middle chunk's box tests {c * n_tiles} flat, "
+        f"{c * n_groups + tile_tests} over the groups ({tile_tests / c:.1f} tile tests a "
+        f"ray), {int(stats[0]) / c:.1f} passed a ray, {int(stats[1]) / c:.0f} triangles "
+        f"swept a ray; device ms a view by kernel {split}; the tool's "
         f"scene builds in {build_s:.2f} s")
 
     # two views against the plain closest hit (the culled descent at this size)
@@ -2824,9 +2861,9 @@ def main():
     # K3 at tool scale: render-mask's chunk on the raw 512^3 mesh
     tool = res_tools["render_mask"]
     rec["K3"]["tool_scale"] = {k: tool[k] for k in (
-        "triangles", "tiles", "chunk", "ms_chunk", "ms_chunk_top", "ms_view",
-        "ms_view_one_call", "bound_ms_chunk", "bound_by", "bin_share", "device_ms_by_kernel",
-        "k3_rays_per_s", "plain_hit_differs")}
+        "triangles", "tiles", "groups", "chunk", "ms_chunk", "ms_chunk_top", "ms_view",
+        "ms_view_one_call", "bound_ms_chunk", "bound_by", "bound_ms_chunk_two_level",
+        "bound_by_two_level", "device_ms_by_kernel", "k3_rays_per_s", "plain_hit_differs")}
     chunk = res_x["k1_chunk"]
     rec["K1"].update({f"{k}_n{chunk['n']}": chunk[k]
                       for k in ("ms", "plain_ms", "bound_ms", "rel_err")})
@@ -2838,7 +2875,9 @@ def main():
                 "box_pairs_passed_r131072", "tri_pairs_tested_r131072", "mode", "ms_exact",
                 "ms_exact_r131072", "brute_sweep_agreement", "culled_descent_agreement",
                 "brute_sweep_agreement_r131072", "adversarial_agreement_tile8",
-                "adversarial_agreement_tile32", "tool_scale")
+                "adversarial_agreement_tile32", "tool_scale", "bound_ms_two_level",
+                "bound_by_two_level", "groups", "device_ms_by_kernel", "bound_ms_r131072",
+                "bound_ms_two_level_r131072", "device_ms_by_kernel_r131072")
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
         counter, desc = names[k]

@@ -1,4 +1,5 @@
-// Ray / triangle-soup closest hit for Hopper (sm_90a): K3, tile-culled.
+// Ray / triangle-soup closest hit for Hopper (sm_90a): K3, a warp a ray over
+// a two-level box index.
 //
 // Replaces the Pallas TPU kernel of nunerf_tpu/ops/pallas_intersect.py:
 //   K3  _mt_kernel   (reached through pallas_ray_mesh_intersect)
@@ -19,34 +20,40 @@
 // Bound on the H100: operations.  A ray-triangle pair costs 46 f32
 // operations, a ray-box slab test 16.  The brute sweep (every ray against
 // every triangle) is 5.5 GFLOP at 1024 rays x 117k triangles, 0.08 ms at the
-// 67 TFLOP/s f32 peak; culled, the work is the box tests of every (ray, tile)
-// pair plus the triangles of the tiles a ray's box test passes, a few
-// hundredths of that.
+// 67 TFLOP/s f32 peak.  Over the index the work is the box tests of every
+// (ray, group) pair, the tile boxes of the groups that pass, and the
+// triangles of the tiles that pass: at 65,536 rays x 1.1 M triangles about a
+// tenth of the flat box work (every ray against every tile's box).
 //
-// Design: bin, then sweep, over an index built once per mesh (the mesh is
-// frozen for the whole of stage 2; CullIndex in ops/ray_intersect.py):
-// triangles Morton-sorted by centroid into tiles of T (32-128), each tile's
-// box inflated by a margin, the triangles' v0/e1/e2 gathered into tile order
-// with their f32 bits, and each slot's original index.
-//   * k3_bin: one thread a ray (its reciprocal direction formed once), a
-//     block's rays against a range of tiles whose boxes it stages in shared
-//     memory.  A ray whose slab test passes a tile
-//     appends its index to the tile's list: the lanes of a warp that pass
-//     the same tile take their slots with one atomicAdd (ballot + popc).
-//     The lists are allocated for the worst case of a chunk of rays (every
-//     ray in every list), so nothing is read back on the host.
-//   * k3_sweep: a block a tile and a part of its list (up to 32 parts, so
-//     that the tiles many rays cross, near the mesh's middle, do not hold
-//     the launch back).  The tile's triangles go into shared memory and the
-//     block's threads take rays of its list, each testing all T triangles
-//     (read as broadcasts) and keeping its best (t, original index), ties to
-//     the lower index.
-//   * A ray's best over the tiles is merged by one 64-bit atomicMin a (ray,
-//     tile) pair on the packed key (bits of t << 32 | original index): t is
-//     positive, so its bit pattern orders as the float does, and the low word
-//     breaks ties towards the lowest index.  A minimum does not depend on the
-//     order of its operands, so the result is the same from run to run,
-//     whatever order the lists fill in.
+// The index (CullIndex in ops/ray_intersect.py), built once per mesh (the
+// mesh is frozen for the whole of stage 2 and for a tool's run): triangles
+// Morton-sorted by centroid into tiles of T (1-128, 64 by default), each
+// tile's box inflated by a margin, the triangles' v0/e1/e2 gathered into tile
+// order with their f32 bits, and each slot's original index; then groups of
+// G (1-32, 32 by default) consecutive tiles, each group's box the least and
+// largest corner of its tiles' inflated boxes.
+//
+// Design: one kernel a call, one warp a ray, nothing but the answer written.
+//   * The lanes take 32 group boxes at a time and run the slab test;
+//     __ballot_sync gives the groups that pass.  For each of them, in order,
+//     lane i tests the group's tile i; for each tile that passes, each lane
+//     tests every 32nd of its T triangles and keeps its own best (t,
+//     original index).  All branching is on ballots, so it is the same for
+//     the warp's lanes.
+//   * A lane's best is the packed key bits(t) << 32 | original index: t of a
+//     hit is positive, so its bit pattern orders as the float does, and the
+//     low word breaks ties towards the lowest index.  One butterfly of
+//     minima over the warp gives the ray's answer, which lane 0 writes.  A
+//     minimum does not depend on the order of its operands and no atomic
+//     decides it: the answer is the same from run to run.
+//   * No scratch: a call is one launch whatever the number of rays and
+//     tiles, and reads nothing back on the host.
+//   * The two levels find exactly the tiles of the flat test.  A group's box
+//     holds each of its tiles' boxes (the least and largest of f32 values,
+//     exact), and the slab test is monotone in the box: (lo - o) rounds to a
+//     value no larger for a lower lo, multiplying by the same inv keeps or
+//     reverses the order as inv's sign says, so the group's [tn, tf] holds
+//     the tile's, and a tile that passes lies in a group that passes.
 //   * Culling never drops a hit.  The slab test multiplies and subtracts in
 //     f32 with a relative rounding of a few 2^-24 of the coordinates; the
 //     boxes are inflated by CULL_MARGIN (1e-3) of the mesh's size, some 10^4
@@ -59,16 +66,17 @@
 //     reaching a box the margin away takes t > 1e-3 / 1e-20 > MISS_T, and no
 //     such t is a hit.  Padding slots (v0 = 1e8, e1 = e2 = 0) have det = 0 and
 //     are never hit.  tests/test_torch_port_k3_cull.py and
-//     tests/test_torch_port_k3_tol.py hold the candidate lists to a superset
-//     of every pair the brute plain version accepts, in each mode.
+//     tests/test_torch_port_k3_tol.py hold the candidates to a superset of
+//     every pair the brute plain version accepts, in each mode, and the
+//     two-level candidates to the flat ones.
 //   * Products and sums are written with __fmul_rn / __fadd_rn / __fsub_rn,
 //     which the compiler never contracts into FMAs: t then carries the same
 //     roundings as the plain PyTorch version (one rounding an operation), and
 //     t and the index can be held to it exactly.  A contracted FMA changes t
 //     in its last bits, enough to pick the neighbour across a shared edge.
-//   * The kernels count, in stats[2] (64-bit), the (ray, tile) pairs whose
-//     box test passes and the ray-triangle pairs swept, for the bound of the
-//     culled work.
+//   * Given stats[2] (64-bit), a warp adds the (ray, tile) pairs whose box
+//     test passed and the ray-triangle pairs swept, for the bound of the
+//     culled work: one atomicAdd each a warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,11 +85,10 @@
 #define DET_EPS 1e-9f
 #define T_MIN 1e-5f
 #define SMALL_D 1e-20f
-#define RAYS_PER_BLOCK 128
-#define TILES_PER_BIN 64  // tiles a bin block tests its rays against
+#define WARPS 4           // rays a block of the closest hit
 #define MAX_TILE 128      // triangles a tile, at most
-#define SWEEP_THREADS 128
-#define MAX_PARTS 32      // blocks that may share a tile's list
+#define MAX_GROUP 32      // tiles a group, at most: one lane each
+#define FULL 0xffffffffu
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -91,13 +98,27 @@ __device__ __forceinline__ unsigned long long pack(float t, int idx) {
   return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned int)idx;
 }
 
-__global__ void k3_init(unsigned long long* __restrict__ best, int n_rays) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n_rays) best[r] = pack(MISS_T, 0);
+struct Ray {
+  float o[3], d[3], inv[3];  // inv = 1 / d, or 0 where |d| < SMALL_D
+  bool small[3];
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays_o,
+                                        const float* __restrict__ rays_d, int r) {
+  Ray ray;
+  const size_t g = (size_t)r * 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ray.o[k] = rays_o[g + k];
+    ray.d[k] = rays_d[g + k];
+    ray.small[k] = fabsf(ray.d[k]) < SMALL_D;
+    ray.inv[k] = ray.small[k] ? 0.f : __fdiv_rn(1.0f, ray.d[k]);
+  }
+  return ray;
 }
 
 // one axis of the slab test: narrows [tn, tf], false when the ray misses;
-// inv = 1 / d, or 0 where |d| < SMALL_D (then only lo <= o <= hi counts)
+// a small component passes only where lo <= o <= hi
 __device__ __forceinline__ bool slab(float o, float inv, bool small, float lo,
                                      float hi, float& tn, float& tf) {
   if (small) return lo <= o && o <= hi;
@@ -107,193 +128,174 @@ __device__ __forceinline__ bool slab(float o, float inv, bool small, float lo,
   return true;
 }
 
-// grid (ray blocks, tile ranges of TILES_PER_BIN); box [n_tiles][6] = lo, hi;
-// count [n_tiles] zeroed before; list [n_tiles][cap] of ray indices (0-based
-// in the chunk)
-__global__ void __launch_bounds__(RAYS_PER_BLOCK)
-k3_bin(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-       int r0, int n_rays, const float* __restrict__ box, int n_tiles,
-       int* __restrict__ count, int* __restrict__ list, int cap,
-       unsigned long long* __restrict__ stats) {
-  __shared__ float s_box[TILES_PER_BIN * 6];
-  const int tb = blockIdx.y * TILES_PER_BIN;
-  const int nb = min(TILES_PER_BIN, n_tiles - tb);
-  for (int i = threadIdx.x; i < nb * 6; i += RAYS_PER_BLOCK)
-    s_box[i] = box[(size_t)tb * 6 + i];
-  __syncthreads();
-  const int r = blockIdx.x * RAYS_PER_BLOCK + threadIdx.x;  // in the chunk
-  const bool live = r < n_rays;
-  float o[3] = {0.f, 0.f, 0.f}, inv[3] = {1.f, 1.f, 1.f};
-  bool small[3] = {false, false, false};
-  if (live) {
-    const size_t g = (size_t)(r0 + r) * 3;
+// the slab test of the ray against the box bx = lo (x, y, z), hi (x, y, z),
+// read as three 8-byte loads (a row of 6 floats is 8-byte aligned)
+__device__ __forceinline__ bool box_test(const Ray& ray, const float* __restrict__ bx) {
+  const float2 a = __ldg(reinterpret_cast<const float2*>(bx));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(bx) + 1);
+  const float2 c = __ldg(reinterpret_cast<const float2*>(bx) + 2);
+  const float lo[3] = {a.x, a.y, b.x}, hi[3] = {b.y, c.x, c.y};
+  float tn = 0.f, tf = __int_as_float(0x7f800000);  // [0, inf)
+  bool ok = true;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      o[k] = rays_o[g + k];
-      const float d = rays_d[g + k];
-      small[k] = fabsf(d) < SMALL_D;
-      inv[k] = small[k] ? 0.f : __fdiv_rn(1.0f, d);
-    }
-  }
-  const int lane = threadIdx.x & 31;
-  unsigned int passed = 0;
-  for (int j = 0; j < nb; ++j) {
-    const float* bx = s_box + 6 * j;
-    float tn = 0.f, tf = __int_as_float(0x7f800000);  // [0, inf)
-    bool ok = live;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      ok = ok && slab(o[k], inv[k], small[k], bx[k], bx[3 + k], tn, tf);
-    ok = ok && tn <= tf;
-    const unsigned int m = __ballot_sync(0xffffffffu, ok);
-    if (!m) continue;
-    const int leader = __ffs(m) - 1;
-    int base = 0;
-    if (lane == leader) base = atomicAdd(count + tb + j, __popc(m));
-    base = __shfl_sync(0xffffffffu, base, leader);
-    if (ok) list[(size_t)(tb + j) * cap + base + __popc(m & ((1u << lane) - 1u))] = r;
-    if (lane == leader) passed += __popc(m);
-  }
-  if (passed) atomicAdd(stats, (unsigned long long)passed);
+  for (int k = 0; k < 3; ++k)
+    ok = ok && slab(ray.o[k], ray.inv[k], ray.small[k], lo[k], hi[k], tn, tf);
+  return ok && tn <= tf;
 }
 
-// grid (n_tiles, parts): block (tile, y) takes the entries y * SWEEP_THREADS
-// + threadIdx.x + k * parts * SWEEP_THREADS of the tile's list, so that a
-// tile many rays cross is shared by up to MAX_PARTS blocks; tv0/te1/te2
-// [n_tiles * T][3] in tile order, orig [n_tiles * T]
-__global__ void __launch_bounds__(SWEEP_THREADS)
-k3_sweep(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-         int r0, const float* __restrict__ tv0, const float* __restrict__ te1,
-         const float* __restrict__ te2, const int* __restrict__ orig, int T,
-         const int* __restrict__ count, const int* __restrict__ list, int cap,
-         float lo, float hi, unsigned long long* __restrict__ best,
-         unsigned long long* __restrict__ stats) {
-  __shared__ float s_v0[MAX_TILE * 3];
-  __shared__ float s_e1[MAX_TILE * 3];
-  __shared__ float s_e2[MAX_TILE * 3];
-  __shared__ int s_id[MAX_TILE];
-  const int tile = blockIdx.x, part = blockIdx.y, stride = gridDim.y * SWEEP_THREADS;
-  const int cnt = count[tile];
-  if (cnt <= part * SWEEP_THREADS) return;  // block-uniform: nothing for this part
-  const size_t s0 = (size_t)tile * T;
-  for (int i = threadIdx.x; i < T * 3; i += SWEEP_THREADS) {
-    s_v0[i] = tv0[s0 * 3 + i];
-    s_e1[i] = te1[s0 * 3 + i];
-    s_e2[i] = te2[s0 * 3 + i];
-  }
-  for (int i = threadIdx.x; i < T; i += SWEEP_THREADS) s_id[i] = orig[s0 + i];
-  if (threadIdx.x == 0 && part == 0)
-    atomicAdd(stats + 1, (unsigned long long)cnt * T);
-  __syncthreads();
-  const int* lst = list + (size_t)tile * cap;
-  for (int i = part * SWEEP_THREADS + threadIdx.x; i < cnt; i += stride) {
-    const size_t g = (size_t)(r0 + lst[i]);
-    const float ox = rays_o[3 * g], oy = rays_o[3 * g + 1], oz = rays_o[3 * g + 2];
-    const float dx = rays_d[3 * g], dy = rays_d[3 * g + 1], dz = rays_d[3 * g + 2];
-    float best_t = MISS_T;
-    int best_i = 0;
-    for (int j = 0; j < T; ++j) {
-      const float v0x = s_v0[3 * j], v0y = s_v0[3 * j + 1], v0z = s_v0[3 * j + 2];
-      const float e1x = s_e1[3 * j], e1y = s_e1[3 * j + 1], e1z = s_e1[3 * j + 2];
-      const float e2x = s_e2[3 * j], e2y = s_e2[3 * j + 1], e2z = s_e2[3 * j + 2];
-      // pvec = d x e2
-      const float pvx = sub(mul(dy, e2z), mul(dz, e2y));
-      const float pvy = sub(mul(dz, e2x), mul(dx, e2z));
-      const float pvz = sub(mul(dx, e2y), mul(dy, e2x));
-      const float det = add(add(mul(pvx, e1x), mul(pvy, e1y)), mul(pvz, e1z));
-      const bool ok = fabsf(det) > DET_EPS;
-      const float inv_det = ok ? __fdiv_rn(1.0f, det) : 0.0f;
-      // tvec = o - v0
-      const float tvx = sub(ox, v0x), tvy = sub(oy, v0y), tvz = sub(oz, v0z);
-      const float u = mul(add(add(mul(tvx, pvx), mul(tvy, pvy)), mul(tvz, pvz)), inv_det);
-      // qvec = tvec x e1
-      const float qvx = sub(mul(tvy, e1z), mul(tvz, e1y));
-      const float qvy = sub(mul(tvz, e1x), mul(tvx, e1z));
-      const float qvz = sub(mul(tvx, e1y), mul(tvy, e1x));
-      const float v = mul(add(add(mul(qvx, dx), mul(qvy, dy)), mul(qvz, dz)), inv_det);
-      const float t = mul(add(add(mul(qvx, e2x), mul(qvy, e2y)), mul(qvz, e2z)), inv_det);
-      const bool valid = ok && (u >= lo) && (v >= lo) && (add(u, v) <= hi)
-                         && (t > T_MIN);
-      // tile order is not index order: an equal t goes to the lower index
-      if (valid && (t < best_t || (t == best_t && s_id[j] < best_i))) {
-        best_t = t;
-        best_i = s_id[j];
+// Calls f(tile) for every tile whose box test passes, in increasing order,
+// on every lane of the warp (the ray is the warp's): groups 32 at a time,
+// then the tiles of each group that passes, one a lane.
+template <class F>
+__device__ __forceinline__ void for_each_tile(const Ray& ray, const float* __restrict__ box,
+                                              int n_tiles, const float* __restrict__ gbox,
+                                              int G, int lane, F&& f) {
+  const int n_groups = (n_tiles + G - 1) / G;
+  for (int g0 = 0; g0 < n_groups; g0 += 32) {
+    const int g = g0 + lane;
+    unsigned int gm = __ballot_sync(FULL, g < n_groups && box_test(ray, gbox + (size_t)g * 6));
+    while (gm) {
+      const int t0 = (g0 + __ffs(gm) - 1) * G;
+      gm &= gm - 1;
+      const int tile = t0 + lane;
+      unsigned int tm = __ballot_sync(
+          FULL, lane < G && tile < n_tiles && box_test(ray, box + (size_t)tile * 6));
+      while (tm) {
+        f(t0 + __ffs(tm) - 1);
+        tm &= tm - 1;
       }
     }
-    if (best_t < MISS_T) atomicMin(best + g, pack(best_t, best_i));
   }
 }
 
-__global__ void k3_finish(const unsigned long long* __restrict__ best,
-                          float* __restrict__ t_out, int* __restrict__ idx_out,
-                          unsigned char* __restrict__ hit_out, int n_rays) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
+// Möller–Trumbore of the ray against the triangle at slot s, in the plain
+// version's order of operations; true with t where it is a hit
+__device__ __forceinline__ bool mt(const Ray& ray, const float* __restrict__ tv0,
+                                   const float* __restrict__ te1,
+                                   const float* __restrict__ te2, size_t s, float lo,
+                                   float hi, float& t) {
+  const float ox = ray.o[0], oy = ray.o[1], oz = ray.o[2];
+  const float dx = ray.d[0], dy = ray.d[1], dz = ray.d[2];
+  const float v0x = tv0[3 * s], v0y = tv0[3 * s + 1], v0z = tv0[3 * s + 2];
+  const float e1x = te1[3 * s], e1y = te1[3 * s + 1], e1z = te1[3 * s + 2];
+  const float e2x = te2[3 * s], e2y = te2[3 * s + 1], e2z = te2[3 * s + 2];
+  // pvec = d x e2
+  const float pvx = sub(mul(dy, e2z), mul(dz, e2y));
+  const float pvy = sub(mul(dz, e2x), mul(dx, e2z));
+  const float pvz = sub(mul(dx, e2y), mul(dy, e2x));
+  const float det = add(add(mul(pvx, e1x), mul(pvy, e1y)), mul(pvz, e1z));
+  const bool ok = fabsf(det) > DET_EPS;
+  const float inv_det = ok ? __fdiv_rn(1.0f, det) : 0.0f;
+  // tvec = o - v0
+  const float tvx = sub(ox, v0x), tvy = sub(oy, v0y), tvz = sub(oz, v0z);
+  const float u = mul(add(add(mul(tvx, pvx), mul(tvy, pvy)), mul(tvz, pvz)), inv_det);
+  // qvec = tvec x e1
+  const float qvx = sub(mul(tvy, e1z), mul(tvz, e1y));
+  const float qvy = sub(mul(tvz, e1x), mul(tvx, e1z));
+  const float qvz = sub(mul(tvx, e1y), mul(tvy, e1x));
+  const float v = mul(add(add(mul(qvx, dx), mul(qvy, dy)), mul(qvz, dz)), inv_det);
+  t = mul(add(add(mul(qvx, e2x), mul(qvy, e2y)), mul(qvz, e2z)), inv_det);
+  return ok && (u >= lo) && (v >= lo) && (add(u, v) <= hi) && (t > T_MIN);
+}
+
+// a warp a ray; tv0/te1/te2 [n_tiles * T][3] in tile order, orig [n_tiles *
+// T], box [n_tiles][6], gbox [ceil(n_tiles / G)][6]; stats may be null
+__global__ void __launch_bounds__(32 * WARPS)
+k3_closest_hit(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+               int n_rays, const float* __restrict__ tv0, const float* __restrict__ te1,
+               const float* __restrict__ te2, const int* __restrict__ orig, int T,
+               const float* __restrict__ box, const float* __restrict__ gbox,
+               int n_tiles, int G, float lo, float hi, float* __restrict__ t_out,
+               int* __restrict__ idx_out, unsigned char* __restrict__ hit_out,
+               unsigned long long* __restrict__ stats) {
+  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (r >= n_rays) return;  // warp-uniform: the ray is the warp's
+  const int lane = threadIdx.x & 31;
+  const Ray ray = load_ray(rays_o, rays_d, r);
+  unsigned long long best = pack(MISS_T, 0);
+  unsigned int tiles = 0;
+  for_each_tile(ray, box, n_tiles, gbox, G, lane, [&](int tile) {
+    ++tiles;
+    const size_t s0 = (size_t)tile * T;
+    for (int j = lane; j < T; j += 32) {
+      float t;
+      if (mt(ray, tv0, te1, te2, s0 + j, lo, hi, t)) {
+        const unsigned long long key = pack(t, orig[s0 + j]);
+        best = key < best ? key : best;
+      }
+    }
+  });
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(FULL, best, off);
+    best = other < best ? other : best;
+  }
+  if (lane == 0) {
+    const float t = __uint_as_float((unsigned int)(best >> 32));
+    t_out[r] = t;
+    idx_out[r] = (int)(unsigned int)(best & 0xffffffffull);
+    hit_out[r] = t < MISS_T * 0.5f ? 1 : 0;
+    if (stats && tiles) {
+      atomicAdd(stats, (unsigned long long)tiles);
+      atomicAdd(stats + 1, (unsigned long long)tiles * T);
+    }
+  }
+}
+
+// the candidates alone: cand [n_rays][n_tiles] (zeroed before) gets 1 where
+// the ray's box test passes the tile, by the closest hit's own walk
+__global__ void __launch_bounds__(32 * WARPS)
+k3_candidates(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+              int n_rays, const float* __restrict__ box, const float* __restrict__ gbox,
+              int n_tiles, int G, unsigned char* __restrict__ cand) {
+  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= n_rays) return;
-  const unsigned long long b = best[r];
-  const float t = __uint_as_float((unsigned int)(b >> 32));
-  t_out[r] = t;
-  idx_out[r] = (int)(unsigned int)(b & 0xffffffffull);
-  hit_out[r] = t < MISS_T * 0.5f ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+  const Ray ray = load_ray(rays_o, rays_d, r);
+  unsigned char* row = cand + (size_t)r * n_tiles;
+  for_each_tile(ray, box, n_tiles, gbox, G, lane, [&](int tile) {
+    if (lane == 0) row[tile] = 1;
+  });
+}
+
+static bool bad_shape(int n_rays, int n_tiles, int G) {
+  return n_rays < 0 || n_tiles < 0 || G < 1 || G > MAX_GROUP;
 }
 
 // ---------------------------------------------------------------- C interface
 // rays_o, rays_d [n_rays,3] f32; the index: tv0, te1, te2 [n_tiles * T, 3]
-// f32, orig [n_tiles * T] i32, box [n_tiles, 6] f32; count [n_tiles] i32 and
-// list [n_tiles * cap] i32 scratch (cap >= 1: rays a chunk); best [n_rays]
-// 64-bit scratch; stats [2] 64-bit, added to; t_out [n_rays] f32, idx_out
-// [n_rays] i32, hit_out [n_rays] bytes (0/1); lo, hi the barycentric bounds
-// of the mode.  Rays go through in chunks of cap, every launch on the stream,
-// nothing read back.  Returns a cudaError_t.
+// f32, orig [n_tiles * T] i32, box [n_tiles, 6] f32, gbox [ceil(n_tiles / G),
+// 6] f32 (8-byte aligned); stats [2] 64-bit, added to, or null; t_out
+// [n_rays] f32, idx_out [n_rays] i32, hit_out [n_rays] bytes (0/1); lo, hi
+// the barycentric bounds of the mode.  One launch on the stream, nothing
+// read back.  Returns a cudaError_t.
 extern "C" int nunerf_ray_closest_hit(
-    const float* rays_o, const float* rays_d, const float* tv0,
-    const float* te1, const float* te2, const int* orig, const float* box,
-    int n_tiles, int T, int* count, int* list, int cap,
-    unsigned long long* best, unsigned long long* stats, float* t_out,
+    const float* rays_o, const float* rays_d, const float* tv0, const float* te1,
+    const float* te2, const int* orig, const float* box, const float* gbox,
+    int n_tiles, int T, int G, unsigned long long* stats, float* t_out,
     int* idx_out, unsigned char* hit_out, int n_rays, float lo, float hi,
     void* stream) {
-  if (n_rays < 0 || n_tiles < 0 || T < 1 || T > MAX_TILE || cap < 1 ||
-      n_tiles > 65535 * TILES_PER_BIN)
+  if (bad_shape(n_rays, n_tiles, G) || T < 1 || T > MAX_TILE)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int fb = (n_rays + 255) / 256;
-  k3_init<<<fb, 256, 0, s>>>(best, n_rays);
-  if (n_tiles > 0) {
-    for (int r0 = 0; r0 < n_rays; r0 += cap) {
-      const int nr = n_rays - r0 < cap ? n_rays - r0 : cap;
-      cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int) * n_tiles, s);
-      if (e != cudaSuccess) return (int)e;
-      const dim3 bins((nr + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK,
-                      (n_tiles + TILES_PER_BIN - 1) / TILES_PER_BIN);
-      k3_bin<<<bins, RAYS_PER_BLOCK, 0, s>>>(rays_o, rays_d, r0, nr, box,
-                                              n_tiles, count, list, cap, stats);
-      int parts = (nr + SWEEP_THREADS - 1) / SWEEP_THREADS;
-      if (parts > MAX_PARTS) parts = MAX_PARTS;
-      k3_sweep<<<dim3(n_tiles, parts), SWEEP_THREADS, 0, s>>>(
-          rays_o, rays_d, r0, tv0, te1, te2, orig, T, count, list, cap, lo, hi,
-          best, stats);
-    }
-  }
-  k3_finish<<<fb, 256, 0, s>>>(best, t_out, idx_out, hit_out, n_rays);
+  const int blocks = (n_rays + WARPS - 1) / WARPS;
+  k3_closest_hit<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      rays_o, rays_d, n_rays, tv0, te1, te2, orig, T, box, gbox, n_tiles, G, lo, hi,
+      t_out, idx_out, hit_out, stats);
   return (int)cudaGetLastError();
 }
 
-// The bin pass alone, over all rays as one chunk (cap = n_rays): count and
-// list as above, for reading the kernel's candidate lists back.
-extern "C" int nunerf_ray_cull_bin(const float* rays_o, const float* rays_d,
-                                   const float* box, int n_tiles, int* count,
-                                   int* list, unsigned long long* stats,
-                                   int n_rays, void* stream) {
-  if (n_rays < 0 || n_tiles < 0 || n_tiles > 65535 * TILES_PER_BIN)
-    return (int)cudaErrorInvalidValue;
+// The candidates of the same walk: cand [n_rays, n_tiles] bytes, zeroed by
+// the caller, for reading the kernel's culling back.
+extern "C" int nunerf_ray_cull_candidates(const float* rays_o, const float* rays_d,
+                                          const float* box, const float* gbox,
+                                          int n_tiles, int G, unsigned char* cand,
+                                          int n_rays, void* stream) {
+  if (bad_shape(n_rays, n_tiles, G)) return (int)cudaErrorInvalidValue;
   if (n_rays == 0 || n_tiles == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int) * n_tiles, s);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 bins((n_rays + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK,
-                  (n_tiles + TILES_PER_BIN - 1) / TILES_PER_BIN);
-  k3_bin<<<bins, RAYS_PER_BLOCK, 0, s>>>(rays_o, rays_d, 0, n_rays, box,
-                                          n_tiles, count, list, n_rays, stats);
+  const int blocks = (n_rays + WARPS - 1) / WARPS;
+  k3_candidates<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      rays_o, rays_d, n_rays, box, gbox, n_tiles, G, cand);
   return (int)cudaGetLastError();
 }
 

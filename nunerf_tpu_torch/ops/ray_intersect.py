@@ -22,20 +22,25 @@ for every ray, the closest Möller–Trumbore hit over triangles given as
 the same comparisons, one rounding an operation).  The kernel
 (``csrc/ray_intersect.cu``) culls: it runs over a ``CullIndex``, built once
 per mesh by ``build_cull_index`` (triangles Morton-sorted into tiles with
-inflated boxes, each keeping its f32 bits and its original index), tests
-every ray against every tile's box, and sweeps only the triangles of the
-tiles that pass.  ``cull_candidates_reference`` is the plain version of that
-box test and ``closest_hit_culled_reference`` the answer built from its
-candidates alone; culling changes how the answer is found, not the answer.
+inflated boxes, each keeping its f32 bits and its original index, and groups
+of consecutive tiles with the boxes that hold theirs), one warp a ray: it
+tests the ray against every group's box, then against the tiles of the
+groups that pass, and sweeps only the triangles of the tiles that pass.
+``cull_candidates_reference`` is the plain version of the flat box test
+(every tile's box), ``cull_candidates_two_level_reference`` of the kernel's
+walk (groups, then their tiles), which finds the same tiles, and
+``closest_hit_culled_reference`` the answer built from the candidates alone;
+culling changes how the answer is found, not the answer.
 ``ray_mesh_closest_hit`` is the entry point (``Scene.intersect`` calls it):
 on CUDA tensors it launches the kernel over the index it is given, and raises
 without one; on CPU tensors, and only there, it runs the brute plain
 version.  The kernel multiplies and adds without FMA contraction, so on the
 card ``t``, the index and ``hit`` equal the plain version's exactly.
 
-``launches["closest_hit"]`` adds one per kernel call; ``launches["cull_bin"]``
-one per launch of the bin pass alone (``cull_candidates_cuda``, which reads
-the kernel's candidate lists back for the card checks).
+``launches["closest_hit"]`` adds one per kernel call (one launch, whatever
+the number of rays); ``launches["cull_bin"]`` one per launch of the
+candidates' kernel alone (``cull_candidates_cuda``, which reads the
+kernel's culling back for the card checks).
 """
 
 from __future__ import annotations
@@ -52,10 +57,11 @@ TRI_TILE = 256      # triangles per tile of the plain version's loop
 OPS_PER_PAIR = 46   # f32 multiplies, adds, subtracts and the divide of a pair
 OPS_PER_BOX = 16    # f32 operations of a ray-box slab test (3 divides, 6 subtracts, 6 multiplies, compares)
 CULL_TILE = 64      # triangles a tile of the kernel's index
+CULL_GROUP = 32     # tiles a group of the kernel's index (tools/prof_k3_groups.py)
 CULL_MARGIN = 1e-3  # box inflation, of the mesh's size (csrc/ray_intersect.cu)
 SMALL_D = 1e-20     # direction components below this take no reciprocal
-LIST_BYTES = 256 << 20  # the kernel's ray lists: rays go through in chunks under this
 MAX_CULL_TILE = 128     # MAX_TILE in csrc/ray_intersect.cu
+MAX_CULL_GROUP = 32     # MAX_GROUP in csrc/ray_intersect.cu: a lane a tile
 
 launches = {"closest_hit": 0, "cull_bin": 0}
 
@@ -143,6 +149,8 @@ class CullIndex(NamedTuple):
     orig: torch.Tensor  # [n_tiles * tile] int32: a slot's original index
     box: torch.Tensor   # [n_tiles, 6] f32: inflated lo (x, y, z), hi (x, y, z)
     tile: int
+    gbox: torch.Tensor  # [n_groups, 6] f32: the least lo and largest hi of a group's tiles
+    group: int          # tiles a group (the last may have fewer)
 
 
 def _morton3(q: np.ndarray) -> np.ndarray:
@@ -181,7 +189,7 @@ def morton_tiles(cent, tri_lo, tri_hi, n_tiles: int, tile: int):
 
 
 @torch.no_grad()
-def build_cull_index(v0, e1, e2, tile: int = CULL_TILE) -> CullIndex:
+def build_cull_index(v0, e1, e2, tile: int = CULL_TILE, group: int = CULL_GROUP) -> CullIndex:
     """K3's index of the triangles ``(v0, e1, e2)`` [T, 3] f32, on their
     device: built once per mesh, on the host.
 
@@ -192,14 +200,19 @@ def build_cull_index(v0, e1, e2, tile: int = CULL_TILE) -> CullIndex:
     ``CULL_MARGIN`` of the mesh's size (the larger of its extent and its
     largest coordinate) on every side.  ``v0``/``e1``/``e2`` of the tile order
     are gathered from the given tensors, so every triangle keeps its f32
-    bits; the last tile's free slots are never-hit padding."""
+    bits; the last tile's free slots are never-hit padding.  Each run of
+    ``group`` consecutive tiles (fewer in the last) forms a group whose box
+    is the least ``lo`` and the largest ``hi`` of its tiles' f32 boxes."""
     if not 1 <= tile <= MAX_CULL_TILE:
         raise ValueError(f"tile {tile}: 1 to {MAX_CULL_TILE} triangles")
+    if not 1 <= group <= MAX_CULL_GROUP:
+        raise ValueError(f"group {group}: 1 to {MAX_CULL_GROUP} tiles")
     dev = v0.device
     a0, a1, a2 = (a.detach().cpu().numpy().astype(np.float64) for a in (v0, e1, e2))
     real = np.flatnonzero((a1 != 0).any(1) & (a2 != 0).any(1))
     n = len(real)
     n_tiles = -(-n // tile)
+    n_groups = -(-n_tiles // group)
     slots = n_tiles * tile
     order = np.zeros(slots, np.int64)
     box = np.zeros((n_tiles, 6), np.float32)
@@ -213,6 +226,10 @@ def build_cull_index(v0, e1, e2, tile: int = CULL_TILE) -> CullIndex:
                                    float(np.abs(corners).max()))
         box[:, :3] = lo - margin
         box[:, 3:] = hi + margin
+    grouped = np.concatenate([np.full((n_groups * group - n_tiles, 3), np.inf, np.float32),
+                              np.full((n_groups * group - n_tiles, 3), -np.inf, np.float32)], 1)
+    grouped = np.concatenate([box, grouped]).reshape(n_groups, group, 6)
+    gbox = np.concatenate([grouped[:, :, :3].min(1), grouped[:, :, 3:].max(1)], 1)
     idx = torch.as_tensor(order, device=dev)
     pad = torch.arange(slots, device=dev) >= n
 
@@ -223,16 +240,14 @@ def build_cull_index(v0, e1, e2, tile: int = CULL_TILE) -> CullIndex:
 
     return CullIndex(v0=gather(v0, 1e8), e1=gather(e1, 0.0), e2=gather(e2, 0.0),
                      orig=torch.as_tensor(order.astype(np.int32), device=dev),
-                     box=torch.as_tensor(box, device=dev), tile=tile)
+                     box=torch.as_tensor(box, device=dev), tile=tile,
+                     gbox=torch.as_tensor(gbox.astype(np.float32), device=dev), group=group)
 
 
-@torch.no_grad()
-def cull_candidates_reference(rays_o, rays_d, index: CullIndex):
-    """Plain version of the kernel's box test: bool [R, n_tiles], the (ray,
-    tile) pairs whose slab test against the inflated box passes, in the
-    kernel's f32 operations."""
+def _slab_test(rays_o, rays_d, box):
+    """The kernel's slab test of every ray against every box ([B, 6]: lo,
+    hi), in its f32 operations: bool [R, B]."""
     (ox, oy, oz), (dx, dy, dz) = _components(rays_o.detach(), rays_d.detach())
-    box = index.box
     tn = torch.zeros((rays_o.shape[0], box.shape[0]), device=rays_o.device)
     tf = torch.full_like(tn, float("inf"))
     ok = torch.ones_like(tn, dtype=torch.bool)
@@ -245,6 +260,33 @@ def cull_candidates_reference(rays_o, rays_d, index: CullIndex):
         tf = torch.where(small, tf, torch.minimum(tf, torch.maximum(t0, t1)))
         ok = ok & (~small | ((lo <= o) & (o <= hi)))
     return ok & (tn <= tf)
+
+
+@torch.no_grad()
+def cull_candidates_reference(rays_o, rays_d, index: CullIndex):
+    """Plain version of the flat box test: bool [R, n_tiles], the (ray, tile)
+    pairs whose slab test against the tile's inflated box passes, in the
+    kernel's f32 operations."""
+    return _slab_test(rays_o, rays_d, index.box)
+
+
+@torch.no_grad()
+def group_candidates_reference(rays_o, rays_d, index: CullIndex):
+    """The first level of the kernel's walk: bool [R, n_groups], the (ray,
+    group) pairs whose slab test against the group's box passes."""
+    return _slab_test(rays_o, rays_d, index.gbox)
+
+
+@torch.no_grad()
+def cull_candidates_two_level_reference(rays_o, rays_d, index: CullIndex):
+    """Plain version of the kernel's walk: bool [R, n_tiles], the tiles whose
+    box test passes within the groups whose box test passes.  Equal to
+    ``cull_candidates_reference``: a group's box holds its tiles' boxes, and
+    the f32 slab test is monotone in the box."""
+    groups = group_candidates_reference(rays_o, rays_d, index)
+    tiles = _slab_test(rays_o, rays_d, index.box)
+    group_of = torch.arange(index.box.shape[0], device=rays_o.device) // index.group
+    return tiles & groups[:, group_of]
 
 
 @torch.no_grad()
@@ -285,13 +327,12 @@ def _lib():
     from nunerf_tpu_torch.ops.cuda_build import load
     lib = load("ray_intersect")
     if not getattr(lib, "_nunerf_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        cf = ctypes.c_float
-        lib.nunerf_ray_closest_hit.argtypes = ([vp] * 7 + [ci, ci, vp, vp, ci]
-                                               + [vp] * 5 + [ci, cf, cf, vp])
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.nunerf_ray_closest_hit.argtypes = ([vp] * 8 + [ci] * 3 + [vp] * 4
+                                               + [ci, cf, cf, vp])
         lib.nunerf_ray_closest_hit.restype = ci
-        lib.nunerf_ray_cull_bin.argtypes = [vp] * 3 + [ci] + [vp] * 3 + [ci, vp]
-        lib.nunerf_ray_cull_bin.restype = ci
+        lib.nunerf_ray_cull_candidates.argtypes = [vp] * 4 + [ci, ci, vp, ci, vp]
+        lib.nunerf_ray_cull_candidates.restype = ci
         lib.nunerf_ray_error_string.argtypes = [ci]
         lib.nunerf_ray_error_string.restype = ctypes.c_char_p
         lib._nunerf_typed = True
@@ -315,14 +356,29 @@ def _validate(rays_o, rays_d, v0, e1, e2):
         raise ValueError("too many rays or triangles for 32-bit offsets")
 
 
+def _validate_index(rays_o, rays_d, index: CullIndex):
+    """The index as the kernel reads it: on the rays' device, contiguous
+    (the boxes' rows read as 8-byte pairs), its group size one a lane."""
+    _validate(rays_o, rays_d, index.v0, index.e1, index.e2)
+    n_tiles = index.box.shape[0]
+    for a in (index.v0, index.e1, index.e2, index.orig, index.box, index.gbox):
+        if a.device != rays_o.device or not a.is_contiguous() or a.data_ptr() % 8:
+            raise ValueError("the index must lie on the rays' device, contiguous and aligned")
+    if (not 1 <= index.group <= MAX_CULL_GROUP
+            or index.gbox.shape != (-(-n_tiles // index.group), 6)
+            or index.orig.shape != (n_tiles * index.tile,)
+            or index.v0.shape[0] != n_tiles * index.tile):
+        raise ValueError("the index's groups, tiles and slots disagree: build it with "
+                         "build_cull_index")
+
+
 def closest_hit_cuda(rays_o, rays_d, index: CullIndex, stats=None, tol: float = 0.0):
     """K3 on CUDA tensors over a ``CullIndex`` (``build_cull_index``) on the
-    rays' device, in the mode ``tol``.  ``stats``, an int64 CUDA tensor [2],
-    has added to it the (ray, tile) pairs whose box test passed and the ray-triangle pairs swept."""
-    _validate(rays_o, rays_d, index.v0, index.e1, index.e2)
+    rays' device, in the mode ``tol``: one launch, nothing read back.
+    ``stats``, an int64 CUDA tensor [2], has added to it the (ray, tile)
+    pairs whose box test passed and the ray-triangle pairs swept."""
+    _validate_index(rays_o, rays_d, index)
     lo, hi = bary_bounds(tol)
-    if index.box.device != rays_o.device or index.orig.device != rays_o.device:
-        raise ValueError("the index must lie on the rays' device")
     rays_o, rays_d = rays_o.detach().contiguous(), rays_d.detach().contiguous()
     rn, dev = rays_o.shape[0], rays_o.device
     t = torch.empty((rn,), dtype=torch.float32, device=dev)
@@ -330,21 +386,15 @@ def closest_hit_cuda(rays_o, rays_d, index: CullIndex, stats=None, tol: float = 
     hit = torch.empty((rn,), dtype=torch.bool, device=dev)
     if rn == 0:
         return t, idx, hit
-    n_tiles = index.box.shape[0]
-    cap = max(1, min(rn, LIST_BYTES // (4 * max(n_tiles, 1))))
-    count = torch.empty((max(n_tiles, 1),), dtype=torch.int32, device=dev)
-    lists = torch.empty((max(n_tiles, 1) * cap,), dtype=torch.int32, device=dev)
-    best = torch.empty((rn,), dtype=torch.int64, device=dev)
-    if stats is None:
-        stats = torch.zeros((2,), dtype=torch.int64, device=dev)
-    elif stats.dtype != torch.int64 or stats.shape != (2,) or stats.device != dev:
+    if stats is not None and (stats.dtype != torch.int64 or stats.shape != (2,)
+                              or stats.device != dev):
         raise ValueError("stats must be int64 [2] on the rays' device")
     lib = _lib()
     err = lib.nunerf_ray_closest_hit(
         rays_o.data_ptr(), rays_d.data_ptr(), index.v0.data_ptr(),
         index.e1.data_ptr(), index.e2.data_ptr(), index.orig.data_ptr(),
-        index.box.data_ptr(), n_tiles, index.tile, count.data_ptr(),
-        lists.data_ptr(), cap, best.data_ptr(), stats.data_ptr(), t.data_ptr(),
+        index.box.data_ptr(), index.gbox.data_ptr(), index.box.shape[0], index.tile,
+        index.group, None if stats is None else stats.data_ptr(), t.data_ptr(),
         idx.data_ptr(), hit.data_ptr(), rn, lo, hi,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -355,30 +405,23 @@ def closest_hit_cuda(rays_o, rays_d, index: CullIndex, stats=None, tol: float = 
 
 
 def cull_candidates_cuda(rays_o, rays_d, index: CullIndex):
-    """The kernel's bin pass alone, all rays in one chunk: bool [R, n_tiles],
-    the (ray, tile) pairs in its lists (the card's counterpart of
-    ``cull_candidates_reference``)."""
-    _validate(rays_o, rays_d, index.v0, index.e1, index.e2)
+    """The kernel's culling alone, by its own walk over groups and tiles:
+    bool [R, n_tiles], the (ray, tile) pairs it sweeps (the card's
+    counterpart of ``cull_candidates_reference``)."""
+    _validate_index(rays_o, rays_d, index)
     rays_o, rays_d = rays_o.detach().contiguous(), rays_d.detach().contiguous()
     rn, n_tiles, dev = rays_o.shape[0], index.box.shape[0], rays_o.device
     cand = torch.zeros((rn, n_tiles), dtype=torch.bool, device=dev)
     if rn == 0 or n_tiles == 0:
         return cand
-    count = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
-    lists = torch.empty((n_tiles, rn), dtype=torch.int32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
     lib = _lib()
-    err = lib.nunerf_ray_cull_bin(rays_o.data_ptr(), rays_d.data_ptr(),
-                                  index.box.data_ptr(), n_tiles, count.data_ptr(),
-                                  lists.data_ptr(), stats.data_ptr(), rn,
-                                  torch.cuda.current_stream().cuda_stream)
+    err = lib.nunerf_ray_cull_candidates(
+        rays_o.data_ptr(), rays_d.data_ptr(), index.box.data_ptr(), index.gbox.data_ptr(),
+        n_tiles, index.group, cand.data_ptr(), rn, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.nunerf_ray_error_string(err).decode()
-        raise RuntimeError(f"cull_bin launch failed: {msg} ({err})")
+        raise RuntimeError(f"cull_candidates launch failed: {msg} ({err})")
     launches["cull_bin"] += 1
-    filled = torch.arange(rn, device=dev)[None, :] < count[:, None].long()
-    tiles = torch.arange(n_tiles, device=dev)[:, None].expand(n_tiles, rn)[filled]
-    cand[lists[filled].long(), tiles] = True
     return cand
 
 

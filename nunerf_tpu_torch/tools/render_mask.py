@@ -29,11 +29,11 @@ from nunerf_tpu_torch.data.ray_store import (build_imgs_info, construct_nerf_ray
 from nunerf_tpu_torch.device import resolve_device
 from nunerf_tpu_torch.tracing.scene import Scene
 
-# rays a closest-hit call: K3 splits its own ray lists to fit 256 MB, so a
-# larger chunk saves only wrapper calls (about 0.1 ms each against tens of
-# ms of K3 a view at tool scale), while the chunk bounds the plain versions'
-# temporaries ([chunk, 256] per triangle tile on the CPU, [chunk, tiles] in
-# the culled descent)
+# rays a closest-hit call: K3 takes any number of rays in one launch, so a
+# larger chunk saves only wrapper calls (a view of 800x800 in 10 calls or in
+# one differs by a tenth of a millisecond on the H100), while the chunk
+# bounds the plain versions' temporaries ([chunk, 256] per triangle tile on
+# the CPU, [chunk, tiles] in the culled descent)
 CHUNK = 65536
 
 

@@ -445,8 +445,8 @@ def test_culled_closest_hit_is_exact_on_the_adversarial_box(cuda, tile):
     """Rays along the cube's faces, through its edges and vertices, with zero
     (and -0.0) direction components, from origins on the tile boxes' planes:
     t, index and hit equal the brute plain version's bit for bit; the
-    kernel's lists hold every pair of the plain box test; the pair counters
-    add up."""
+    kernel's walk finds the tiles of the plain box test, no more, no fewer;
+    the pair counters add up."""
     tri, index, o, d = _box_case(cuda, tile)
     stats = torch.zeros(2, dtype=torch.int64, device=cuda)
     got = ri.closest_hit_cuda(o, d, index, stats=stats)
@@ -456,7 +456,7 @@ def test_culled_closest_hit_is_exact_on_the_adversarial_box(cuda, tile):
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
     plain = ri.cull_candidates_reference(o, d, index)
-    assert not (plain & ~cand).any()
+    assert torch.equal(plain, cand)
     assert int(stats[0]) == int(cand.sum()) and int(stats[1]) == int(cand.sum()) * index.tile
     assert got[2].any() and not got[2].all()
 
@@ -464,7 +464,7 @@ def test_culled_closest_hit_is_exact_on_the_adversarial_box(cuda, tile):
 @pytest.mark.cuda
 def test_culled_closest_hit_with_nothing_to_do(cuda):
     """No rays; an index with no tiles (every row padding); rays whose box
-    tests all fail, so every list is empty."""
+    tests all fail, so no tile is swept."""
     tri, index, o, d = _box_case(cuda)
     for a in ri.closest_hit_cuda(o[:0], d[:0], index):
         assert a.shape == (0,)
@@ -481,20 +481,35 @@ def test_culled_closest_hit_with_nothing_to_do(cuda):
 
 
 @pytest.mark.cuda
-def test_culled_closest_hit_across_ray_chunks(cuda, monkeypatch):
-    """Lists sized for fewer rays than the call has: the rays go through in
-    chunks and the answer is the same."""
+def test_culled_closest_hit_in_one_launch_of_a_million_rays(cuda):
+    """2^20 rays against the 507 tiles of a 32,400-triangle sphere (532 M
+    ray-tile pairs) in one launch: the answer equals the plain version's on a sample of 8,192
+    rays, the counters add up to the plain box test's pairs, and two runs
+    give the same bits."""
     v0, e1, e2, _ = _sphere_soup(90, 180)
-    o, d = _rays(5000, seed=11)
+    o, d = _rays(1 << 20, seed=13)
     tri = [torch.as_tensor(a, device=cuda) for a in (v0, e1, e2)]
     ro, rd = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
     index = ri.build_cull_index(*tri)
-    whole = ri.closest_hit_cuda(ro, rd, index)
-    monkeypatch.setattr(ri, "LIST_BYTES", 4 * index.box.shape[0] * 700)
-    chunked = ri.closest_hit_cuda(ro, rd, index)
+    assert ro.shape[0] * index.box.shape[0] > 64 << 20
+    ri.reset_launches()
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    first = ri.closest_hit_cuda(ro, rd, index, stats=stats, tol=ri.BARY_TOL)
+    again = ri.closest_hit_cuda(ro, rd, index, tol=ri.BARY_TOL)
     torch.cuda.synchronize()
-    for a, b in zip(whole, chunked):
+    assert ri.launches == {"closest_hit": 2, "cull_bin": 0}
+    for a, b in zip(first, again):
         assert torch.equal(a, b)
+    sub = torch.as_tensor(np.random.RandomState(2).choice(1 << 20, 8192, replace=False),
+                          device=cuda)
+    ref = ri.closest_hit_reference(ro[sub], rd[sub], *tri, tol=ri.BARY_TOL)
+    for a, b in zip(first, ref):
+        assert a.dtype == b.dtype and torch.equal(a[sub], b)
+    pairs = sum(int(ri.cull_candidates_reference(ro[i:i + 65536], rd[i:i + 65536],
+                                                 index).sum())
+                for i in range(0, 1 << 20, 65536))
+    assert int(stats[0]) == pairs and int(stats[1]) == pairs * index.tile
+    assert first[2].any() and not first[2].all()
 
 
 @pytest.mark.cuda

@@ -1,10 +1,13 @@
 """K3's culling on the CPU: the index, the box test and the answer built from
 its candidates.
 
-The kernel tests each ray against each tile's inflated box and sweeps only
-the triangles of the tiles that pass (``csrc/ray_intersect.cu``).
-``cull_candidates_reference`` is the plain version of that box test (the
-kernel's f32 operations and margin).  Here its candidates hold every (ray,
+The kernel tests each ray against the boxes of groups of tiles, then against
+the inflated boxes of the tiles of the groups that pass, and sweeps only the
+triangles of the tiles that pass (``csrc/ray_intersect.cu``).
+``cull_candidates_reference`` is the plain version of the flat box test
+(every tile's box, the kernel's f32 operations and margin) and
+``cull_candidates_two_level_reference`` of the kernel's walk, which finds
+the same tiles bit for bit.  Here the candidates hold every (ray,
 triangle) pair that the brute plain version accepts, on a marched mesh and
 on an adversarial axis-aligned box mesh (rays along its faces, through its
 edges and vertices, with zero direction components, from origins on box
@@ -53,13 +56,21 @@ def _cases():
     return {"lumpy": (verts, tris, 64), "box": (bv, bt, 8)}
 
 
+# tiles a group: several groups on each small mesh, the last one short
+GROUPS = {"lumpy": 8, "box": 5}
+
+
 CASES = _cases()
+
+
+CANDIDATES = {"flat": ri.cull_candidates_reference,
+              "two_level": ri.cull_candidates_two_level_reference}
 
 
 def _setup(name):
     verts, tris, tile = CASES[name]
     v0, e1, e2 = (t(a) for a in pad_triangles(verts, tris, 256))
-    index = ri.build_cull_index(v0, e1, e2, tile=tile)
+    index = ri.build_cull_index(v0, e1, e2, tile=tile, group=GROUPS[name])
     if name == "box":
         o, d = adversarial_rays(verts, index.box.numpy())
     else:
@@ -67,14 +78,17 @@ def _setup(name):
     return v0, e1, e2, index, t(o), t(d)
 
 
+@pytest.mark.parametrize("group", [3, 8])
 @pytest.mark.parametrize("name", ["lumpy", "box"])
-def test_index_keeps_every_triangle_and_its_bits(name):
+def test_index_keeps_every_triangle_and_its_bits(name, group):
     verts, tris, tile = CASES[name]
     v0, e1, e2 = (t(a) for a in pad_triangles(verts, tris, 256))
-    index = ri.build_cull_index(v0, e1, e2, tile=tile)
+    index = ri.build_cull_index(v0, e1, e2, tile=tile, group=group)
     n = len(tris)
     n_tiles = -(-n // tile)
+    n_groups = -(-n_tiles // group)
     assert index.box.shape == (n_tiles, 6) and index.v0.shape == (n_tiles * tile, 3)
+    assert index.group == group and index.gbox.shape == (n_groups, 6) and n_groups > 1
     orig = index.orig[:n].long()
     # every real triangle once, the padding rows (e1 = e2 = 0) left out
     assert torch.equal(orig.sort().values, torch.arange(n))
@@ -86,15 +100,33 @@ def test_index_keeps_every_triangle_and_its_bits(name):
     tile_of = torch.arange(n) // tile
     lo, hi = index.box[tile_of, :3], index.box[tile_of, 3:]
     assert (tv.amin(1) > lo).all() and (tv.amax(1) < hi).all()
+    # each group's box is the least lo and the largest hi of its tiles'
+    # inflated boxes, the last group's tiles too
+    group_of = torch.arange(n_tiles) // group
+    glo, ghi = index.gbox[group_of, :3], index.gbox[group_of, 3:]
+    assert (glo <= index.box[:, :3]).all() and (ghi >= index.box[:, 3:]).all()
+    for g in range(n_groups):
+        tiles = index.box[g * group:(g + 1) * group]
+        assert torch.equal(index.gbox[g, :3], tiles[:, :3].amin(0))
+        assert torch.equal(index.gbox[g, 3:], tiles[:, 3:].amax(0))
+    with pytest.raises(ValueError):
+        ri.build_cull_index(v0, e1, e2, tile=tile, group=ri.MAX_CULL_GROUP + 1)
 
 
+@pytest.mark.parametrize("level", ["flat", "two_level"])
 @pytest.mark.parametrize("name", ["lumpy", "box"])
-def test_candidates_hold_every_accepted_pair(name):
+def test_candidates_hold_every_accepted_pair(name, level):
     """Every (ray, triangle) pair the brute plain version accepts (a valid
     Möller–Trumbore hit, whichever is closest) lies in a tile whose box test
-    passes; the box test is a superset of the exact slab test in float64."""
+    passes; the box test is a superset of the exact slab test in float64.
+    The kernel's walk (groups, then their tiles) finds the flat test's tiles
+    bit for bit."""
     v0, e1, e2, index, o, d = _setup(name)
-    cand = ri.cull_candidates_reference(o, d, index)
+    cand = CANDIDATES[level](o, d, index)
+    if level == "two_level":
+        assert torch.equal(cand, ri.cull_candidates_reference(o, d, index))
+        groups = ri.group_candidates_reference(o, d, index)
+        assert groups.float().mean() < 1.0 and (~groups).any(1).any()
     (ox, oy, oz), (dx, dy, dz) = ri._components(o, d)
     _, valid = ri._mt(ox, oy, oz, dx, dy, dz, index.v0, index.e1, index.e2)
     tile_of = torch.arange(valid.shape[1]) // index.tile
@@ -136,16 +168,19 @@ def _edge_distance(o, d, verts, tris):
     return np.sqrt((gap ** 2).sum(-1)).min(1)
 
 
+@pytest.mark.parametrize("level", ["flat", "two_level"])
 @pytest.mark.parametrize("name", ["lumpy", "box"])
-def test_culled_answer_equals_the_plain_version_and_pallas(name):
+def test_culled_answer_equals_the_plain_version_and_pallas(name, level):
     """Bit for bit the plain version's answer on every ray.  The Pallas
     kernel contracts multiplies and adds into FMAs, so on a ray through an
     edge or a vertex it can take the neighbouring triangle or miss where the
     plain version (and K3) hit: the comparison with it is exact on the rays
     whose line keeps 1e-5 from every edge: nearly all the random rays of the
-    marched mesh, and a share of the adversarial ones."""
+    marched mesh, and a share of the adversarial ones.  ``level`` is the
+    culling the answer is built from: the flat box test or the kernel's
+    two-level walk."""
     v0, e1, e2, index, o, d = _setup(name)
-    got = ri.closest_hit_culled_reference(o, d, index)
+    got = ri.closest_hit_culled_reference(o, d, index, cand=CANDIDATES[level](o, d, index))
     ref = ri.closest_hit_reference(o, d, v0, e1, e2)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -170,9 +205,12 @@ def test_empty_inputs():
     pad = torch.full((256, 3), 1e8), torch.zeros((256, 3)), torch.zeros((256, 3))
     empty = ri.build_cull_index(*pad)
     assert empty.box.shape == (0, 6) and empty.v0.shape == (0, 3)
+    assert empty.gbox.shape == (0, 6)
+    assert ri.cull_candidates_two_level_reference(o, d, empty).shape == (len(o), 0)
     tt, ii, hh = ri.closest_hit_culled_reference(o, d, empty)
     assert (tt == ri.MISS_T).all() and not ii.any() and not hh.any()
     away = torch.tensor([[0.0, 0.0, 3.0]]), torch.tensor([[0.0, 0.0, 1.0]])
     assert not ri.cull_candidates_reference(*away, index).any()
+    assert not ri.group_candidates_reference(*away, index).any()
     tt, ii, hh = ri.closest_hit_culled_reference(*away, index)
     assert float(tt[0]) == ri.MISS_T and int(ii[0]) == 0 and not bool(hh[0])

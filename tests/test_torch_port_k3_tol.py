@@ -12,9 +12,11 @@ and the index equal where both hit but for counted ties (the sweep's own
 shared edge reached at the same depth, whose winner depends on the order of
 operations).  Cases: a marched lumpy sphere with random rays, and the
 adversarial box of ``tracing/probes.py`` (rays along its faces, through its
-edges and vertices).  The culled candidates hold every pair the tolerant
-version accepts; the culled answer equals the brute plain version bit for
-bit in both modes; the exact mode is unchanged.
+edges and vertices).  The culled candidates, of the flat box test and of the
+kernel's two-level walk (groups, then their tiles), hold every pair the
+tolerant version accepts; the answer built from either equals the brute
+plain version bit for bit in both modes, and agrees with the sweeps as the
+brute one does; the exact mode is unchanged.
 """
 
 import jax.numpy as jnp
@@ -66,12 +68,13 @@ def _random_rays(n, seed):
 
 MESHES = {"lumpy": _lumpy(), "box": box_mesh()}
 TILES = {"lumpy": 64, "box": 8}
+GROUPS = {"lumpy": 8, "box": 5}  # several groups on each mesh, the last one short
 
 
 def _setup(name):
     verts, tris = MESHES[name]
     v0, e1, e2 = (t(a) for a in ti.pad_triangles(verts, tris, 256))
-    index = ri.build_cull_index(v0, e1, e2, tile=TILES[name])
+    index = ri.build_cull_index(v0, e1, e2, tile=TILES[name], group=GROUPS[name])
     if name == "box":
         o, d = adversarial_rays(verts, index.box.numpy())
     else:
@@ -96,13 +99,23 @@ def _agreement(got, ref_t, ref_idx, ref_hit, o, d, tri):
     return len(differ), int(ties.sum()), float(rel.max()) if rel.size else 0.0
 
 
+CANDIDATES = {"flat": ri.cull_candidates_reference,
+              "two_level": ri.cull_candidates_two_level_reference}
+
+
+@pytest.mark.parametrize("level", ["brute", "two_level"])
 @pytest.mark.parametrize("name", ["lumpy", "box"])
-def test_tolerant_k3_agrees_with_the_sweeps(name):
+def test_tolerant_k3_agrees_with_the_sweeps(name, level):
     """The tolerant plain K3 against the port's brute sweep and the JAX
     package's default closest hit: hit equal, t within rtol 1e-6, index equal
-    but for counted ties."""
+    but for counted ties.  ``level`` is how the plain K3 finds its answer:
+    every triangle, or the triangles of the kernel's two-level walk."""
     v0, e1, e2, index, o, d = _setup(name)
-    got = ri.closest_hit_reference(o, d, v0, e1, e2, tol=TOL)
+    if level == "brute":
+        got = ri.closest_hit_reference(o, d, v0, e1, e2, tol=TOL)
+    else:
+        got = ri.closest_hit_culled_reference(
+            o, d, index, cand=ri.cull_candidates_two_level_reference(o, d, index), tol=TOL)
     port = ti.ray_mesh_intersect(o, d, v0, e1, e2, tile=256)
     jax_hit = j_ray_mesh_intersect(*(jnp.asarray(a.numpy()) for a in (o, d, v0, e1, e2)),
                                    tile=256)
@@ -131,21 +144,25 @@ def test_exact_mode_misses_what_the_tolerance_catches(name):
         assert missed > 0, "no adversarial ray separates the modes"
 
 
+@pytest.mark.parametrize("level", ["flat", "two_level"])
 @pytest.mark.parametrize("mode", ["exact", "tolerant"])
 @pytest.mark.parametrize("name", ["lumpy", "box"])
-def test_culled_answer_and_candidates_in_each_mode(name, mode):
+def test_culled_answer_and_candidates_in_each_mode(name, mode, level):
     """Every (ray, triangle) pair the mode accepts lies in a tile whose box
-    test passes, and the answer built from the candidates alone equals the
-    brute plain version bit for bit."""
+    test passes, and the answer built from the candidates alone (of the flat
+    test, or of the kernel's two-level walk, which equal each other) equals
+    the brute plain version bit for bit."""
     tol = TOL if mode == "tolerant" else 0.0
     v0, e1, e2, index, o, d = _setup(name)
-    cand = ri.cull_candidates_reference(o, d, index)
+    cand = CANDIDATES[level](o, d, index)
+    if level == "two_level":
+        assert torch.equal(cand, ri.cull_candidates_reference(o, d, index))
     (ox, oy, oz), (dx, dy, dz) = ri._components(o, d)
     _, valid = ri._mt(ox, oy, oz, dx, dy, dz, index.v0, index.e1, index.e2, tol)
     tile_of = torch.arange(valid.shape[1]) // index.tile
     assert valid.any()
     assert not (valid & ~cand[:, tile_of]).any(), "culling drops an accepted pair"
-    got = ri.closest_hit_culled_reference(o, d, index, tol=tol)
+    got = ri.closest_hit_culled_reference(o, d, index, cand=cand, tol=tol)
     ref = ri.closest_hit_reference(o, d, v0, e1, e2, tol=tol)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
