@@ -87,7 +87,16 @@ Phases (any failure exits non-zero):
      f32 render), ``sphere_trace`` of the same SDF (``sphere_trace``: K1,
      against the CPU at 64x64), ``synth-scene --colmap --shell`` with
      ``silhouette-prior``, ``hull-mesh`` and ``render-mask`` on its capture
-     database (``render_mask_prior``), and ``relight``.
+     database (``render_mask_prior``), and ``relight``;
+ 10. the leg runner (``phase_pipeline``): ``nunerf_tpu_torch.pipeline``'s
+     ``front`` leg in a working directory of its own, its launch counts read
+     as a main path's (``pipeline_front``: K1 in every sweep and the
+     extraction, K2 in the init-SDF regulariser): ``synth-scene`` at its
+     defaults, ``configs/shape/nerf/nested.yaml`` at full width cut to 200
+     steps (validations and checkpoints at 100 and 200), the 512^3
+     extraction, ``eval-geometry`` and ``eval-images`` on the test split,
+     every artifact and metric checked; then the port's ``eval_shell`` on
+     the shell pipeline's checkpoint on the card against the CPU (1e-5).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1907,6 +1916,117 @@ def phase_shell_pipeline(dev, work, ckpt1, outer_mesh):
     return paths, out
 
 
+PIPELINE_STEPS = 200   # the front leg's 30,000 steps cut to 200 (K2 in all of them)
+PIPELINE_INTERVAL = 100   # its validations and checkpoints
+EVAL_SHELL_TOL = 1e-5
+
+
+def phase_pipeline(dev, work, shell_ckpt):
+    """The leg runner's ``front`` leg (``nunerf_tpu_torch.pipeline``) in a
+    working directory of its own: ``synth-scene`` at its defaults (48 + 8
+    views of 128x128), ``train`` of ``configs/shape/nerf/nested.yaml`` at full
+    width cut to ``PIPELINE_STEPS`` steps, its 512^3 ``extract-mesh-stage1``,
+    ``eval-geometry`` against the scene's analytic outer surface and
+    ``eval-images`` on the test split.  Then the port's ``eval_shell`` on the
+    shell pipeline's checkpoint, on the card and on the CPU, against the
+    scene's meta.  Returns (launches of the leg, numbers)."""
+    import os
+
+    from nunerf_tpu_torch import pipeline as pl
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tools.eval_shell import eval_shell
+
+    t_phase = time.perf_counter()
+    leg_dir = os.path.join(work, "leg_front")
+    cut = dict(total_step=PIPELINE_STEPS, val_interval=PIPELINE_INTERVAL,
+               save_interval=PIPELINE_INTERVAL)
+    fm.reset_launches()
+    ri.reset_launches()
+    rec = pl.run_leg("front", leg_dir, device=dev, cfg_overrides={pl.S1_NESTED: cut})
+    torch.cuda.synchronize()
+    launches = dict(fm.launches, **ri.launches)
+
+    want = [os.path.join(leg_dir, p) for p in (
+        "datasets/nested/meta.json", "data/model/nested/model.ckpt",
+        "data/model/nested/model_best.ckpt", "data/model/nested/train_log.jsonl",
+        rec["meshes"]["stage1"], "data/eval/nested/eval_test.json", "runs/leg_front.json")]
+    missing = [p for p in want if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"the front leg left no {missing}")
+    if rec["steps"]["nested"]["to"] != PIPELINE_STEPS:
+        raise AssertionError(f"the front leg trained {rec['steps']}")
+    if not rec["meshes"]["stage1"].endswith(f"nested-{PIPELINE_STEPS}_simplified.ply"):
+        raise AssertionError(f"the leg's mesh is {rec['meshes']['stage1']}")
+    cham = rec["chamfer"]["outer"]["chamfer"]
+    ev = rec["eval_images"]["nested"]
+    if cham is None or not math.isfinite(cham):
+        raise AssertionError(f"eval-geometry: {rec['chamfer']}")
+    if ev["views"] != 8 or not (math.isfinite(ev["mean_psnr"])
+                                and math.isfinite(ev["mean_ssim"])):
+        raise AssertionError(f"eval-images: {ev}")
+    logs = read_log(os.path.join(leg_dir, "data/model/nested/train_log.jsonl"))
+    train = {r["step"]: r for r in logs if r["prefix"] == "train"}
+    val = {r["step"]: r for r in logs if r["prefix"] == "val"}
+    if sorted(val) != list(range(PIPELINE_INTERVAL, PIPELINE_STEPS + 1, PIPELINE_INTERVAL)) \
+            or not all(math.isfinite(r["psnr"]) for r in val.values()):
+        raise AssertionError(f"the front leg validated {val}")
+    last = train[PIPELINE_STEPS]
+    first = max(s for s in train if s < PIPELINE_STEPS) + 1
+    if not (math.isfinite(last["loss_total"]) and last["rays_per_sec"] > 0
+            and last["step_ms"] > 0):
+        raise AssertionError(f"the front leg logged {last}")
+    from nunerf_tpu_torch.config import load_cfg
+
+    # the rays a step as the renderer resolved them (the trainer's own log)
+    rays = round(last["rays_per_sec"] * last["step_ms"] / 1e3)
+    out = dict(seconds={c["command"]: c["s"] for c in rec["commands"]},
+               rays=rays, step_ms=last["step_ms"], rays_per_s=last["rays_per_sec"],
+               loss_total=last["loss_total"], val={s: (r["psnr"], r["ssim"])
+                                                   for s, r in val.items()},
+               chamfer=cham, test_psnr=ev["mean_psnr"], test_ssim=ev["mean_ssim"],
+               test_step=ev["step"], mesh=rec["meshes"]["stage1"],
+               extract=rec["extract_s1"], launches=launches)
+    log(f"front leg (pipeline.run_leg, nested.yaml at full width: {rays} rays a step, "
+        f"{PIPELINE_STEPS} steps): " + ", ".join(
+            f"{c['command']} {c['s']:.2f} s" for c in rec["commands"]))
+    log(f"front leg: steps {first}-{PIPELINE_STEPS} {out['step_ms']:.1f} ms/step "
+        f"({last['rays_per_sec']:.0f} rays/s, with a validation and a checkpoint); "
+        f"validation PSNR/SSIM {out['val']}; {rec['meshes']['stage1']}: chamfer {cham:.6f}; "
+        f"test ({ev['views']} views, step {ev['step']}) PSNR {ev['mean_psnr']:.3f} SSIM "
+        f"{ev['mean_ssim']:.4f}; launches {launches}")
+
+    # eval_shell on the shell pipeline's checkpoint: the card against the CPU
+    with open(os.path.join(leg_dir, "datasets/nested/meta.json")) as f:
+        meta = json.load(f)
+    cfg = load_cfg("shell.yaml")
+    card = eval_shell(cfg, meta, shell_ckpt, device=dev)
+    cpu = eval_shell(cfg, meta, shell_ckpt, device="cpu")
+    if sorted(card) != sorted(cpu) or [k for k in cpu if (card[k] is None) != (cpu[k] is None)]:
+        raise AssertionError(f"eval_shell: card {card}, CPU {cpu}")
+    # each number relative to its own size; a field's std relative to the
+    # field's mean (its sigmoid outputs), which sets its rounding
+    scale = {"ior_field_std": cpu["learned_ior"] - cfg.get("ior_offset", 0.6),
+             "thickness_field_std": cpu["learned_thickness"] / cfg.get("thickness_scale", 0.01)}
+    errs = {}
+    for k, v in cpu.items():
+        if v is not None:
+            a, b = np.asarray(card[k], np.float64), np.asarray(v, np.float64)
+            errs[k] = float(np.max(np.abs(a - b))
+                            / max(float(np.max(np.abs(scale.get(k, b)))), 1e-30))
+    worst = max(errs.values())
+    out["eval_shell"] = dict(card=card, max_rel_err=worst, tol=EVAL_SHELL_TOL)
+    log(f"eval_shell on the shell checkpoint: learned IoR {card['learned_ior']:.5f}, "
+        f"thickness {card['learned_thickness']:.6f}, kappa {card.get('learned_kappa')}; "
+        f"the card against the CPU: largest relative difference {worst:.2e} (tol "
+        f"{EVAL_SHELL_TOL:.0e})")
+    if not worst <= EVAL_SHELL_TOL:
+        raise AssertionError(f"eval_shell on the card is off the CPU's: {errs}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase_pipeline: {out['s']:.1f} s")
+    return launches, out
+
+
 def k3_device_split(fn, reps=3):
     """Device time of K3's kernels over ``reps`` calls of ``fn``, by kernel
     (``torch.profiler``, as ``tools/prof_k3.py`` splits it): {name: ms a
@@ -2823,6 +2943,8 @@ def main():
         paths["shell"], res_shell = phase_main_path_shell(outer_mesh, dev)
         pipe_paths, res_pipe = phase_shell_pipeline(dev, work, ckpt1, outer_mesh)
         paths.update(pipe_paths)
+        paths["pipeline_front"], res_leg = phase_pipeline(
+            dev, work, os.path.join(work, "model", SHELL_CFG["name"], "model.ckpt"))
         tool_paths, res_tools = phase_tools(dev, work, ckpt1, res_x["extract_s1"]["mesh"],
                                             outer_mesh)
         paths.update(tool_paths)
@@ -2844,7 +2966,8 @@ def main():
                           ("render_orbit", "chain_fwd"), ("sphere_trace", "chain_fwd"),
                           ("parallel_s1", "chain_fwd"), ("parallel_s2", "closest_hit"),
                           ("parallel_s1_f32", "chain_fwd"),
-                          ("parallel_s2_f32", "closest_hit")):
+                          ("parallel_s2_f32", "closest_hit"),
+                          ("pipeline_front", "chain_fwd"), ("pipeline_front", "chain_bwd")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -2918,6 +3041,7 @@ def main():
                "extract": res_x,
                "shell_step": res_shell,
                "shell_pipeline": res_pipe,
+               "pipeline_front": res_leg,
                "tools": res_tools,
                "parallel": res_par,
                "seconds": time.perf_counter() - t_start}

@@ -1,0 +1,188 @@
+"""Where a stage-1 leg's surface lies: its checkpoints' meshes against the
+synthetic scene's analytic outer sphere, through the port, on one GPU.
+
+    python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR \\
+        --ckpt data/model/nested/model_best.ckpt [--ckpt ...] \\
+        [--f32 data/model/nested/model.ckpt] [--test data/model/nested/model.ckpt]
+    python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --seed 7 [--snapshot 5000]
+
+``WORKDIR`` is the working directory of a ``python -m nunerf_tpu_torch.pipeline
+front`` leg (its derived ``configs/shape/nerf/nested.yaml``, its
+``datasets/nested``).  For each ``--ckpt`` the tool runs the leg's
+``extract-mesh-stage1`` at ``--resolution`` (512, tagged with the step) and
+reports ``eval-geometry``'s chamfer against ``gt_outer.npy``, the medians
+and upper percentiles of the nearest distances both ways on 100,000 points
+a side (the chamfer's own samples), the share of points farther than 0.05,
+and the percentiles of the mesh's radius (the sphere's is ``meta.json``'s
+``r_outer``).  ``--f32`` does the same through the plain f32 chain
+(``fused_sdf_value`` and ``sdf_mixed_precision`` off): the extraction's
+precision set aside.  ``--test`` scores the test split at a checkpoint
+(``eval-images``).  Where the working directory holds the leg's
+``train_log.jsonl``, the tool also reports its run: every validation's
+PSNR and SSIM, and the loop's median ms a step over steps 1-1,000 and each
+10,000 after (from the logged ``step_ms``, or, in a log from before the
+trainer logged it, from rays/s and the rays a step the renderer resolves),
+with the median rays/s.
+
+``--seed`` first runs the leg anew in ``WORKDIR`` with ``random_seed`` set
+(other initial weights and ray draws) and checkpoints every 1,000 steps (the
+training is the same: a checkpoint only reads the state), keeps a copy of
+the checkpoint at every ``--snapshot`` steps as the trainer writes it, and
+then reports each copy as above: a second sound run's trajectory.  It
+refuses a ``WORKDIR`` that holds the leg's checkpoint already, which the
+leg would resume instead of training anew.  Prints the card's name and power
+limit first and one JSON object last, also written to
+``WORKDIR/runs/leg_geometry.json``.
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from nunerf_tpu_torch import cli
+from nunerf_tpu_torch import pipeline as pl
+from nunerf_tpu_torch.config import load_cfg
+from nunerf_tpu_torch.ops.chamfer import min_sq_dists
+from nunerf_tpu_torch.train.trainer import Trainer, load_checkpoint
+
+GT = "datasets/nested/gt_outer.npy"
+
+
+def surface_report(mesh, r_outer, device):
+    """The chamfer of ``mesh`` against the analytic outer sphere, and where
+    its points lie."""
+    geo = cli.eval_geometry(mesh, GT, device=device)
+    a = torch.as_tensor(cli.sample_surface(mesh, 100000), dtype=torch.float32, device=device)
+    b = torch.as_tensor(cli.sample_surface(GT, 100000), dtype=torch.float32, device=device)
+    d1 = min_sq_dists(a, b).sqrt().cpu().numpy()
+    d2 = min_sq_dists(b, a).sqrt().cpu().numpy()
+    r = np.linalg.norm(a.cpu().numpy(), axis=-1)
+    q = [50, 90, 99]
+    return dict(geo, pred_to_gt_dist_pct=dict(zip(q, np.percentile(d1, q).tolist())),
+                gt_to_pred_dist_pct=dict(zip(q, np.percentile(d2, q).tolist())),
+                pred_frac_far_0p05=float((d1 > 0.05).mean()),
+                gt_frac_far_0p05=float((d2 > 0.05).mean()),
+                pred_radius_pct=dict(zip([1, 10, 50, 90, 99],
+                                         np.percentile(r, [1, 10, 50, 90, 99]).tolist())),
+                r_outer=r_outer)
+
+
+def loop_report(cfg, log_path, device):
+    """The run of ``log_path`` (a ``train_log.jsonl``): its validations and
+    the loop's median ms a step by span of steps."""
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+
+    with open(log_path) as f:
+        recs = [json.loads(line) for line in f]
+    rays = ShapeRenderer(cfg, device=device).cfg["train_ray_num"]
+    timed = [r for r in recs if r["prefix"] == "train" and r["rays_per_sec"] > 0]
+
+    def ms(r):
+        return r["step_ms"] if "step_ms" in r else rays / r["rays_per_sec"] * 1e3
+
+    ends = [0, 1000] + list(range(10000, cfg["total_step"] + 1, 10000))
+    spans = {}
+    for lo, hi in zip(ends, ends[1:]):
+        got = [ms(r) for r in timed if lo < r["step"] <= hi]
+        if got:
+            spans[f"{lo + 1}-{hi}"] = float(np.median(got))
+    return dict(val={r["step"]: [r["psnr"], r["ssim"]] for r in recs if r["prefix"] == "val"},
+                rays=rays, step_ms_median=spans,
+                rays_per_sec_median=float(np.median([r["rays_per_sec"] for r in timed])))
+
+
+@contextlib.contextmanager
+def kept_checkpoints(snap, every):
+    """While open, a copy in ``snap`` of each ``model.ckpt`` the trainer
+    writes at a step that ``every`` divides, made right after the write:
+    yields {step: copy}."""
+    os.makedirs(snap, exist_ok=True)
+    kept, save = {}, Trainer.save
+
+    def save_and_keep(self, path, step, best_para):
+        save(self, path, step, best_para)
+        if self.writes and path == self.ckpt_path and step % every == 0:
+            kept[step] = shutil.copy(path, os.path.join(snap, f"model_{step}.ckpt"))
+
+    Trainer.save = save_and_keep
+    try:
+        yield kept
+    finally:
+        Trainer.save = save
+
+
+def seed_run(workdir, seed, every, device):
+    """The front leg anew with ``random_seed`` ``seed``; the checkpoint kept
+    at every ``every`` steps.  Returns (leg record, {step: copy})."""
+    ckpt = os.path.join(workdir, "data/model/nested/model.ckpt")
+    if os.path.exists(ckpt):
+        raise ValueError(f"{ckpt} exists: the leg would resume it; a seed run needs a "
+                         f"working directory without one")
+    over = {pl.S1_NESTED: dict(random_seed=seed, save_interval=1000)}
+    with kept_checkpoints(os.path.join(workdir, "snap"), every) as kept:
+        rec = pl.run_leg("front", workdir, device=device, cfg_overrides=over)
+    if rec["steps"]["nested"]["from"] != 0:
+        raise AssertionError(f"the seed run did not train from step 0: {rec['steps']}")
+    return rec, kept
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("workdir")
+    ap.add_argument("--ckpt", action="append", default=[])
+    ap.add_argument("--f32", default=None)
+    ap.add_argument("--test", default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--snapshot", type=int, default=5000)
+    ap.add_argument("--resolution", type=int, default=512)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    if args.device != "cpu":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
+    workdir = os.path.abspath(args.workdir)
+    out = {}
+    ckpts = [(c, False) for c in args.ckpt]
+    if args.seed is not None:
+        out["leg"], kept = seed_run(workdir, args.seed, args.snapshot, args.device)
+        ckpts += [(kept[s], False) for s in sorted(kept)]
+    if args.f32:
+        ckpts.append((args.f32, True))
+    os.chdir(workdir)
+    cfg = load_cfg(pl.S1_NESTED)
+    with open("datasets/nested/meta.json") as f:
+        r_outer = json.load(f)["r_outer"]
+    log = os.path.join("data/model", cfg["name"], "train_log.jsonl")
+    if os.path.exists(log):
+        out["loop"] = loop_report(cfg, log, args.device)
+        print(json.dumps(out["loop"]), flush=True)
+    if args.test:
+        ev = cli.eval_images(cfg, args.test, "test", device=args.device)
+        out["test"] = {k: ev[k] for k in ("step", "mean_psnr", "mean_ssim")}
+    out["meshes"] = []
+    for path, f32 in ckpts:
+        step = load_checkpoint(path)[0]
+        c = dict(cfg, fused_sdf_value=False, sdf_mixed_precision=False) if f32 else cfg
+        t0 = time.perf_counter()
+        m = cli.extract_mesh_stage1(c, path, args.resolution,
+                                    tag=f"s{step}" + ("_f32" if f32 else ""), device=args.device)
+        rep = dict(surface_report(m["simplified"], r_outer, args.device), ckpt=path, step=step,
+                   f32=f32, tris=m["tris"], extract_s=time.perf_counter() - t0)
+        print(json.dumps(rep), flush=True)
+        out["meshes"].append(rep)
+    os.makedirs("runs", exist_ok=True)
+    with open(os.path.join("runs", "leg_geometry.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps({k: v for k, v in out.items() if k != "leg"}))
+
+
+if __name__ == "__main__":
+    main()

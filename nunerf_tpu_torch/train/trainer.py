@@ -442,9 +442,13 @@ class Trainer:
                     check_finite_tree(scalars, "loss_terms")
                 scalars["lr"] = self.schedule(step)
                 now = time.time()
+                # the loop's wall time a step since the last log; 0 at the
+                # first log, which holds the first step's warm-up
+                timed = step > start_step + n
                 scalars["rays_per_sec"] = (
                     (step - t0_step) * self.renderer.cfg["train_ray_num"]
-                    / max(now - t0, 1e-6)) if step > start_step + n else 0.0
+                    / max(now - t0, 1e-6)) if timed else 0.0
+                scalars["step_ms"] = (now - t0) / (step - t0_step) * 1e3 if timed else 0.0
                 t0, t0_step = now, step
                 self.logger.log(scalars, step)
 

@@ -104,6 +104,18 @@ def test_probe_walks_the_parallel_modules():
     assert not torch.distributed.is_initialized()
 
 
+def test_probe_walks_the_leg_runner_modules():
+    """The import probe reaches the leg runner, the shell's scorer and the
+    leg's surface report."""
+    import pkgutil
+
+    import nunerf_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(nunerf_tpu_torch.__path__,
+                                                   "nunerf_tpu_torch.")}
+    for mod in ("pipeline", "tools.eval_shell", "tools.leg_geometry"):
+        assert f"nunerf_tpu_torch.{mod}" in names, mod
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
@@ -151,3 +163,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         outer_filter.visible_faces(*tri)
     with pytest.raises(RuntimeError, match="CUDA"):
         render_mask.erode_masks({"database_name": "nerf/x", "dataset_dir": "/nonexistent"})
+
+    # the shell's scorer
+    from nunerf_tpu_torch.tools.eval_shell import eval_shell
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_shell({"name": "x"}, {}, "/nonexistent/model.ckpt")

@@ -1,0 +1,432 @@
+"""The port's leg runner (``nunerf_tpu_torch.pipeline``) and its
+``eval_shell`` (``nunerf_tpu_torch.tools.eval_shell``) on the CPU.
+
+* ``eval_shell`` against ``tools/eval_shell.py`` on one JAX checkpoint of a
+  shell stage-2 tree with ``learn_absorption``, for the meta of a Blender
+  and of a capture-layout shell scene: every number to rtol 1e-5 (f32 MLPs
+  on both sides); and the same numbers from a port checkpoint of the same
+  parameters.
+* ``shell_front`` then ``shell_stage2`` through ``run_leg`` on a tiny
+  scene, tiny configs and 16^3 extractions, in a working directory of their
+  own: the mesh paths chained from the checkpoints' steps, the configs
+  written under the working directory, the record printed and written.
+* ``tools.leg_geometry``'s copies of each checkpoint the front leg's
+  trainer writes, and its refusal to start a seed run where the leg would
+  resume.
+* The guards: a stage-2 leg without its stage-1 mesh stops with a message;
+  a budgeted child that outlives its budget is a pause, after which the leg
+  goes on from the last checkpoint (the child's command is injected, so no
+  race with the wall clock decides); a failed child stops the leg; the
+  repository's root is refused as a working directory.
+"""
+
+import importlib.util
+import json
+import os
+import re
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nunerf_tpu_torch import pipeline as pl
+from nunerf_tpu_torch.tools import eval_shell as port_eval_shell
+from nunerf_tpu_torch.tools import leg_geometry
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+S1_TINY = dict(n_samples=8, n_importance=8, up_sample_steps=2, n_bg_samples=4,
+               n_front_samples=2, n_back_samples=2, sdf_n_layers=4, train_ray_num=32,
+               test_ray_num=64, mixed_precision=False, sdf_mixed_precision=False,
+               total_step=4, train_log_step=2, val_interval=4, save_interval=2)
+S2_TINY = dict(sdf_n_layers=4, n_samples_outer=8, n_samples_inner=4, inner_up_rounds=1,
+               inner_up_each=4, curv_smooth_iters=5, mixed_precision=False,
+               sdf_mixed_precision=False, train_ray_num=16, test_ray_num=64, total_step=2,
+               train_log_step=1, save_interval=2, val_interval=2,
+               stage1_mesh_dir="./data/meshes/nested_shell-4_simplified_outer.ply")
+TINY = dict(device="cpu", cfg_overrides={pl.S1_SHELL: S1_TINY, pl.S2_SHELL: S2_TINY},
+            extra_args={"synth-scene": ["--n-train", "4", "--n-test", "2", "--size", "16"],
+                        "extract-mesh-stage1": ["--resolution", "16"],
+                        "extract-mesh-stage2": ["--resolution", "16"],
+                        "postprocess-outer": ["--views", "4"],
+                        "eval-geometry": ["--n-samples", "2000"]})
+
+
+# ---------------------------------------------------------------------------
+# eval_shell against the JAX tool
+# ---------------------------------------------------------------------------
+
+def _jax_tool():
+    spec = importlib.util.spec_from_file_location("jax_eval_shell",
+                                                  os.path.join(ROOT, "tools", "eval_shell.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _shell_tree():
+    """A shell stage-2 tree in the JAX layout with ``learn_absorption``: the
+    port's tiny renderer's leaves, with IoR and thickness fields drawn by the
+    JAX networks' init and moved off it, and an absorption of three
+    distinct channels.  Returns (tree, tiny renderer)."""
+    import jax
+
+    from nunerf_tpu.fields.aux import IoRNetwork, ThicknessNetwork
+    from nunerf_tpu_torch.convert import load_jax_params, to_jax_tree
+    from nunerf_tpu_torch.models.stage1 import PARAM_KEYS as STAGE1_KEYS
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.models.stage2 import tree_keys
+    from nunerf_tpu_torch.models.stage2_shell import Stage2ShellRenderer
+    from nunerf_tpu_torch.tracing.mesh_ops import extract_geometry
+    from nunerf_tpu_torch.tracing.scene import Scene
+    from port_helpers import jitter_tree
+
+    s1_cfg = {"is_nerf": True, "n_samples": 8, "n_importance": 8, "n_bg_samples": 4,
+              "up_sample_steps": 2, "sdf_n_layers": 4}
+    cfg = {"is_nerf": True, "zero_thickness": False, "stage1_cfg": s1_cfg,
+           "sdf_n_layers": 4, "n_samples_outer": 8, "n_samples_inner": 4,
+           "mixed_precision": False, "learn_absorption": True}
+    s1 = to_jax_tree(ShapeRenderer(s1_cfg, device="cpu", seed=7), STAGE1_KEYS)
+    mesh = extract_geometry(lambda p: np.linalg.norm(p, axis=-1) - 0.5, resolution=12)
+    renderer = Stage2ShellRenderer(cfg, Scene(mesh, device="cpu"), s1, device="cpu", seed=3)
+    tree = to_jax_tree(renderer, tree_keys())
+    pts = np.zeros((1, 3), np.float32)
+    for i, (key, net) in enumerate((("ior", IoRNetwork()), ("thickness", ThicknessNetwork()))):
+        init = net.init(jax.random.PRNGKey(20 + i), pts)
+        tree["train"][key] = jitter_tree(jax.device_get(init), 30 + i, 0.3)
+    tree["train"]["absorption"] = np.array([-1.0, 0.3, 1.2], np.float32)
+    load_jax_params(renderer, tree, tree_keys())
+    return tree, renderer
+
+
+def _scene_meta(tmp_path, kind):
+    from nunerf_tpu_torch.tools.synth_nested import make_nested_scene
+
+    root = make_nested_scene(str(tmp_path / "scene"), n_train=1, n_test=1, h=8, w=8,
+                             shell=True)
+    with open(os.path.join(root, "meta.json")) as f:
+        meta = json.load(f)
+    if kind == "capture":  # the capture layout's normalised frame
+        s = 1.6
+        meta = dict(meta, r_outer=meta["r_outer"] * s, tau=meta["tau"] * s, norm_scale=s)
+    path = str(tmp_path / f"meta_{kind}.json")
+    with open(path, "w") as f:
+        json.dump(meta, f)
+    return path
+
+
+def _assert_same_numbers(got, want, rtol):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        if w is None:
+            assert g is None, k
+        else:
+            np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(w, np.float64),
+                                       rtol=rtol, err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["blender", "capture"])
+def test_eval_shell_matches_the_jax_tool(tmp_path, monkeypatch, capsys, kind):
+    from nunerf_tpu.train.trainer import save_checkpoint as jax_save_checkpoint
+    from nunerf_tpu_torch.convert import to_jax_tree
+    from nunerf_tpu_torch.models.stage2 import tree_keys
+    from nunerf_tpu_torch.train.trainer import save_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    meta = _scene_meta(tmp_path, kind)
+    with open("shell.yaml", "w") as f:
+        f.write("name: tiny_shell_s2\nior_offset: 0.6\nthickness_scale: 0.01\n")
+    tree, renderer = _shell_tree()
+    jax_save_checkpoint("jax/model.ckpt", 1200, tree, {"count": np.int32(1200)}, 21.5)
+
+    monkeypatch.setattr(sys, "argv", ["eval_shell.py", "--cfg", "shell.yaml", "--meta", meta,
+                                      "--ckpt", "jax/model.ckpt"])
+    _jax_tool().main()
+    with open("runs/eval_shell_tiny_shell_s2.json") as f:
+        want = json.load(f)
+    os.remove("runs/eval_shell_tiny_shell_s2.json")
+    capsys.readouterr()
+
+    got = port_eval_shell.main(["--cfg", "shell.yaml", "--meta", meta, "--ckpt",
+                                "jax/model.ckpt", "--device", "cpu"])
+    printed = capsys.readouterr().out.splitlines()
+    assert json.loads(printed[0]) == got
+    assert printed[1] == "wrote runs/eval_shell_tiny_shell_s2.json"
+    with open("runs/eval_shell_tiny_shell_s2.json") as f:
+        assert json.load(f) == got
+    _assert_same_numbers(got, want, 1e-5)
+    assert len(got["learned_kappa"]) == 3 and len(got["gt_kappa_normalized"]) == 3
+    assert 0.0 < got["ior_field_std"] and 0.0 < got["thickness_field_std"]
+
+    # the port's own checkpoint of the same parameters gives the same numbers
+    save_checkpoint("port/model.ckpt", 1200, to_jax_tree(renderer, tree_keys()),
+                    {"count": 1200}, 21.5)
+    again = port_eval_shell.main(["--cfg", "shell.yaml", "--meta", meta, "--ckpt",
+                                  "port/model.ckpt", "--device", "cpu"])
+    _assert_same_numbers(again, got, 0.0)
+
+    # the default checkpoint is data/model/<name>/model.ckpt
+    save_checkpoint("data/model/tiny_shell_s2/model.ckpt", 1200,
+                    to_jax_tree(renderer, tree_keys()), {"count": 1200}, 21.5)
+    default = port_eval_shell.main(["--cfg", "shell.yaml", "--meta", meta, "--device", "cpu"])
+    _assert_same_numbers(default, got, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the shell legs end to end
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def shell_legs(tmp_path_factory):
+    """``shell_front`` then ``shell_stage2`` (a 600 s budget, never reached)
+    in one working directory, the front leg's checkpoints copied at every
+    2 steps by ``leg_geometry.kept_checkpoints``; returns (workdir, front
+    record, stage-2 record, printed lines, {step: copy})."""
+    import contextlib
+    import io
+
+    home = tmp_path_factory.mktemp("legs")
+    work = str(home / "work")
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(buf):
+        mp.chdir(home)
+        mp.setenv("OMP_NUM_THREADS", "1")  # the budgeted child
+        with leg_geometry.kept_checkpoints(str(home / "snap"), 2) as kept:
+            front = pl.run_leg("shell_front", work, **TINY)
+        stage2 = pl.run_leg("shell_stage2", work, budget=600, **TINY)
+    return work, front, stage2, buf.getvalue().splitlines(), kept
+
+
+def _argv(record, command):
+    return [c["argv"] for c in record["commands"] if c["command"] == command]
+
+
+def test_front_leg_chains_the_mesh_named_from_its_checkpoint(shell_legs):
+    work, front, _, _, _ = shell_legs
+    # the repository's config trains 30,000 steps; the tiny one 4: every later
+    # subcommand reads the mesh named from the checkpoint's step
+    assert front["steps"] == {"nested_shell": {"from": 0, "to": 4, "total_step": 4,
+                                               "paused": False}}
+    assert front["checkpoints"]["extract-mesh-stage1"] == 4
+    simplified = "data/meshes/nested_shell-4_simplified.ply"
+    outer = "data/meshes/nested_shell-4_simplified_outer.ply"
+    assert front["meshes"] == {"stage1": simplified, "outer": outer}
+    assert [c["command"] for c in front["commands"]] == [
+        "synth-scene", "train", "extract-mesh-stage1", "postprocess-outer", "eval-geometry",
+        "eval-images"]
+    # the leg's own resolution, then the test's, which argparse keeps
+    assert _argv(front, "extract-mesh-stage1")[0][3:] == ["--resolution", "512",
+                                                          "--resolution", "16"]
+    assert _argv(front, "postprocess-outer")[0][:3] == ["postprocess-outer", "--input",
+                                                        simplified]
+    assert _argv(front, "eval-geometry")[0][:5] == [
+        "eval-geometry", "--mesh", outer, "--gt", "datasets/nested_shell/gt_outer.npy"]
+    assert _argv(front, "synth-scene")[0][:4] == ["synth-scene", "--output",
+                                                  "./datasets/nested_shell", "--shell"]
+    for rel in ("data/model/nested_shell/model.ckpt", simplified, outer,
+                "data/eval/nested_shell/eval_test.json", "runs/leg_shell_front.json"):
+        assert os.path.exists(os.path.join(work, rel)), rel
+    assert np.isfinite(front["chamfer"]["outer"]["chamfer"])
+    ev = front["eval_images"]["nested_shell"]
+    assert ev["views"] == 2 and ev["step"] == 4 and np.isfinite(ev["mean_psnr"])
+    assert all(c["s"] >= 0 for c in front["commands"])
+
+
+def test_legs_write_their_configs_and_records_in_the_workdir(shell_legs):
+    import yaml
+
+    work, front, stage2, printed, _ = shell_legs
+    with open(os.path.join(work, pl.S1_SHELL)) as f:
+        s1 = yaml.safe_load(f)
+    with open(os.path.join(ROOT, pl.S1_SHELL)) as f:
+        repo_s1 = yaml.safe_load(f)
+    assert s1 == dict(repo_s1, **S1_TINY)
+    with open(os.path.join(work, pl.S2_SHELL)) as f:
+        s2 = yaml.safe_load(f)
+    # the stage-2 config's relative paths resolve in the workdir, where the
+    # derived stage-1 config is
+    assert s2["stage1_cfg_dir"] == "./configs/shape/nerf/nested_shell.yaml"
+    assert s2["stage1_ckpt_dir"] == "./data/model/nested_shell/model_best.ckpt"
+    for rec in (front, stage2):
+        assert rec["workdir"] == work
+        with open(os.path.join(work, "runs", f"leg_{rec['leg']}.json")) as f:
+            assert json.load(f) == json.loads(json.dumps(rec))
+    # each leg's last printed line is its record, after every subcommand's
+    # lines and seconds
+    lines = [json.loads(x) for x in printed if x.startswith('{"leg"')]
+    assert [r["leg"] for r in lines] == ["shell_front", "shell_stage2"]
+    assert printed[-1].startswith('{"leg": "shell_stage2"')
+    assert sum(1 for x in printed if re.match(r"\[pipeline\] [\w-]+: [0-9.]+ s$", x)) == \
+        len(front["commands"]) + len(stage2["commands"])
+
+
+def test_stage2_leg_chains_its_inner_mesh_and_scores_the_shell(shell_legs):
+    work, _, stage2, _, _ = shell_legs
+    assert stage2["steps"] == {"nested_shell_s2": {"from": 0, "to": 2, "total_step": 2,
+                                                   "paused": False}}
+    assert [c["command"] for c in stage2["commands"]] == [
+        "train", "eval_shell", "extract-mesh-stage2", "postprocess-stage2", "eval-geometry",
+        "eval-images"]
+    inner = "data/meshes/nested_shell_s2-2-inner.ply"
+    assert stage2["meshes"] == {"inner": inner,
+                                "inner_post": "data/meshes/nested_shell_s2-2-inner_post.ply"}
+    assert _argv(stage2, "postprocess-stage2")[0] == [
+        "postprocess-stage2", "--input", inner, "--outer",
+        "./data/meshes/nested_shell-4_simplified_outer.ply"]
+    assert _argv(stage2, "eval-geometry")[0][:5] == [
+        "eval-geometry", "--mesh", "data/meshes/nested_shell_s2-2-inner_post.ply", "--gt",
+        "datasets/nested_shell/gt_inner.npy"]
+    train = stage2["commands"][0]
+    assert train["budget_s"] == 600 and not train["paused"]
+    # eval_shell: the JAX tool's keys, from the leg's checkpoint
+    es = stage2["eval_shell"]
+    assert sorted(es) == sorted([
+        "learned_ior", "gt_ior", "ior_abs_err", "learned_thickness", "gt_thickness",
+        "thickness_abs_err", "ior_field_std", "thickness_field_std", "learned_kappa",
+        "gt_kappa_normalized"])
+    assert es["gt_ior"] == 1.5 and es["gt_thickness"] == 0.008
+    assert all(np.isfinite(es[k]) for k in ("learned_ior", "learned_thickness"))
+    with open(os.path.join(work, "runs/eval_shell_nested_shell_s2.json")) as f:
+        assert json.load(f) == es
+    ev = stage2["eval_images"]["nested_shell_s2"]
+    assert ev["step"] == 2 and ev["views"] == 2
+
+
+def test_leg_geometry_keeps_each_checkpoint_the_trainer_writes(shell_legs):
+    from nunerf_tpu_torch.train.trainer import Trainer, load_checkpoint
+
+    work, _, _, _, kept = shell_legs
+    assert sorted(kept) == [2, 4]
+    assert [load_checkpoint(kept[s])[0] for s in (2, 4)] == [2, 4]
+    with open(kept[4], "rb") as a, open(
+            os.path.join(work, "data/model/nested_shell/model.ckpt"), "rb") as b:
+        assert a.read() == b.read()
+    assert Trainer.save.__name__ == "save"  # put back on leaving
+
+
+def test_leg_geometry_reports_the_loop_from_the_train_log(shell_legs, tmp_path):
+    """The trainer logs its wall ms a step beside rays/s; the report takes
+    its medians, or, from a log without them, rays/s and the rays a step
+    the renderer resolves."""
+    import yaml
+
+    work, _, _, _, _ = shell_legs
+    with open(os.path.join(work, pl.S1_SHELL)) as f:
+        cfg = yaml.safe_load(f)
+    log = os.path.join(work, "data/model/nested_shell/train_log.jsonl")
+    rep = leg_geometry.loop_report(cfg, log, "cpu")
+    with open(log) as f:
+        recs = [json.loads(line) for line in f]
+    timed = [r for r in recs if r["prefix"] == "train" and r["rays_per_sec"] > 0]
+    assert [r["step"] for r in timed] == [4] and rep["rays"] == 32
+    assert timed[0]["step_ms"] * timed[0]["rays_per_sec"] / 1e3 == pytest.approx(32)
+    assert rep["step_ms_median"] == {"1-1000": timed[0]["step_ms"]}
+    assert rep["rays_per_sec_median"] == timed[0]["rays_per_sec"]
+    assert list(rep["val"]) == [4] and np.isfinite(rep["val"][4]).all()
+    old = tmp_path / "train_log.jsonl"
+    old.write_text("".join(json.dumps({k: v for k, v in r.items() if k != "step_ms"}) + "\n"
+                           for r in recs))
+    again = leg_geometry.loop_report(cfg, str(old), "cpu")
+    assert again["step_ms_median"]["1-1000"] == pytest.approx(timed[0]["step_ms"], rel=1e-9)
+
+
+def test_leg_geometry_seed_run_refuses_a_trained_workdir(tmp_path):
+    ckpt = tmp_path / "data" / "model" / "nested" / "model.ckpt"
+    ckpt.parent.mkdir(parents=True)
+    ckpt.write_bytes(b"")
+    with pytest.raises(ValueError, match="would resume it"):
+        leg_geometry.seed_run(str(tmp_path), 7, 5000, "cpu")
+    assert sorted(os.listdir(tmp_path)) == ["data"]
+
+
+def test_a_child_past_its_budget_is_a_pause(shell_legs, tmp_path, monkeypatch, capsys):
+    """The injected child outlives any budget; the leg goes on from the
+    checkpoint that is there (moved to step 3 here), so its inner mesh is
+    named from step 3."""
+    from nunerf_tpu_torch.train.trainer import load_checkpoint, save_checkpoint
+
+    work, _, _, _, _ = shell_legs
+    ckpt = os.path.join(work, "data/model/nested_shell_s2/model.ckpt")
+    _, params, opt_state, best = load_checkpoint(ckpt)
+    save_checkpoint(ckpt, 3, params, opt_state, best)
+    monkeypatch.setattr(pl, "train_command", lambda cfg, device: [
+        sys.executable, "-c", "import time; time.sleep(600)"])
+    monkeypatch.chdir(tmp_path)
+    rec = pl.run_leg("shell_stage2", work, budget=0.5, **TINY)
+    assert rec["steps"]["nested_shell_s2"] == {"from": 3, "to": 3, "total_step": 2,
+                                               "paused": True}
+    assert rec["commands"][0]["paused"] and rec["commands"][0]["s"] < 60
+    assert rec["meshes"]["inner"] == "data/meshes/nested_shell_s2-3-inner.ply"
+    assert rec["checkpoints"]["extract-mesh-stage2"] == 3
+    assert "paused at the budget" in capsys.readouterr().out
+
+
+def test_a_failed_child_stops_the_leg(shell_legs, tmp_path, monkeypatch):
+    work, _, _, _, _ = shell_legs
+    monkeypatch.setattr(pl, "train_command", lambda cfg, device: [
+        sys.executable, "-c", "raise SystemExit(3)"])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(pl.LegError, match="exited with 3"):
+        pl.run_leg("shell_stage2", work, budget=600, **TINY)
+
+
+def test_stage2_leg_stops_without_its_stage1_mesh(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    work = tmp_path / "work"
+    (work / "data" / "meshes").mkdir(parents=True)
+    (work / "data" / "meshes" / "nested-20000_simplified.ply").write_text("")
+    with pytest.raises(pl.LegError) as e:
+        pl.run_leg("stage2", str(work), budget=10, device="cpu")
+    msg = str(e.value)
+    assert "stage1_mesh_dir ./data/meshes/nested-30000_simplified.ply does not exist" in msg
+    assert "data/meshes/nested-20000_simplified.ply" in msg
+    # nothing was trained, renamed or made in its place
+    assert sorted(os.listdir(work / "data" / "meshes")) == ["nested-20000_simplified.ply"]
+    assert not (work / "data" / "model").exists()
+
+
+def test_stage2_leg_stops_without_its_stage1_checkpoint(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    work = tmp_path / "work"
+    mesh = work / "data" / "meshes" / "nested_shell-30000_simplified_outer.ply"
+    mesh.parent.mkdir(parents=True)
+    mesh.write_text("")
+    with pytest.raises(pl.LegError,
+                       match="stage1_ckpt_dir ./data/model/nested_shell/model_best.ckpt"):
+        pl.run_leg("shell_stage2", str(work), budget=10, device="cpu")
+
+
+def test_runner_refuses_the_repo_root_and_bad_arguments(tmp_path):
+    with pytest.raises(ValueError, match="root"):
+        pl.run_leg("front", ROOT, device="cpu")
+    with pytest.raises(ValueError, match="budget"):
+        pl.run_leg("stage2", str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="unknown leg"):
+        pl.run_leg("back", str(tmp_path), device="cpu")
+    with pytest.raises(SystemExit):
+        pl.main(["shell_stage2", "--workdir", str(tmp_path), "--device", "cpu"])
+    assert not os.listdir(tmp_path)
+
+
+def test_runner_offers_every_leg_of_the_script():
+    with open(os.path.join(ROOT, "tools", "run_nested_pipeline.sh")) as f:
+        script = f.read()
+    bodies = dict(re.findall(r"^(\w+)\(\) \{\n(.*?)^\}", script, flags=re.M | re.S))
+    assert sorted(pl.LEGS) == sorted(bodies)
+    # a leg takes a budget where its body reads one, or hands its own on
+    budgeted = {name for name, body in bodies.items() if "${1:?" in body or '"$1"' in body}
+    assert sorted(pl.BUDGET_LEGS) == sorted(budgeted)
+    assert pl.DEFAULT_WORKDIR != ROOT
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert "/" + os.path.basename(pl.DEFAULT_WORKDIR) + "/" in f.read().split()
