@@ -92,11 +92,21 @@ Phases (any failure exits non-zero):
      ``front`` leg in a working directory of its own, its launch counts read
      as a main path's (``pipeline_front``: K1 in every sweep and the
      extraction, K2 in the init-SDF regulariser): ``synth-scene`` at its
-     defaults, ``configs/shape/nerf/nested.yaml`` at full width cut to 200
-     steps (validations and checkpoints at 100 and 200), the 512^3
+     defaults, ``configs/shape/nerf/nested.yaml`` at full width cut to 100
+     steps (validations and checkpoints at 50 and 100), the 512^3
      extraction, ``eval-geometry`` and ``eval-images`` on the test split,
      every artifact and metric checked; then the port's ``eval_shell`` on
-     the shell pipeline's checkpoint on the card against the CPU (1e-5).
+     the shell pipeline's checkpoint on the card against the CPU (1e-5);
+ 11. the leg runner's curvature-shell legs (``phase_pipeline_shell``, path
+     ``pipeline_shell``: K1 in the sweeps and both extractions, K2 in the
+     init-SDF regulariser, K3 in ``postprocess-outer`` and the stage-2
+     renders): ``shell_front`` then ``shell_stage2`` in one working
+     directory, at full width, each cut to 100 steps through
+     ``cfg_overrides``, the stage-2 ``train`` in a child under a budget it
+     never reaches; every artifact's presence, the chained mesh names, the
+     outer chamfer and the test scores checked, and ``eval_shell`` on the
+     leg's checkpoint on the card against the CPU (1e-5); the inner mesh of
+     a 100-step stage 2 is empty, and only its report as empty is checked.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1916,9 +1926,37 @@ def phase_shell_pipeline(dev, work, ckpt1, outer_mesh):
     return paths, out
 
 
-PIPELINE_STEPS = 200   # the front leg's 30,000 steps cut to 200 (K2 in all of them)
-PIPELINE_INTERVAL = 100   # its validations and checkpoints
+PIPELINE_STEPS = 100   # the front leg's 30,000 steps cut to 100 (K2 in all of them)
+PIPELINE_INTERVAL = 50   # its validations and checkpoints
+PIPELINE_SHELL_STEPS = 100   # each shell leg's 30,000 steps cut to 100
+PIPELINE_SHELL_INTERVAL = 50
+PIPELINE_SHELL_BUDGET = 1800.0   # seconds of shell_stage2's child: never reached
 EVAL_SHELL_TOL = 1e-5
+
+
+def eval_shell_check(what, cfg, card, cpu):
+    """``eval_shell``'s numbers on the card against the CPU's: each relative
+    to its own size, a field's std relative to the field's mean (its
+    sigmoid outputs), which sets its rounding.  Raises above
+    ``EVAL_SHELL_TOL``; returns the card's numbers and the error."""
+    if sorted(card) != sorted(cpu) or [k for k in cpu if (card[k] is None) != (cpu[k] is None)]:
+        raise AssertionError(f"eval_shell: card {card}, CPU {cpu}")
+    scale = {"ior_field_std": cpu["learned_ior"] - cfg.get("ior_offset", 0.6),
+             "thickness_field_std": cpu["learned_thickness"] / cfg.get("thickness_scale", 0.01)}
+    errs = {}
+    for k, v in cpu.items():
+        if v is not None:
+            a, b = np.asarray(card[k], np.float64), np.asarray(v, np.float64)
+            errs[k] = float(np.max(np.abs(a - b))
+                            / max(float(np.max(np.abs(scale.get(k, b)))), 1e-30))
+    worst = max(errs.values())
+    log(f"eval_shell on {what}: learned IoR {card['learned_ior']:.5f}, "
+        f"thickness {card['learned_thickness']:.6f}, kappa {card.get('learned_kappa')}; "
+        f"the card against the CPU: largest relative difference {worst:.2e} (tol "
+        f"{EVAL_SHELL_TOL:.0e})")
+    if not worst <= EVAL_SHELL_TOL:
+        raise AssertionError(f"eval_shell on the card is off the CPU's: {errs}")
+    return dict(card=card, max_rel_err=worst, tol=EVAL_SHELL_TOL)
 
 
 def phase_pipeline(dev, work, shell_ckpt):
@@ -1972,7 +2010,7 @@ def phase_pipeline(dev, work, shell_ckpt):
             or not all(math.isfinite(r["psnr"]) for r in val.values()):
         raise AssertionError(f"the front leg validated {val}")
     last = train[PIPELINE_STEPS]
-    first = max(s for s in train if s < PIPELINE_STEPS) + 1
+    first = max((s for s in train if s < PIPELINE_STEPS), default=0) + 1
     if not (math.isfinite(last["loss_total"]) and last["rays_per_sec"] > 0
             and last["step_ms"] > 0):
         raise AssertionError(f"the front leg logged {last}")
@@ -2001,29 +2039,137 @@ def phase_pipeline(dev, work, shell_ckpt):
         meta = json.load(f)
     cfg = load_cfg("shell.yaml")
     card = eval_shell(cfg, meta, shell_ckpt, device=dev)
-    cpu = eval_shell(cfg, meta, shell_ckpt, device="cpu")
-    if sorted(card) != sorted(cpu) or [k for k in cpu if (card[k] is None) != (cpu[k] is None)]:
-        raise AssertionError(f"eval_shell: card {card}, CPU {cpu}")
-    # each number relative to its own size; a field's std relative to the
-    # field's mean (its sigmoid outputs), which sets its rounding
-    scale = {"ior_field_std": cpu["learned_ior"] - cfg.get("ior_offset", 0.6),
-             "thickness_field_std": cpu["learned_thickness"] / cfg.get("thickness_scale", 0.01)}
-    errs = {}
-    for k, v in cpu.items():
-        if v is not None:
-            a, b = np.asarray(card[k], np.float64), np.asarray(v, np.float64)
-            errs[k] = float(np.max(np.abs(a - b))
-                            / max(float(np.max(np.abs(scale.get(k, b)))), 1e-30))
-    worst = max(errs.values())
-    out["eval_shell"] = dict(card=card, max_rel_err=worst, tol=EVAL_SHELL_TOL)
-    log(f"eval_shell on the shell checkpoint: learned IoR {card['learned_ior']:.5f}, "
-        f"thickness {card['learned_thickness']:.6f}, kappa {card.get('learned_kappa')}; "
-        f"the card against the CPU: largest relative difference {worst:.2e} (tol "
-        f"{EVAL_SHELL_TOL:.0e})")
-    if not worst <= EVAL_SHELL_TOL:
-        raise AssertionError(f"eval_shell on the card is off the CPU's: {errs}")
+    out["eval_shell"] = eval_shell_check("the shell checkpoint", cfg, card,
+                                         eval_shell(cfg, meta, shell_ckpt, device="cpu"))
     out["s"] = time.perf_counter() - t_phase
     log(f"phase_pipeline: {out['s']:.1f} s")
+    return launches, out
+
+
+def phase_pipeline_shell(dev, work):
+    """The leg runner's two curvature-shell legs in one working directory of
+    their own, at full width, each cut to ``PIPELINE_SHELL_STEPS`` steps
+    through ``cfg_overrides``: ``shell_front`` (``synth-scene --shell``,
+    ``configs/shape/nerf/nested_shell.yaml``, the 512^3
+    ``extract-mesh-stage1``, ``postprocess-outer`` through K3,
+    ``eval-geometry``, ``eval-images``), then ``shell_stage2`` (its
+    ``train`` in a child under a budget it never reaches, ``eval_shell``,
+    ``extract-mesh-stage2`` at 256^3, ``postprocess-stage2``,
+    ``eval-geometry`` of the inner mesh, ``eval-images``), the stage-2
+    config reading the chained outer mesh.  Checked: every artifact is
+    there, the chained mesh names, the steps and validations logged, the
+    outer chamfer and the test scores finite, and ``eval_shell`` on the
+    card against the CPU.  The inner geometry is not checked here: a stage
+    2 of 100 steps carves no inner surface yet, so ``extract-mesh-stage2``,
+    ``postprocess-stage2`` and ``eval-geometry`` of the inner mesh run on
+    an empty mesh, and the phase checks only that ``eval-geometry`` reports
+    it as empty (a finite chamfer where a surface was carved).  The launch
+    counts are this process's: the budgeted child's ``train`` counts in its
+    own.  Returns (launches, numbers)."""
+    import os
+
+    from nunerf_tpu_torch import pipeline as pl
+    from nunerf_tpu_torch.config import load_cfg
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tools.eval_shell import eval_shell
+
+    t_phase = time.perf_counter()
+    leg_dir = os.path.join(work, "leg_shell")
+    n, every = PIPELINE_SHELL_STEPS, PIPELINE_SHELL_INTERVAL
+    cut = dict(total_step=n, val_interval=every, save_interval=every)
+    outer = f"./data/meshes/nested_shell-{n}_simplified_outer.ply"
+    over = {pl.S1_SHELL: cut, pl.S2_SHELL: dict(cut, stage1_mesh_dir=outer)}
+    fm.reset_launches()
+    ri.reset_launches()
+    front = pl.run_leg("shell_front", leg_dir, device=dev, cfg_overrides=over)
+    stage2 = pl.run_leg("shell_stage2", leg_dir, budget=PIPELINE_SHELL_BUDGET, device=dev,
+                        cfg_overrides=over)
+    torch.cuda.synchronize()
+    launches = dict(fm.launches, **ri.launches)
+
+    meshes = dict(stage1=f"data/meshes/nested_shell-{n}_simplified.ply", outer=outer[2:])
+    if front["meshes"] != meshes:
+        raise AssertionError(f"shell_front's meshes are {front['meshes']}, not {meshes}")
+    inner = f"data/meshes/nested_shell_s2-{n}-inner.ply"
+    if stage2["meshes"] != dict(inner=inner, inner_post=inner[:-4] + "_post.ply"):
+        raise AssertionError(f"shell_stage2's meshes are {stage2['meshes']}")
+    post = [c["argv"] for c in stage2["commands"] if c["command"] == "postprocess-stage2"]
+    if post != [["postprocess-stage2", "--input", inner, "--outer", outer]]:
+        raise AssertionError(f"postprocess-stage2 ran {post}")
+    want = [os.path.join(leg_dir, p) for p in (
+        "datasets/nested_shell/meta.json", "data/model/nested_shell/model.ckpt",
+        "data/model/nested_shell/model_best.ckpt", "data/model/nested_shell/train_log.jsonl",
+        "data/model/nested_shell_s2/model.ckpt", "data/model/nested_shell_s2/model_best.ckpt",
+        "data/model/nested_shell_s2/train_log.jsonl", "data/eval/nested_shell/eval_test.json",
+        "data/eval/nested_shell_s2/eval_test.json", "runs/leg_shell_front.json",
+        "runs/leg_shell_stage2.json", "runs/eval_shell_nested_shell_s2.json",
+        *front["meshes"].values(), *stage2["meshes"].values())]
+    missing = [p for p in want if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"the shell legs left no {missing}")
+    steps = {"nested_shell": front["steps"]["nested_shell"],
+             "nested_shell_s2": stage2["steps"]["nested_shell_s2"]}
+    for name, st in steps.items():
+        if st != {"from": 0, "to": n, "total_step": n, "paused": False}:
+            raise AssertionError(f"{name} trained {st}")
+    out = dict(seconds={f"{r['leg']}/{c['command']}": c["s"] for r in (front, stage2)
+                        for c in r["commands"]},
+               chamfer={"outer": front["chamfer"]["outer"]["chamfer"],
+                        "inner": stage2["chamfer"]["inner"]["chamfer"]},
+               test={k: v for r in (front, stage2) for k, v in r["eval_images"].items()},
+               launches=launches)
+    for r in (front, stage2):
+        for name, ev in r["eval_images"].items():
+            # the best validation's checkpoint
+            if ev["views"] != 8 or ev["step"] not in range(every, n + 1, every) or not (
+                    math.isfinite(ev["mean_psnr"]) and math.isfinite(ev["mean_ssim"])):
+                raise AssertionError(f"eval-images of {name}: {ev}")
+    # a stage 2 cut to 100 steps carves no inner surface inside the outer
+    # one yet: then the inner mesh is empty and eval-geometry must say so
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+
+    inner_tris = len(load_ply(os.path.join(leg_dir, stage2["meshes"]["inner_post"]))[1])
+    geo = stage2["chamfer"]["inner"]
+    empty = inner_tris == 0 and geo["chamfer"] is None and \
+        geo.get("error", "").startswith("empty surface: pred=0 ")
+    out["inner_triangles"] = inner_tris
+    if not (math.isfinite(out["chamfer"]["outer"])
+            and (empty or (out["chamfer"]["inner"] is not None
+                           and math.isfinite(out["chamfer"]["inner"])))):
+        raise AssertionError(f"eval-geometry: {out['chamfer']}, {geo}, inner mesh of "
+                             f"{inner_tris} triangles")
+    for name in steps:
+        logs = read_log(os.path.join(leg_dir, "data/model", name, "train_log.jsonl"))
+        val = sorted(r["step"] for r in logs if r["prefix"] == "val")
+        last = [r for r in logs if r["prefix"] == "train" and r["step"] == n]
+        if val != list(range(every, n + 1, every)) or not (
+                last and math.isfinite(last[0]["loss_total"]) and last[0]["step_ms"] > 0):
+            raise AssertionError(f"{name} logged validations {val} and {last}")
+        out[f"{name}_step_ms"] = last[0]["step_ms"]
+    log(f"shell legs (pipeline.run_leg at full width, {n} steps each): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["seconds"].items()))
+    log(f"shell legs: {front['meshes']['outer']} chamfer {out['chamfer']['outer']:.6f}, "
+        f"{inner} post: {inner_tris} triangles, chamfer {out['chamfer']['inner']}; test "
+        f"{out['test']}; "
+        f"stage 1 {out['nested_shell_step_ms']:.1f} ms/step, stage 2 "
+        f"{out['nested_shell_s2_step_ms']:.1f} ms/step (its child's); launches {launches}")
+
+    # eval_shell on the leg's checkpoint: the leg's record (the card) against
+    # the CPU, in the leg's working directory
+    cfg = load_cfg(os.path.join(leg_dir, pl.S2_SHELL))
+    with open(os.path.join(leg_dir, "datasets/nested_shell/meta.json")) as f:
+        meta = json.load(f)
+    cwd = os.getcwd()
+    os.chdir(leg_dir)
+    try:
+        cpu = eval_shell(cfg, meta, device="cpu")
+    finally:
+        os.chdir(cwd)
+    out["eval_shell"] = eval_shell_check("shell_stage2's checkpoint", cfg,
+                                         stage2["eval_shell"], cpu)
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase_pipeline_shell: {out['s']:.1f} s")
     return launches, out
 
 
@@ -2945,6 +3091,7 @@ def main():
         paths.update(pipe_paths)
         paths["pipeline_front"], res_leg = phase_pipeline(
             dev, work, os.path.join(work, "model", SHELL_CFG["name"], "model.ckpt"))
+        paths["pipeline_shell"], res_leg_shell = phase_pipeline_shell(dev, work)
         tool_paths, res_tools = phase_tools(dev, work, ckpt1, res_x["extract_s1"]["mesh"],
                                             outer_mesh)
         paths.update(tool_paths)
@@ -2967,7 +3114,9 @@ def main():
                           ("parallel_s1", "chain_fwd"), ("parallel_s2", "closest_hit"),
                           ("parallel_s1_f32", "chain_fwd"),
                           ("parallel_s2_f32", "closest_hit"),
-                          ("pipeline_front", "chain_fwd"), ("pipeline_front", "chain_bwd")):
+                          ("pipeline_front", "chain_fwd"), ("pipeline_front", "chain_bwd"),
+                          ("pipeline_shell", "chain_fwd"), ("pipeline_shell", "chain_bwd"),
+                          ("pipeline_shell", "closest_hit")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -3042,6 +3191,7 @@ def main():
                "shell_step": res_shell,
                "shell_pipeline": res_pipe,
                "pipeline_front": res_leg,
+               "pipeline_shell": res_leg_shell,
                "tools": res_tools,
                "parallel": res_par,
                "seconds": time.perf_counter() - t_start}

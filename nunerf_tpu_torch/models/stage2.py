@@ -93,6 +93,12 @@ def tree_keys():
     return keys
 
 
+def curv_smooth_iters(cfg):
+    """The rings of smoothing of the traced mesh's curvature: the config's,
+    else 20 for a shell and none for a zero-thickness stage 2."""
+    return cfg.get("curv_smooth_iters", 0 if cfg.get("zero_thickness", True) else 20)
+
+
 class Stage2Renderer(nn.Module):
     """Zero-thickness stage 2.  Trainable: inner SDF + deviation + inner
     shader + IoR field (+ the vestigial IoR-interior and thickness fields and
@@ -137,10 +143,7 @@ class Stage2Renderer(nn.Module):
 
         if scene is None:
             scene = Scene(self.cfg["stage1_mesh_dir"],
-                          curv_smooth_iters=self.cfg.get(
-                              "curv_smooth_iters",
-                              0 if self.cfg.get("zero_thickness", True) else 20),
-                          device=dev)
+                          curv_smooth_iters=curv_smooth_iters(self.cfg), device=dev)
         if scene.device != dev:
             raise ValueError(f"scene on {scene.device}, renderer on {dev}")
         self.scene = scene

@@ -52,6 +52,15 @@ SHELL_DEFAULTS = dict(
 )
 
 
+def orient_to_ray(normal, direc, curvature):
+    """The mesh normal turned to oppose the ray whatever the mesh's winding,
+    and the curvature, which the same winding signs, flipped with it, so
+    that an inward-wound mesh still puts the shell offset Q on the correct
+    side: (normal, K)."""
+    opposes = torch.sum(normal * -direc, dim=-1, keepdim=True) >= 0
+    return torch.where(opposes, normal, -normal), torch.where(opposes, curvature, -curvature)
+
+
 class Stage2ShellRenderer(Stage2Renderer):
     """The curvature-shell stage 2.  The same trainable fields as the
     zero-thickness renderer, with the SpecInner (or, under
@@ -138,14 +147,8 @@ class Stage2ShellRenderer(Stage2Renderer):
             outside = (i % 2 == 0)
             res = self.scene.dintersect(start, direc)
             hit = res["hit"] & active
-            normal = res["normal"] if outside else -res["normal"]
-            # orient against the incoming ray regardless of mesh winding
-            opposes = torch.sum(normal * -direc, dim=-1, keepdim=True) >= 0
-            normal = torch.where(opposes, normal, -normal)
-            # curvature is signed by the same winding as the normal: flip it
-            # with the normal so an inward-wound mesh still puts the shell
-            # offset Q on the correct side
-            K = torch.where(opposes, res["curvature"], -res["curvature"])  # [R,1]
+            normal, K = orient_to_ray(res["normal"] if outside else -res["normal"], direc,
+                                      res["curvature"])  # K [R,1]
             r = torch.nan_to_num(1.0 / safe_sqrt(torch.abs(K), 1e-6), nan=0.1)
 
             ior = self._maybe_freeze(self.ior_net(res["pos"]), frozen_ior)

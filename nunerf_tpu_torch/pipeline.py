@@ -32,11 +32,13 @@ subcommands, with its arguments and in its order, through
 
 Legs that take a budget (``stage2``, ``shell_stage2``, ``shell_stage2b``,
 ``real_stage2``, ``real_stage2_fresh``) train in a child process,
-``python -m nunerf_tpu_torch.cli train``, killed after ``budget`` seconds as
-the script's ``timeout`` kills it: a pause, after which the leg goes on from
-the last checkpoint (checkpoints are written through ``.tmp`` and
-``os.replace``, so a kill never leaves half of one) and a rerun resumes
-exactly.  The other legs train in this process.
+``python -m nunerf_tpu_torch.cli train``, stopped within ``budget`` seconds
+as the script's ``timeout`` stops it: a pause, after which the leg goes on
+from the last checkpoint and a rerun resumes exactly.  The child is stopped
+right after a ``model.ckpt`` save once the next save, at the pace of the
+last one, would land past the budget, so no trained step is lost; else at
+the budget (checkpoints are written through ``.tmp`` and ``os.replace``, so
+a kill never leaves half of one).  The other legs train in this process.
 
 ``run_leg`` is the library form; its ``cfg_overrides`` (``{config path:
 {key: value}}``) and ``extra_args`` (``{subcommand: [arguments]}``, appended,
@@ -58,6 +60,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_WORKDIR = os.path.join(REPO, "pipeline_work")
+WATCH_S = 0.5  # how often a budgeted child's checkpoint is looked at
 
 S1_NESTED = "configs/shape/nerf/nested.yaml"
 S1_SHELL = "configs/shape/nerf/nested_shell.yaml"
@@ -148,7 +151,7 @@ class _Leg:
         if budget is None:
             self.cli("train", "--cfg", path)
         else:
-            paused = self._train_child(path, float(budget))
+            paused = self._train_child(path, float(budget), ckpt)
         after = _ckpt_step(ckpt)
         if after is None:
             raise LegError(f"train --cfg {path} left no checkpoint at {ckpt}")
@@ -160,8 +163,10 @@ class _Leg:
               flush=True)
         return after
 
-    def _train_child(self, path, budget):
-        """The child ``train``; True where the budget ran out (a pause)."""
+    def _train_child(self, path, budget, ckpt):
+        """The child ``train``; True where it was stopped (a pause): right
+        after a save of ``ckpt`` when the next would land past the budget,
+        else at the budget."""
         cmd = train_command(path, self.device)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
@@ -170,16 +175,15 @@ class _Leg:
         t0 = time.perf_counter()
         child = subprocess.Popen(cmd, env=env, start_new_session=True)
         try:
-            rc = child.wait(timeout=budget)
-        except subprocess.TimeoutExpired:
-            # the script's `timeout`: TERM, then KILL whatever is left
-            os.killpg(child.pid, signal.SIGTERM)
-            try:
-                child.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                os.killpg(child.pid, signal.SIGKILL)
-                child.wait()
-            rc = None
+            rc = self._watch(child, t0 + budget, ckpt)
+            if rc is None:
+                # the script's `timeout`: TERM, then KILL whatever is left
+                os.killpg(child.pid, signal.SIGTERM)
+                try:
+                    child.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(child.pid, signal.SIGKILL)
+                    child.wait()
         except BaseException:
             os.killpg(child.pid, signal.SIGKILL)
             child.wait()
@@ -191,6 +195,35 @@ class _Leg:
         if rc not in (None, 0):
             raise LegError(f"train --cfg {path} exited with {rc}")
         return rc is None
+
+    @staticmethod
+    def _watch(child, deadline, ckpt):
+        """The child's exit code, or None where it is to be stopped: at the
+        deadline, or right after a save of ``ckpt`` (seen by its mtime;
+        ``os.replace`` makes a save whole) when the next save, as far
+        after it as it was after the one before (or the start), would
+        land past the deadline."""
+        def mtime():
+            try:
+                return os.stat(ckpt).st_mtime_ns
+            except FileNotFoundError:
+                return None
+
+        seen, last = mtime(), time.perf_counter()
+        while True:
+            rc = child.poll()
+            if rc is not None:
+                return rc
+            now, m = time.perf_counter(), mtime()
+            if m != seen:
+                seen, gap, last = m, now - last, now
+                if now + gap > deadline:
+                    print("[pipeline] train: stopped right after a save, the next due "
+                          "past the budget", flush=True)
+                    return None
+            if now >= deadline:
+                return None
+            time.sleep(min(WATCH_S, deadline - now))
 
     def extract_stage1(self, rel, resolution):
         path, _ = self.cfg(rel)

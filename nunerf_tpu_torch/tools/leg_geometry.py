@@ -5,19 +5,32 @@ synthetic scene's analytic outer sphere, through the port, on one GPU.
         --ckpt data/model/nested/model_best.ckpt [--ckpt ...] \\
         [--f32 data/model/nested/model.ckpt] [--test data/model/nested/model.ckpt]
     python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --seed 7 [--snapshot 5000]
+    python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --leg shell_front \\
+        [--mesh data/meshes/nested_shell-30000_simplified_outer.ply] [--ckpt ...]
 
 ``WORKDIR`` is the working directory of a ``python -m nunerf_tpu_torch.pipeline
-front`` leg (its derived ``configs/shape/nerf/nested.yaml``, its
-``datasets/nested``).  For each ``--ckpt`` the tool runs the leg's
-``extract-mesh-stage1`` at ``--resolution`` (512, tagged with the step) and
-reports ``eval-geometry``'s chamfer against ``gt_outer.npy``, the medians
+LEG`` leg, ``--leg`` ``front`` (the default: its derived
+``configs/shape/nerf/nested.yaml``, its ``datasets/nested``) or
+``shell_front`` (``nested_shell.yaml``, ``datasets/nested_shell``).  For
+each ``--ckpt`` the tool runs the leg's ``extract-mesh-stage1`` at
+``--resolution`` (512, tagged with the step), and for ``shell_front`` its
+``postprocess-outer``, and reports for that mesh, and for each ``--mesh``
+as it is, ``eval-geometry``'s chamfer against ``gt_outer.npy``, the medians
 and upper percentiles of the nearest distances both ways on 100,000 points
 a side (the chamfer's own samples), the share of points farther than 0.05,
 and the percentiles of the mesh's radius (the sphere's is ``meta.json``'s
 ``r_outer``).  ``--f32`` does the same through the plain f32 chain
 (``fused_sdf_value`` and ``sdf_mixed_precision`` off): the extraction's
 precision set aside.  ``--test`` scores the test split at a checkpoint
-(``eval-images``).  Where the working directory holds the leg's
+(``eval-images``).  For ``shell_front`` the tool also counts the sign of
+the curvature that the shell's stage 2 branches on
+(``models/stage2_shell.py``, ``ray_trace``), on the outer mesh its config
+traces (``stage1_mesh_dir`` of ``configs/stage2/nerf/nested_shell.yaml``
+under ``WORKDIR``, else the repository's), after the ``Scene``'s
+smoothing (20 rings for a shell): the vertices whose curvature is negative,
+and, over every camera ray of the test views, the hits of the first trace
+whose curvature, signed as the normal that opposes the ray, is negative
+(the ``K < 0`` branch).  Where the working directory holds the leg's
 ``train_log.jsonl``, the tool also reports its run: every validation's
 PSNR and SSIM, and the loop's median ms a step over steps 1-1,000 and each
 10,000 after (from the logged ``step_ms``, or, in a log from before the
@@ -49,18 +62,22 @@ import torch
 from nunerf_tpu_torch import cli
 from nunerf_tpu_torch import pipeline as pl
 from nunerf_tpu_torch.config import load_cfg
+from nunerf_tpu_torch.models.stage2 import curv_smooth_iters
+from nunerf_tpu_torch.models.stage2_shell import orient_to_ray
 from nunerf_tpu_torch.ops.chamfer import min_sq_dists
 from nunerf_tpu_torch.train.trainer import Trainer, load_checkpoint
 
-GT = "datasets/nested/gt_outer.npy"
+# leg -> (stage-1 config, scene directory)
+LEGS = {"front": (pl.S1_NESTED, "datasets/nested"),
+        "shell_front": (pl.S1_SHELL, "datasets/nested_shell")}
 
 
-def surface_report(mesh, r_outer, device):
-    """The chamfer of ``mesh`` against the analytic outer sphere, and where
-    its points lie."""
-    geo = cli.eval_geometry(mesh, GT, device=device)
-    a = torch.as_tensor(cli.sample_surface(mesh, 100000), dtype=torch.float32, device=device)
-    b = torch.as_tensor(cli.sample_surface(GT, 100000), dtype=torch.float32, device=device)
+def surface_report(mesh, r_outer, device, gt="datasets/nested/gt_outer.npy", n=100000):
+    """The chamfer of ``mesh`` against the analytic outer sphere ``gt``, and
+    where its points lie (``n`` points a side)."""
+    geo = cli.eval_geometry(mesh, gt, n, device=device)
+    a = torch.as_tensor(cli.sample_surface(mesh, n), dtype=torch.float32, device=device)
+    b = torch.as_tensor(cli.sample_surface(gt, n), dtype=torch.float32, device=device)
     d1 = min_sq_dists(a, b).sqrt().cpu().numpy()
     d2 = min_sq_dists(b, a).sqrt().cpu().numpy()
     r = np.linalg.norm(a.cpu().numpy(), axis=-1)
@@ -72,6 +89,36 @@ def surface_report(mesh, r_outer, device):
                 pred_radius_pct=dict(zip([1, 10, 50, 90, 99],
                                          np.percentile(r, [1, 10, 50, 90, 99]).tolist())),
                 r_outer=r_outer)
+
+
+@torch.no_grad()
+def curvature_report(mesh, cfg, smooth, device, chunk=65536):
+    """The sign of the smoothed curvature on ``mesh``, as the shell's stage 2
+    reads it: negative vertices, and the first trace's hits on the ``K < 0``
+    branch over every camera ray of the test views of ``cfg``'s scene."""
+    from nunerf_tpu_torch.data.database import NeRFSyntheticDatabase
+    from nunerf_tpu_torch.data.ray_store import build_imgs_info, construct_nerf_ray_batch
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    scene = Scene(mesh, curv_smooth_iters=smooth, device=device)
+    vk = scene.vertex_curvature
+    db = NeRFSyntheticDatabase(cfg["database_name"], cfg.get("dataset_dir", "./datasets"),
+                               testskip=1)
+    _, test_ids = db.train_test_split()
+    batch, _, _ = construct_nerf_ray_batch(build_imgs_info(db, test_ids, with_mask=False))
+    o = torch.as_tensor(batch["rays_o"], device=device)
+    d = torch.as_tensor(batch["rays_d"], device=device)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    hits = neg = 0
+    for i in range(0, o.shape[0], chunk):
+        res = scene.dintersect(o[i:i + chunk], d[i:i + chunk])
+        k = orient_to_ray(res["normal"], d[i:i + chunk], res["curvature"])[1][:, 0]
+        hits += int(res["hit"].sum())
+        neg += int((res["hit"] & (k < 0)).sum())
+    return dict(mesh=mesh, smooth_rings=smooth, vertices=int(vk.numel()),
+                negative_vertices=int((vk < 0).sum()), test_views=len(test_ids),
+                rays=int(o.shape[0]), hits=hits, negative_hits=neg,
+                negative_hit_share=neg / max(hits, 1))
 
 
 def loop_report(cfg, log_path, device):
@@ -133,17 +180,21 @@ def seed_run(workdir, seed, every, device):
     return rec, kept
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("workdir")
+    ap.add_argument("--leg", choices=sorted(LEGS), default="front")
     ap.add_argument("--ckpt", action="append", default=[])
+    ap.add_argument("--mesh", action="append", default=[],
+                    help="a mesh to report as it is (relative to WORKDIR)")
     ap.add_argument("--f32", default=None)
     ap.add_argument("--test", default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--snapshot", type=int, default=5000)
     ap.add_argument("--resolution", type=int, default=512)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--n-samples", type=int, default=100000)
+    args = ap.parse_args(argv)
     if args.device != "cpu":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -152,13 +203,26 @@ def main():
     out = {}
     ckpts = [(c, False) for c in args.ckpt]
     if args.seed is not None:
+        if args.leg != "front":
+            ap.error("--seed runs the front leg")
         out["leg"], kept = seed_run(workdir, args.seed, args.snapshot, args.device)
         ckpts += [(kept[s], False) for s in sorted(kept)]
     if args.f32:
         ckpts.append((args.f32, True))
+    prev = os.getcwd()
     os.chdir(workdir)
-    cfg = load_cfg(pl.S1_NESTED)
-    with open("datasets/nested/meta.json") as f:
+    try:
+        return _report(args, out, ckpts)
+    finally:
+        os.chdir(prev)
+
+
+def _report(args, out, ckpts):
+    """The reports of ``main``, in the leg's working directory."""
+    rel, scene_dir = LEGS[args.leg]
+    cfg = load_cfg(rel)
+    gt = os.path.join(scene_dir, "gt_outer.npy")
+    with open(os.path.join(scene_dir, "meta.json")) as f:
         r_outer = json.load(f)["r_outer"]
     log = os.path.join("data/model", cfg["name"], "train_log.jsonl")
     if os.path.exists(log):
@@ -174,14 +238,32 @@ def main():
         t0 = time.perf_counter()
         m = cli.extract_mesh_stage1(c, path, args.resolution,
                                     tag=f"s{step}" + ("_f32" if f32 else ""), device=args.device)
-        rep = dict(surface_report(m["simplified"], r_outer, args.device), ckpt=path, step=step,
-                   f32=f32, tris=m["tris"], extract_s=time.perf_counter() - t0)
+        mesh = m["simplified"]
+        if args.leg == "shell_front":
+            mesh, _ = cli.postprocess_outer(mesh, device=args.device)
+        rep = dict(surface_report(mesh, r_outer, args.device, gt, args.n_samples), ckpt=path,
+                   step=step, f32=f32, tris=m["tris"], extract_s=time.perf_counter() - t0)
         print(json.dumps(rep), flush=True)
         out["meshes"].append(rep)
+    for mesh in args.mesh:
+        rep = dict(surface_report(mesh, r_outer, args.device, gt, args.n_samples), mesh=mesh)
+        print(json.dumps(rep), flush=True)
+        out["meshes"].append(rep)
+    if args.leg == "shell_front":
+        # the stage-2 config the shell leg wrote here, else the repository's
+        s2 = load_cfg(pl.S2_SHELL if os.path.exists(pl.S2_SHELL)
+                      else os.path.join(pl.REPO, pl.S2_SHELL))
+        mesh = s2["stage1_mesh_dir"]
+        if not os.path.exists(mesh):
+            print(f"no curvature count: {mesh} does not exist", flush=True)
+        else:
+            out["curvature"] = curvature_report(mesh, cfg, curv_smooth_iters(s2), args.device)
+            print(json.dumps(out["curvature"]), flush=True)
     os.makedirs("runs", exist_ok=True)
     with open(os.path.join("runs", "leg_geometry.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({k: v for k, v in out.items() if k != "leg"}))
+    return out
 
 
 if __name__ == "__main__":

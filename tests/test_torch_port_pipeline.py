@@ -341,6 +341,84 @@ def test_leg_geometry_reports_the_loop_from_the_train_log(shell_legs, tmp_path):
     assert again["step_ms_median"]["1-1000"] == pytest.approx(timed[0]["step_ms"], rel=1e-9)
 
 
+def test_leg_geometry_reports_the_shell_surface_and_its_curvature_sign(shell_legs, tmp_path):
+    """``--leg shell_front``: the leg's outer mesh against the scene's outer
+    sphere (the leg's own ``eval-geometry`` chamfer at the same samples),
+    and the curvature sign the shell's stage 2 reads on the mesh its config
+    traces: negative vertices after the config's smoothing, and the first
+    trace's hits on the ``K < 0`` branch.  The curvature is the angle
+    defect, which no winding signs: with the winding reversed the vertices'
+    signs stay, and every hit, whose normal no longer opposes its ray,
+    takes the other branch."""
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply, save_ply
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    work, front, _, _, _ = shell_legs
+    outer = front["meshes"]["outer"]
+    out = leg_geometry.main([work, "--leg", "shell_front", "--mesh", outer, "--device", "cpu",
+                             "--n-samples", "2000"])
+    rep = out["meshes"][0]
+    assert rep["mesh"] == outer
+    assert rep["chamfer"] == pytest.approx(front["chamfer"]["outer"]["chamfer"], rel=1e-6)
+    with open(os.path.join(work, "datasets/nested_shell/meta.json")) as f:
+        assert rep["r_outer"] == json.load(f)["r_outer"]
+    assert rep["pred_radius_pct"][1] <= rep["pred_radius_pct"][50] <= rep["pred_radius_pct"][99]
+    cur = out["curvature"]
+    # the tiny stage-2 config's mesh and smoothing; 2 test views of 16x16
+    assert cur["mesh"] == S2_TINY["stage1_mesh_dir"] and cur["smooth_rings"] == 5
+    assert cur["rays"] == 2 * 16 * 16 and cur["test_views"] == 2
+    path = os.path.join(work, outer)
+    scene = Scene(path, curv_smooth_iters=5, device="cpu")
+    assert cur["vertices"] == scene.vertex_curvature.numel()
+    assert cur["negative_vertices"] == int((scene.vertex_curvature < 0).sum())
+    assert 0 < cur["hits"] <= cur["rays"] and 0 <= cur["negative_hits"] <= cur["hits"]
+    assert cur["negative_hit_share"] == pytest.approx(cur["negative_hits"] / cur["hits"])
+
+    verts, tris = load_ply(path)
+    flipped = str(tmp_path / "flipped.ply")
+    save_ply(flipped, verts, np.ascontiguousarray(tris[:, ::-1]))
+    cfg = {"database_name": "nerf/nested_shell",
+           "dataset_dir": os.path.join(work, "datasets")}
+    again = leg_geometry.curvature_report(path, cfg, 5, "cpu")
+    back = leg_geometry.curvature_report(flipped, cfg, 5, "cpu")
+    assert {k: again[k] for k in again if k != "mesh"} == \
+        {k: cur[k] for k in cur if k != "mesh"}
+    assert back["negative_vertices"] == again["negative_vertices"]
+    assert back["hits"] == again["hits"]
+    assert back["negative_hits"] + again["negative_hits"] == again["hits"]
+
+
+def test_a_child_is_stopped_right_after_a_save_when_the_next_is_past_its_budget(
+        shell_legs, tmp_path, monkeypatch, capsys):
+    """The injected child writes the stage-2 checkpoint anew after 0.3 s and
+    2 s more, as the trainer does (``.tmp`` and ``os.replace``), and never
+    ends; the next save, 2 s on, would land past the 4-s budget, so the leg
+    stops the child right after the second save, before the budget, and
+    goes on from that checkpoint."""
+    from nunerf_tpu_torch.train.trainer import load_checkpoint
+
+    work, _, _, _, _ = shell_legs
+    rel = "data/model/nested_shell_s2/model.ckpt"
+    step = load_checkpoint(os.path.join(work, rel))[0]
+    monkeypatch.setattr(pl, "train_command", lambda cfg, device: [
+        sys.executable, "-c",
+        "import os, time\n"
+        f"p = {rel!r}\n"
+        "blob = open(p, 'rb').read()\n"
+        "for wait in (0.3, 2.0):\n"
+        "    time.sleep(wait)\n"
+        "    open(p + '.tmp', 'wb').write(blob)\n"
+        "    os.replace(p + '.tmp', p)\n"
+        "time.sleep(600)\n"])
+    monkeypatch.chdir(tmp_path)
+    rec = pl.run_leg("shell_stage2", work, budget=4.0, **TINY)
+    out = capsys.readouterr().out
+    assert "stopped right after a save" in out and "paused at the budget" in out
+    assert rec["commands"][0]["paused"] and rec["commands"][0]["s"] < 4.0
+    assert rec["steps"]["nested_shell_s2"]["to"] == step
+    assert rec["checkpoints"]["extract-mesh-stage2"] == step
+
+
 def test_leg_geometry_seed_run_refuses_a_trained_workdir(tmp_path):
     ckpt = tmp_path / "data" / "model" / "nested" / "model.ckpt"
     ckpt.parent.mkdir(parents=True)
