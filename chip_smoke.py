@@ -25,10 +25,12 @@ Phases (any failure exits non-zero):
      bounds of the flat and of the two-level culled work beside the brute
      sweep's, its time in both modes and its device time by kernel), against the port's brute sweep and tile-culled descent with no
      ray allowed to disagree on ``hit``, and on an adversarial box mesh;
-  4. correctness: a small stage-1 step, a small stage-2 step and a small
-     shell step on the card (kernels on) against the same steps on the CPU
-     (plain versions), plain and with the ``fused_sdf`` / ``fused_mlp`` gates
-     on;
+  4. correctness: one bf16 dense layer on the card against the CPU (both
+     round once, after the f32 bias; the share of outputs not bit-equal and
+     the layer's CUDA route printed); a small stage-1 step, a small stage-2
+     step and a small shell step on the card (kernels on) against the same
+     steps on the CPU (plain versions), plain and with the ``fused_sdf`` /
+     ``fused_mlp`` gates on;
   5. the main paths, each with the launch counters set to 0 just before and
      read just after: the stage-1 training step at ``BENCH_CFG``'s full
      width (1024 rays, 64+64 SDF samples, 8x256 SDF and NeRF++), a few Adam
@@ -1047,6 +1049,73 @@ def phase_kernel_k3(scene, dev):
                 c = sweep_agreement(got, brute, o, d, btri, f"adversarial box, tile {tile}")
                 rec[f"adversarial_agreement_tile{tile}"] = c
                 log(f"K3 tolerant vs the brute sweep on the adversarial box: {c}")
+    return rec
+
+
+DENSE_ROWS = 131072   # one bf16 dense layer, 256x256, at this many rows
+DENSE_UNEQUAL_TOL = 1e-3   # share of outputs not bit-equal to the CPU's
+
+
+def phase_dense_rounding(dev):
+    """One bf16 ``WNDense`` (256x256, ``DENSE_ROWS`` rows) on the card against
+    the same layer on the CPU.  Both round once, after the f32 bias: the
+    card's output equals its route's (``ROUTES['cuda']``) to the bit, and at
+    most ``DENSE_UNEQUAL_TOL`` of it differs from the CPU's, each output
+    within one bf16 unit plus what the order of the f32 sums and the weight
+    norm's rounding may move it; dx, dv, dg and db within one bf16 unit of
+    their scale."""
+    from nunerf_tpu_torch.fields.mlp import ROUTES, WNDense
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(DENSE_ROWS, 256, generator=gen)
+    w = torch.randn(DENSE_ROWS, 256, generator=gen)
+    res, kt = {}, {}
+    for d in (dev, torch.device("cpu")):
+        layer = WNDense(256, 256, dtype=torch.bfloat16, device=d)
+        layer.reset_parameters(torch.Generator().manual_seed(12))
+        xd = x.to(d).requires_grad_(True)
+        y = layer(xd)
+        torch.sum(y.float() * w.to(d)).backward()
+        res[d.type] = [t.detach().float().cpu() for t in (
+            y, xd.grad, layer.v.grad, layer.g.grad, layer.b.grad)]
+        with torch.no_grad():
+            kb = layer.weight().to(torch.bfloat16)
+        kt[d.type] = kb.float().cpu()
+        if d.type == "cuda":
+            with torch.no_grad():
+                route = (torch.mm(x.to(d).to(torch.bfloat16), kb, out_dtype=torch.float32)
+                         + layer.b).to(torch.bfloat16)
+            if not torch.equal(y, route):
+                raise AssertionError("the bf16 dense layer did not take its CUDA route")
+            xb = x.to(d).to(torch.bfloat16)
+
+            def fwd_bwd():
+                yy = layer(xb.requires_grad_(True))
+                yy.backward(torch.ones_like(yy))
+
+            with torch.no_grad():
+                layer_ms = cuda_ms(lambda: layer(xb), 20)
+            layer_bwd_ms = cuda_ms(fwd_bwd, 20)
+    got, want = res["cuda"][0], res["cpu"][0]
+    unequal = float((got != want).float().mean())
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    xa = x.to(torch.bfloat16).float().abs()
+    # one bf16 unit, the f32 sums' order, and the two devices' weight norms
+    # rounding a kernel element to bf16 differently
+    bound = (torch.ldexp(torch.ones_like(got), e - 8)
+             + 256 * 2.0 ** -24 * (xa @ kt["cpu"].abs()) + xa @ (kt["cuda"] - kt["cpu"]).abs())
+    over = float(((got - want).abs() / bound).max())
+    grad_units = [rel_err(a, b) * 2.0 ** 7 for a, b in zip(res["cuda"][1:], res["cpu"][1:])]
+    rec = {"route": ROUTES["cuda"], "rows": DENSE_ROWS, "unequal_share": unequal,
+           "max_over_bound": over, "grad_bf16_units": grad_units,
+           "fwd_ms": layer_ms, "fwd_bwd_ms": layer_bwd_ms}
+    log(f"bf16 WNDense 256x256 at {DENSE_ROWS} rows, route {ROUTES['cuda']}: card vs CPU "
+        f"{unequal:.3e} of the outputs not bit-equal (tol {DENSE_UNEQUAL_TOL:.0e}), the "
+        f"largest difference {over:.3f} of its bound; dx/dv/dg/db "
+        f"{', '.join(f'{u:.3f}' for u in grad_units)} bf16 units of scale; "
+        f"forward {layer_ms:.4f} ms, forward+backward {layer_bwd_ms:.4f} ms")
+    if not (unequal <= DENSE_UNEQUAL_TOL and over <= 1.0 and max(grad_units) <= 1.0):
+        raise AssertionError(f"the bf16 dense layer on the card disagrees with the CPU: {rec}")
     return rec
 
 
@@ -3062,6 +3131,7 @@ def main():
     del renderer
     head_shapes = phase_kernels_heads(dev)
     rec["K3"] = phase_kernel_k3(scene, dev)
+    res_dense = phase_dense_rounding(dev)
     phase_small_check(dev)
     phase_small_check_stage2(dev)
     phase_small_check_shell(dev)
@@ -3181,6 +3251,7 @@ def main():
                "stage2_rays_per_s": res2["rays_per_s"],
                "stage2_peak_gib": res2["peak_gib"],
                "stage2_triangles": len(tris),
+               "bf16_dense": res_dense,
                "path_A_stage1_fused_sdf": step_summary(res_a[25000]),
                "path_B_stage2_fused_sdf": step_summary(res_b),
                "path_C_stage1_fused_mlp": dict(

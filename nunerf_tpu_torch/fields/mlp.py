@@ -7,7 +7,9 @@ Weight norm: ``W = g * V / ||V||`` with the norm per output unit.  The kernel
 (clamped at 1e-12), and ``g`` starts at ``||V_init||``.
 
 ``dtype`` (None or ``torch.bfloat16``) is the compute dtype of a layer's
-matmul; parameters stay f32.  A bf16 layer returns bf16.
+matmul; parameters stay f32.  A bf16 layer rounds its operands to bf16,
+accumulates in f32, adds the f32 bias and rounds once to bf16 (``_Bf16Dense``);
+it returns bf16.
 
 ``Predictor(fused=True)`` runs its layer stack through the fused chain kernel
 (K1 forward, K2 backward; the plain chain on the CPU).
@@ -36,12 +38,55 @@ def normal_(t: torch.Tensor, mean: float, std: float, generator):
     return t
 
 
+# the product of a bf16 dense layer, by device type (see ``_Bf16Dense``)
+ROUTES = {"cuda": "torch.mm(bf16, bf16, out_dtype=float32)",
+          "cpu": "float32 matmul of the bf16 values"}
+
+
+class _Bf16Dense(torch.autograd.Function):
+    """``round_bf16(x @ k + b)`` from bf16 ``x`` [..., in] and ``k`` [in, out]
+    and an f32 ``b``: the products accumulate in f32, the bias is added in
+    f32 and the sum is rounded once, as the JAX layers' ``jnp.dot(...,
+    preferred_element_type=f32) + b`` then ``astype(bf16)`` do.
+
+    The product takes one route per device type:
+    - CUDA: cuBLAS's bf16 tensor-core GEMM with an f32 output
+      (``torch.mm(..., out_dtype=torch.float32)``, which has no autograd
+      formula, hence this Function);
+    - CPU: an f32 matmul of the bf16 values (a product of two bf16 values is
+      exact in f32), as ``chain_mlp_reference`` does.
+
+    The backward is that of the bf16 matmul: dx and dk are bf16 products of
+    the bf16 cotangent, db its f32 sum.  It is written with differentiable
+    ops, so the SDF's double backward goes through it."""
+
+    @staticmethod
+    def forward(ctx, x, k, b):
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cuda":
+            y = torch.mm(x2, k, out_dtype=torch.float32)
+        else:
+            y = x2.to(torch.float32) @ k.to(torch.float32)
+        ctx.save_for_backward(x, k)
+        return (y + b).to(torch.bfloat16).reshape(*x.shape[:-1], k.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        dx = dk = db = None
+        if ctx.needs_input_grad[0]:
+            dx = g @ k.t()
+        if ctx.needs_input_grad[1]:
+            dk = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        if ctx.needs_input_grad[2]:
+            db = g.to(torch.float32).reshape(-1, g.shape[-1]).sum(0)
+        return dx, dk, db
+
+
 def _matmul(x, kernel, b, dtype):
     if dtype is not None:
-        y = (x.to(dtype) @ kernel.to(dtype)).to(kernel.dtype)
-        if b is not None:
-            y = y + b
-        return y.to(dtype)
+        return _Bf16Dense.apply(x.to(dtype), kernel.to(dtype), b)
     # mixed inputs promote (a bf16 activation into an f32 layer), as in JAX
     dt = torch.promote_types(x.dtype, kernel.dtype)
     y = x.to(dt) @ kernel.to(dt)

@@ -23,11 +23,29 @@ from nunerf_tpu_torch.fields.mlp import WNDense, normal_
 from nunerf_tpu_torch.ops.embedder import posenc, posenc_dim
 
 
+class _Softplus(torch.autograd.Function):
+    """softplus(t) in the stable max(t,0) + log1p(exp(-|t|)) form, with the
+    derivative JAX gives ``jnp.logaddexp(t, 0)`` (its custom JVP):
+    ``exp(t - softplus(t))``, one exp of a difference in the input's dtype.
+    Autograd through the forward's ops would sum two terms, each rounded in
+    bf16, and so round the SDF's bf16 normal elsewhere than JAX does.  The
+    backward is written with differentiable ops, for the double backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        y = torch.clamp(t, min=0.0) + torch.log1p(torch.exp(-t.abs()))
+        ctx.save_for_backward(t, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        t, y = ctx.saved_tensors
+        return g * torch.exp(t - y)
+
+
 def softplus100(x):
-    """softplus(beta=100) in the stable max(t,0) + log1p(exp(-|t|)) form
-    (the JAX ``jax.nn.softplus(100 x) / 100``)."""
-    t = x * 100.0
-    return (torch.clamp(t, min=0.0) + torch.log1p(torch.exp(-t.abs()))) / 100.0
+    """softplus(beta=100), the JAX ``jax.nn.softplus(100 x) / 100``."""
+    return _Softplus.apply(x * 100.0) / 100.0
 
 
 class SDFNetwork(nn.Module):

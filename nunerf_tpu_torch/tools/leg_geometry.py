@@ -4,7 +4,8 @@ synthetic scene's analytic outer sphere, through the port, on one GPU.
     python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR \\
         --ckpt data/model/nested/model_best.ckpt [--ckpt ...] \\
         [--f32 data/model/nested/model.ckpt] [--test data/model/nested/model.ckpt]
-    python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --seed 7 [--snapshot 5000]
+    python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --seed 7 [--snapshot 5000] \\
+        [--train-f32]
     python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --leg shell_front \\
         [--mesh data/meshes/nested_shell-30000_simplified_outer.ply] [--ckpt ...]
 
@@ -43,7 +44,8 @@ training is the same: a checkpoint only reads the state), keeps a copy of
 the checkpoint at every ``--snapshot`` steps as the trainer writes it, and
 then reports each copy as above: a second sound run's trajectory.  It
 refuses a ``WORKDIR`` that holds the leg's checkpoint already, which the
-leg would resume instead of training anew.  Prints the card's name and power
+leg would resume instead of training anew.  With ``--train-f32`` that run
+trains in f32 (``mixed_precision`` and ``sdf_mixed_precision`` off).  Prints the card's name and power
 limit first and one JSON object last, also written to
 ``WORKDIR/runs/leg_geometry.json``.
 """
@@ -165,14 +167,17 @@ def kept_checkpoints(snap, every):
         Trainer.save = save
 
 
-def seed_run(workdir, seed, every, device):
-    """The front leg anew with ``random_seed`` ``seed``; the checkpoint kept
-    at every ``every`` steps.  Returns (leg record, {step: copy})."""
+def seed_run(workdir, seed, every, device, f32=False):
+    """The front leg anew with ``random_seed`` ``seed``, in f32 if ``f32``
+    else in the config's precision; the checkpoint kept at every ``every``
+    steps.  Returns (leg record, {step: copy})."""
     ckpt = os.path.join(workdir, "data/model/nested/model.ckpt")
     if os.path.exists(ckpt):
         raise ValueError(f"{ckpt} exists: the leg would resume it; a seed run needs a "
                          f"working directory without one")
     over = {pl.S1_NESTED: dict(random_seed=seed, save_interval=1000)}
+    if f32:
+        over[pl.S1_NESTED].update(mixed_precision=False, sdf_mixed_precision=False)
     with kept_checkpoints(os.path.join(workdir, "snap"), every) as kept:
         rec = pl.run_leg("front", workdir, device=device, cfg_overrides=over)
     if rec["steps"]["nested"]["from"] != 0:
@@ -191,6 +196,8 @@ def main(argv=None):
     ap.add_argument("--test", default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--snapshot", type=int, default=5000)
+    ap.add_argument("--train-f32", action="store_true",
+                    help="with --seed: train in f32, not in the config's bf16")
     ap.add_argument("--resolution", type=int, default=512)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-samples", type=int, default=100000)
@@ -202,10 +209,13 @@ def main(argv=None):
     workdir = os.path.abspath(args.workdir)
     out = {}
     ckpts = [(c, False) for c in args.ckpt]
+    if args.train_f32 and args.seed is None:
+        ap.error("--train-f32 goes with --seed")
     if args.seed is not None:
         if args.leg != "front":
             ap.error("--seed runs the front leg")
-        out["leg"], kept = seed_run(workdir, args.seed, args.snapshot, args.device)
+        out["leg"], kept = seed_run(workdir, args.seed, args.snapshot, args.device,
+                                    args.train_f32)
         ckpts += [(kept[s], False) for s in sorted(kept)]
     if args.f32:
         ckpts.append((args.f32, True))

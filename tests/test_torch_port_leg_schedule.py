@@ -42,23 +42,29 @@ set them) each quantity of the port is held to JAX's within ``rtol * scale
 + K_BF16 * |jax_bf16 - jax_f32|``: JAX's own bf16 rounding, measured
 against its f32 step, and none of the port's, so a fault in the port's
 bf16 path alone cannot widen its own bound (a bias 2 % off in the bf16
-dense layers of the port fails every case).  rtol is that of the port's bf16 parity
-cases (``test_torch_port_jac.py``, ``test_torch_port_fused_mlp.py``):
-``BF16_RTOL_LOSS`` (1e-2) of scale on values, ``BF16_RTOL_GRAD`` (3e-2) on
-gradients.  One head is left out where it cannot be held, and the test
-names it and checks that nothing else is: the occlusion probability's
-(``OCC_HEAD``).  Before ``occ_loss_step`` only the colour reaches it, and
-JAX's own bf16 gradient of it is 0.9-1.2 of its scale off its f32 one
-(``OWN_GAP``).  From ``occ_loss_step`` the occlusion loss drives it, over
-a subset of candidates chosen by a threshold on the bf16 SDF at bf16
-importance samples: the two packages round the SDF at different places
-(the port's SDF normals are near f32: the eikonal term's bf16-vs-f32 gap
-is 4.5e-6 in the port, 1.2e-4 in JAX, at 0.0065), and decide 2 of the 18
-candidates differently (at most ``MAX_OCC_FLIPS``, checked): one |sdf|
-0.00981 in JAX, 0.01011 in the port, against the 0.01 threshold, and one
-importance sample 0.03 apart.  Both take the same number of points and
-the same loss within the bound; the head's gradient, over different
-points, is 7 % of its scale apart.
+dense layers of the port fails every case).  rtol is set from the port's
+step with one rounding after the f32 bias: beyond twice JAX's own gap its
+values need 2.2e-7 of scale and its gradients 3.9e-3, so ``BF16_RTOL_LOSS``
+is 1e-3 and ``BF16_RTOL_GRAD`` 1e-2 (before, 1e-2 and 3e-2, those of the
+bf16 kernel parity cases, ``test_torch_port_jac.py``).  One head is left
+out where it cannot be held, and the test names it and checks that nothing
+else is: the occlusion probability's
+(``OCC_HEAD``), before ``occ_loss_step`` only, where the colour alone
+reaches it and JAX's own bf16 gradient of it is 0.58-1.22 of its scale off
+its f32 one (``OWN_GAP``).  From ``occ_loss_step`` the occlusion loss
+drives it, over a subset of candidates chosen by a threshold on the bf16
+SDF at bf16 importance samples, and it is held like every other leaf
+(within 0.76 of its bound at most).  The two packages' bf16 decide one
+of the 18 candidates differently (at most ``MAX_OCC_FLIPS``, checked): an
+importance sample placed elsewhere (radius 0.4818 in the port, 0.4576 in
+JAX; |sdf| 0.0024 against 0.0144, against the 0.01 threshold).  The
+eikonal term's bf16-vs-f32 gap is 1.09e-4 in the port, 7.3e-5 in JAX, at
+0.0063.  Before the port's bf16 dense layers rounded once, after the f32
+bias, and its softplus took JAX's derivative, the two packages decided 2
+candidates differently (one |sdf| 0.00981 in JAX, 0.01011 in the port),
+the head's gradient was off JAX's by up to 1.63 times the bound then in
+force (0.31 of its scale, where JAX's own bf16 is 0.17 off its f32), and
+the head was left out from ``occ_loss_step`` too.
 
 The Adam update: the port's equals optax.adam's on the port's own
 gradients, and where JAX's gradient is clear of the bound above, JAX's
@@ -94,13 +100,13 @@ CUT = dict(sdf_n_layers=4, n_samples=8, n_importance=8, up_sample_steps=2, n_bg_
            n_front_samples=2, n_back_samples=2, perturb=0.0, train_ray_num=RN)
 OCC_MAX_PN = 8
 RTOL_LOSS, RTOL_GRAD, K_COND = 1e-5, 1e-4, 10.0
-BF16_RTOL_LOSS, BF16_RTOL_GRAD, K_BF16 = 1e-2, 3e-2, 2.0
+BF16_RTOL_LOSS, BF16_RTOL_GRAD, K_BF16 = 1e-3, 1e-2, 2.0
 OCC_HEAD = "shade/inner_weight/"  # the shader head of the occlusion probability
 OWN_GAP = 0.5      # JAX's bf16 gradient of a leaf is noise where it is this far off its f32
-MAX_OCC_FLIPS = 2  # occlusion candidates the two packages' bf16 may decide differently
+MAX_OCC_FLIPS = 1  # occlusion candidates the two packages' bf16 may decide differently
 # at least these shares of the parameters are held to JAX's update (measured
-# 0.255-0.304 in f32, 0.066-0.067 in bf16)
-ADAM_HELD_F32, ADAM_HELD_BF16 = 0.2, 0.05
+# 0.253-0.302 in f32, 0.084-0.087 in bf16)
+ADAM_HELD_F32, ADAM_HELD_BF16 = 0.2, 0.07
 # keys of the configs that name the run, not the renderer
 RUN_KEYS = ("name", "database_name", "mask_loss_weight")
 
@@ -417,15 +423,15 @@ def test_leg_step_matches_jax_bf16(params, leg, step, monkeypatch):
     noise, left = {}, {}
     for k, v in jgrads.items():
         scale, gap = np.abs(jg32[k]).max(), np.abs(v - jg32[k]).max()
-        if k.startswith(OCC_HEAD) and (gap >= OWN_GAP * scale or flips):
+        if k.startswith(OCC_HEAD) and gap >= OWN_GAP * scale:
             left[k] = gap / max(scale, 1e-30)
             continue
         _held_bf16(grads[k], v, jg32[k], BF16_RTOL_GRAD, k)
         noise[k] = BF16_RTOL_GRAD * scale + K_BF16 * gap
-    # what is left out is the occlusion head alone: where JAX's own bf16
-    # gradient of it is rounding noise, or the two subsets differ
+    # what is left out is the occlusion head alone, where JAX's own bf16
+    # gradient of it is rounding noise: before the occlusion loss starts
     assert all(k.startswith(OCC_HEAD) for k in left), left
-    if step >= cfg["occ_loss_step"] and not flips:
+    if step >= cfg["occ_loss_step"]:
         assert not left, left
     share = _adam_held(cfg, step, grads, jgrads, before, after, lr, noise)
     assert share >= ADAM_HELD_BF16, share

@@ -11,8 +11,9 @@
   own: the mesh paths chained from the checkpoints' steps, the configs
   written under the working directory, the record printed and written.
 * ``tools.leg_geometry``'s copies of each checkpoint the front leg's
-  trainer writes, and its refusal to start a seed run where the leg would
-  resume.
+  trainer writes, its refusal to start a seed run where the leg would
+  resume, and the seed run's overrides (``--train-f32``: both bf16
+  switches off).
 * The guards: a stage-2 leg without its stage-1 mesh stops with a message;
   a budgeted child that outlives its budget is a pause, after which the leg
   goes on from the last checkpoint (the child's command is injected, so no
@@ -426,6 +427,29 @@ def test_leg_geometry_seed_run_refuses_a_trained_workdir(tmp_path):
     with pytest.raises(ValueError, match="would resume it"):
         leg_geometry.seed_run(str(tmp_path), 7, 5000, "cpu")
     assert sorted(os.listdir(tmp_path)) == ["data"]
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_leg_geometry_seed_run_trains_the_front_leg_in_the_precision_asked(tmp_path,
+                                                                        monkeypatch, f32):
+    """The seed run's overrides: the seed and a checkpoint every 1,000 steps,
+    and with ``f32`` both bf16 switches off; nothing else of the config."""
+    seen = {}
+
+    def run_leg(leg, workdir, device, cfg_overrides):
+        seen.update(leg=leg, workdir=workdir, device=device, over=cfg_overrides)
+        return {"steps": {"nested": {"from": 0, "to": 30000}}}
+
+    monkeypatch.setattr(pl, "run_leg", run_leg)
+    rec, kept = leg_geometry.seed_run(str(tmp_path), 7, 5000, "cpu", f32=f32)
+    assert rec["steps"]["nested"]["from"] == 0 and kept == {}
+    assert seen["leg"] == "front" and seen["workdir"] == str(tmp_path)
+    want = dict(random_seed=7, save_interval=1000)
+    if f32:
+        want.update(mixed_precision=False, sdf_mixed_precision=False)
+    assert seen["over"] == {pl.S1_NESTED: want}
+    with pytest.raises(SystemExit):
+        leg_geometry.main([str(tmp_path), "--train-f32", "--device", "cpu"])
 
 
 def test_a_child_past_its_budget_is_a_pause(shell_legs, tmp_path, monkeypatch, capsys):
