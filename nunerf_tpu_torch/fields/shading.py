@@ -202,6 +202,16 @@ class AppShadingNetwork(nn.Module):
                                indirect_light * occ_prob_,
                                human_light * human_weight)
 
+    def predict_diffuse_lights(self, points, normals):
+        """field.py:669-682: the outer light at roughness 1 (vMF prior)."""
+        roughness = torch.ones((*normals.shape[:-1], 1), dtype=normals.dtype,
+                               device=normals.device)
+        ref = self.sph_enc(normals, roughness)
+        if self.sphere_direction:
+            sph = self._sphere_dir_enc(points, normals, roughness)
+            return self.outer_light(torch.cat([ref, sph], -1))
+        return self.outer_light(ref)
+
     def predict_materials(self, points, feature_vectors):
         fx = torch.cat([feature_vectors, points], -1)
         return self.metallic(fx), self.roughness(fx), self.albedo(fx)

@@ -5,7 +5,8 @@ synthetic scene's analytic outer sphere, through the port, on one GPU.
         --ckpt data/model/nested/model_best.ckpt [--ckpt ...] \\
         [--f32 data/model/nested/model.ckpt] [--test data/model/nested/model.ckpt]
     python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --seed 7 [--snapshot 5000] \\
-        [--train-f32]
+        [--keep 20500,21000] [--stop-step 22000] [--train-f32] \\
+        [--resume model_20000.ckpt] [--set outer_reg_loss_weight=0]
     python -m nunerf_tpu_torch.tools.leg_geometry WORKDIR --leg shell_front \\
         [--mesh data/meshes/nested_shell-30000_simplified_outer.ply] [--ckpt ...]
 
@@ -41,8 +42,14 @@ with the median rays/s.
 ``--seed`` first runs the leg anew in ``WORKDIR`` with ``random_seed`` set
 (other initial weights and ray draws) and checkpoints every 1,000 steps (the
 training is the same: a checkpoint only reads the state), keeps a copy of
-the checkpoint at every ``--snapshot`` steps as the trainer writes it, and
-then reports each copy as above: a second sound run's trajectory.  It
+the checkpoint at every ``--snapshot`` steps and at each step of ``--keep``
+as the trainer writes it (checkpointing every 500 steps where ``--keep``
+asks for it), and then reports each copy as above: a second sound run's
+trajectory.  ``--stop-step`` ends the run after the save at that step
+(``total_step`` cut; the lr schedule ends at ``lr_cfg``'s ``end_iter``, so
+the steps before it are the full run's).  ``--resume`` goes on from a
+checkpoint of such a run (its draws start anew from the seed), and
+``--set KEY=VALUE`` sets a key of the leg's config (a control run).  It
 refuses a ``WORKDIR`` that holds the leg's checkpoint already, which the
 leg would resume instead of training anew.  With ``--train-f32`` that run
 trains in f32 (``mixed_precision`` and ``sdf_mixed_precision`` off).  Prints the card's name and power
@@ -53,6 +60,7 @@ limit first and one JSON object last, also written to
 import argparse
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -148,16 +156,17 @@ def loop_report(cfg, log_path, device):
 
 
 @contextlib.contextmanager
-def kept_checkpoints(snap, every):
+def kept_checkpoints(snap, every, steps=()):
     """While open, a copy in ``snap`` of each ``model.ckpt`` the trainer
-    writes at a step that ``every`` divides, made right after the write:
-    yields {step: copy}."""
+    writes at a step that ``every`` divides or that ``steps`` holds, made
+    right after the write: yields {step: copy}."""
     os.makedirs(snap, exist_ok=True)
     kept, save = {}, Trainer.save
 
     def save_and_keep(self, path, step, best_para):
         save(self, path, step, best_para)
-        if self.writes and path == self.ckpt_path and step % every == 0:
+        if self.writes and path == self.ckpt_path and (step % every == 0
+                                                            or step in steps):
             kept[step] = shutil.copy(path, os.path.join(snap, f"model_{step}.ckpt"))
 
     Trainer.save = save_and_keep
@@ -167,21 +176,33 @@ def kept_checkpoints(snap, every):
         Trainer.save = save
 
 
-def seed_run(workdir, seed, every, device, f32=False):
+def seed_run(workdir, seed, every, device, f32=False, keep=(), stop=None, resume=None,
+             extra=None):
     """The front leg anew with ``random_seed`` ``seed``, in f32 if ``f32``
-    else in the config's precision; the checkpoint kept at every ``every``
-    steps.  Returns (leg record, {step: copy})."""
+    else in the config's precision, with the config keys ``extra`` set; the
+    checkpoint kept at every ``every`` steps and at each step of ``keep``,
+    the run ended after the save at ``stop`` if given.  With ``resume`` (a
+    checkpoint of such a run) the leg goes on from it.  Returns (leg record,
+    {step: copy})."""
     ckpt = os.path.join(workdir, "data/model/nested/model.ckpt")
     if os.path.exists(ckpt):
         raise ValueError(f"{ckpt} exists: the leg would resume it; a seed run needs a "
                          f"working directory without one")
-    over = {pl.S1_NESTED: dict(random_seed=seed, save_interval=1000)}
+    start = 0
+    if resume is not None:
+        start = load_checkpoint(resume)[0]
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        shutil.copy(resume, ckpt)
+    over = {pl.S1_NESTED: dict(random_seed=seed, save_interval=math.gcd(1000, *keep))}
+    if stop is not None:
+        over[pl.S1_NESTED]["total_step"] = stop
     if f32:
         over[pl.S1_NESTED].update(mixed_precision=False, sdf_mixed_precision=False)
-    with kept_checkpoints(os.path.join(workdir, "snap"), every) as kept:
+    over[pl.S1_NESTED].update(extra or {})
+    with kept_checkpoints(os.path.join(workdir, "snap"), every, set(keep)) as kept:
         rec = pl.run_leg("front", workdir, device=device, cfg_overrides=over)
-    if rec["steps"]["nested"]["from"] != 0:
-        raise AssertionError(f"the seed run did not train from step 0: {rec['steps']}")
+    if rec["steps"]["nested"]["from"] != start:
+        raise AssertionError(f"the seed run did not train from step {start}: {rec['steps']}")
     return rec, kept
 
 
@@ -196,8 +217,16 @@ def main(argv=None):
     ap.add_argument("--test", default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--snapshot", type=int, default=5000)
+    ap.add_argument("--keep", default="",
+                    help="with --seed: more steps to keep a checkpoint at, comma-separated")
+    ap.add_argument("--stop-step", type=int, default=None,
+                    help="with --seed: end the run after the save at this step")
     ap.add_argument("--train-f32", action="store_true",
                     help="with --seed: train in f32, not in the config's bf16")
+    ap.add_argument("--resume", default=None,
+                    help="with --seed: go on from this checkpoint of such a run")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="with --seed: set a key of the leg's config (VALUE read as YAML)")
     ap.add_argument("--resolution", type=int, default=512)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-samples", type=int, default=100000)
@@ -209,13 +238,18 @@ def main(argv=None):
     workdir = os.path.abspath(args.workdir)
     out = {}
     ckpts = [(c, False) for c in args.ckpt]
-    if args.train_f32 and args.seed is None:
-        ap.error("--train-f32 goes with --seed")
+    keep = [int(s) for s in args.keep.split(",") if s]
+    if (args.train_f32 or keep or args.stop_step or args.resume or args.set) \
+            and args.seed is None:
+        ap.error("--train-f32, --keep, --stop-step, --resume and --set go with --seed")
+    import yaml
+    extra = {k: yaml.safe_load(v) for k, v in (kv.split("=", 1) for kv in args.set)}
     if args.seed is not None:
         if args.leg != "front":
             ap.error("--seed runs the front leg")
         out["leg"], kept = seed_run(workdir, args.seed, args.snapshot, args.device,
-                                    args.train_f32)
+                                    args.train_f32, keep, args.stop_step,
+                                    args.resume and os.path.abspath(args.resume), extra)
         ckpts += [(kept[s], False) for s in sorted(kept)]
     if args.f32:
         ckpts.append((args.f32, True))

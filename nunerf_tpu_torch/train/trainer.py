@@ -120,6 +120,25 @@ class TrainStep:
                 i += p.numel()
         mesh.average_(self._flat_grad)
 
+    def load_state(self, opt_state, top):
+        """Adam's update count and moments from ``opt_state`` (``count``,
+        and ``exp_avg`` / ``exp_avg_sq`` as JAX trees, ``top`` mapping their
+        heads to name prefixes), in each parameter's dtype."""
+        from nunerf_tpu_torch.convert import jax_tree_to_named
+
+        self.optimizer.state.clear()
+        self.n_updates = int(opt_state["count"])
+        names = {n: p for n, p in self.renderer.named_parameters()}
+        moments = {key: jax_tree_to_named(opt_state[key], top)
+                   for key in ("exp_avg", "exp_avg_sq")}
+        for name, m in moments["exp_avg"].items():
+            p = names[name]
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(opt_state["count"]), dtype=torch.float32),
+                "exp_avg": torch.as_tensor(m, device=p.device, dtype=p.dtype).clone(),
+                "exp_avg_sq": torch.as_tensor(moments["exp_avg_sq"][name], device=p.device,
+                                              dtype=p.dtype).clone()}
+
     def apply(self):
         for group in self.optimizer.param_groups:
             group["lr"] = self._lr(self.n_updates)
@@ -372,7 +391,7 @@ class Trainer:
         package; (step, best_para).  Rank 0 reads the file and sends every
         rank its contents (parameters, Adam's moments and count), so the
         ranks go on bit-equal."""
-        from nunerf_tpu_torch.convert import jax_tree_to_named, load_jax_params
+        from nunerf_tpu_torch.convert import load_jax_params
 
         step, params, opt_state, best = self.read_checkpoint(path)
         load_jax_params(self.renderer, params, self.tree_top)
@@ -383,17 +402,7 @@ class Trainer:
                 print(f"{path}: a JAX checkpoint; its optimizer state (flax msgpack) "
                   f"cannot be read, so Adam starts afresh at step {step}")
             return step, best
-        self.train.n_updates = int(opt_state["count"])
-        names = {n: p for n, p in self.renderer.named_parameters()}
-        moments = {key: jax_tree_to_named(opt_state[key], self.tree_top)
-                   for key in ("exp_avg", "exp_avg_sq")}
-        for name, m in moments["exp_avg"].items():
-            p = names[name]
-            self.train.optimizer.state[p] = {
-                "step": torch.tensor(float(opt_state["count"]), dtype=torch.float32),
-                "exp_avg": torch.as_tensor(m, device=p.device, dtype=p.dtype).clone(),
-                "exp_avg_sq": torch.as_tensor(moments["exp_avg_sq"][name], device=p.device,
-                                              dtype=p.dtype).clone()}
+        self.train.load_state(opt_state, self.tree_top)
         return step, best
 
     def _load_if_exists(self):

@@ -265,6 +265,58 @@ def test_s2_shade_forward_and_grads(is_internal, sphere_direction):
     assert bool(out["color"].any()) != is_internal
 
 
+@pytest.mark.parametrize("sphere_direction", [False, True])
+def test_predict_diffuse_lights_forward_and_grads(sphere_direction):
+    """The outer light at roughness 1, with and without the sphere-direction
+    encoding: its value, and the gradients of its squares' sum at the
+    parameters and at both inputs, calibrated by float64 on both sides; every
+    head but ``outer_light`` gets exactly zero."""
+    jmod = JShade(sphere_direction=sphere_direction)
+    params = jitter_tree(jmod.init(jax.random.PRNGKey(7), *(jnp.zeros((1, 3)),) * 3,
+                                   jnp.zeros((1, 256))), 24)
+    arrs = _shade_inputs(25)[:2]
+
+    def jcall(p, pts, normals):
+        return jmod.apply(p, pts, normals, method=JShade.predict_diffuse_lights)
+
+    jgrad = jax.jit(jax.grad(lambda p, *a: jnp.sum(jcall(p, *a) ** 2), argnums=(0, 1, 2)))
+    args_j = [jnp.asarray(a) for a in arrs]
+    jout = jax.jit(jcall)(params, *args_j)
+    with jax.enable_x64(True):
+        jg64 = jgrad(jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), params),
+                     *[jnp.asarray(a, jnp.float64) for a in arrs])
+
+    def flat(g):
+        out = flat_leaves(g[0])
+        out.update({f"input{i}": np.asarray(a) for i, a in enumerate(g[1:])})
+        return out
+
+    jg, jg64 = flat(jgrad(params, *args_j)), flat(jg64)
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        tmod = AppShadingNetwork(device="cpu", sphere_direction=sphere_direction)
+        load_jax_params(tmod, params)
+        tmod.to(dt)
+        leaves = [t(a).to(dt).requires_grad_(True) for a in arrs]
+        out = tmod.predict_diffuse_lights(*leaves)
+        torch.sum(out ** 2).backward()
+        grads = flat_leaves(to_jax_tree(tmod, what="grad"))
+        grads.update({f"input{i}": (np.zeros(a.shape) if a.grad is None else a.grad.numpy())
+                      for i, a in enumerate(leaves)})
+        res[dt] = (out.detach(), grads)
+    (o32, g32), (o64, g64) = res[torch.float32], res[torch.float64]
+    assert o32.shape == (arrs[0].shape[0], 3)
+    assert_close_calibrated(o32, jout, o64, RTOL_FWD, what="diffuse light")
+    assert sorted(g32) == sorted(jg)
+    for k, e in jg.items():
+        assert_close_calibrated(g32[k], e, g64[k], RTOL_GRAD, what=k, expected64=jg64[k])
+        if not k.startswith(("outer_light/", "input")):
+            assert not g32[k].any() and not np.asarray(e).any(), k
+    # the points reach the light only through the sphere-direction encoding
+    assert bool(np.abs(g32["input0"]).max() > 0) == sphere_direction
+    assert np.abs(g32["input1"]).max() > 0
+
+
 def test_diffuse_only_shader_forward_and_grads():
     """The lambertian inner variant: the parameter set of the full shader,
     metallic and transmission reported as zero."""

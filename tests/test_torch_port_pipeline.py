@@ -448,8 +448,52 @@ def test_leg_geometry_seed_run_trains_the_front_leg_in_the_precision_asked(tmp_p
     if f32:
         want.update(mixed_precision=False, sdf_mixed_precision=False)
     assert seen["over"] == {pl.S1_NESTED: want}
-    with pytest.raises(SystemExit):
-        leg_geometry.main([str(tmp_path), "--train-f32", "--device", "cpu"])
+    for flags in (["--train-f32"], ["--keep", "20500"], ["--stop-step", "22000"],
+                  ["--set", "outer_reg_loss_weight=0"], ["--resume", "model.ckpt"]):
+        with pytest.raises(SystemExit):
+            leg_geometry.main([str(tmp_path), *flags, "--device", "cpu"])
+
+
+def test_leg_geometry_seed_run_keeps_stops_resumes_and_sets(tmp_path, monkeypatch):
+    """A seed run that keeps checkpoints off the 1,000s checkpoints every
+    500 steps, ends at ``stop`` (``total_step``), goes on from a checkpoint
+    copied into its working directory, and sets the config keys given; the
+    copies are made at ``every``'s multiples and at ``keep``'s steps."""
+    from nunerf_tpu_torch.train.trainer import Trainer, load_checkpoint, save_checkpoint
+
+    src = str(tmp_path / "model_20000.ckpt")
+    save_checkpoint(src, 20000, {"a": np.zeros(2, np.float32)}, None, 0.0)
+    work = tmp_path / "w"
+    seen = {}
+
+    def run_leg(leg, workdir, device, cfg_overrides):
+        seen.update(over=cfg_overrides,
+                    start=load_checkpoint(os.path.join(workdir,
+                                                       "data/model/nested/model.ckpt"))[0])
+        # the trainer's saves, as the kept-checkpoint hook sees them
+        class Rank0(Trainer):
+            writes = True
+
+        tr = Rank0.__new__(Rank0)
+        tr.ckpt_path = os.path.join(workdir, "data/model/nested/model.ckpt")
+        tr.params_tree = lambda: {"a": np.zeros(2, np.float32)}
+        tr.opt_state_tree = lambda: None
+        for step in (20500, 21000, 21500, 22000):
+            tr.save(tr.ckpt_path, step, 0.0)
+        return {"steps": {"nested": {"from": 20000, "to": 22000}}}
+
+    monkeypatch.setattr(pl, "run_leg", run_leg)
+    rec, kept = leg_geometry.seed_run(str(work), 6033, 2000, "cpu", f32=True,
+                                      keep=(20500, 21000), stop=22000, resume=src,
+                                      extra={"outer_reg_loss_weight": 0})
+    assert seen["start"] == 20000
+    assert seen["over"] == {pl.S1_NESTED: dict(
+        random_seed=6033, save_interval=500, total_step=22000, mixed_precision=False,
+        sdf_mixed_precision=False, outer_reg_loss_weight=0)}
+    assert sorted(kept) == [20500, 21000, 22000]
+    assert [load_checkpoint(kept[s])[0] for s in sorted(kept)] == [20500, 21000, 22000]
+    with pytest.raises(ValueError, match="would resume it"):
+        leg_geometry.seed_run(str(work), 6033, 2000, "cpu", resume=src)
 
 
 def test_a_child_past_its_budget_is_a_pause(shell_legs, tmp_path, monkeypatch, capsys):
