@@ -2125,8 +2125,10 @@ def phase_pipeline_shell(dev, work):
     ``train`` in a child under a budget it never reaches, ``eval_shell``,
     ``extract-mesh-stage2`` at 256^3, ``postprocess-stage2``,
     ``eval-geometry`` of the inner mesh, ``eval-images``), the stage-2
-    config reading the chained outer mesh.  Checked: every artifact is
-    there, the chained mesh names, the steps and validations logged, the
+    config reading the chained outer mesh, its ``train`` keeping the
+    parameters at ``PIPELINE_SHELL_INTERVAL`` (``--keep``).  Checked: every
+    artifact is there, the kept copy (that step, no Adam state), the
+    chained mesh names, the steps and validations logged, the
     outer chamfer and the test scores finite, and ``eval_shell`` on the
     card against the CPU.  The inner geometry is not checked here: a stage
     2 of 100 steps carves no inner surface yet, so ``extract-mesh-stage2``,
@@ -2153,7 +2155,7 @@ def phase_pipeline_shell(dev, work):
     ri.reset_launches()
     front = pl.run_leg("shell_front", leg_dir, device=dev, cfg_overrides=over)
     stage2 = pl.run_leg("shell_stage2", leg_dir, budget=PIPELINE_SHELL_BUDGET, device=dev,
-                        cfg_overrides=over)
+                        cfg_overrides=over, keep=(every,))
     torch.cuda.synchronize()
     launches = dict(fm.launches, **ri.launches)
 
@@ -2177,6 +2179,15 @@ def phase_pipeline_shell(dev, work):
     missing = [p for p in want if not os.path.exists(p)]
     if missing:
         raise AssertionError(f"the shell legs left no {missing}")
+    # the budgeted child's --keep: the parameters alone at the asked step
+    from nunerf_tpu_torch.train.trainer import load_checkpoint
+    kept = f"data/model/nested_shell_s2/model_{every}.ckpt.gz"
+    if stage2.get("kept") != [kept]:
+        raise AssertionError(f"shell_stage2 kept {stage2.get('kept')}, not [{kept}]")
+    k_step, k_params, k_opt, _ = load_checkpoint(os.path.join(leg_dir, kept))
+    last = load_checkpoint(os.path.join(leg_dir, "data/model/nested_shell_s2/model.ckpt"))
+    if k_step != every or k_opt is not None or sorted(k_params) != sorted(last[1]):
+        raise AssertionError(f"{kept}: step {k_step}, Adam state {k_opt is not None}")
     steps = {"nested_shell": front["steps"]["nested_shell"],
              "nested_shell_s2": stage2["steps"]["nested_shell_s2"]}
     for name, st in steps.items():

@@ -480,6 +480,11 @@ def _load(args):
     return load_cfg(args.cfg)
 
 
+def _steps(text):
+    """'2500,5000' -> [2500, 5000]; '' -> []."""
+    return [int(s) for s in (text or "").split(",") if s.strip()]
+
+
 @contextlib.contextmanager
 def _torchrun_group(device):
     """This process's device; inside ``torchrun``, after joining its group
@@ -509,7 +514,7 @@ def cmd_train(args):
     # zero_thickness selects the renderer (run_training.py:16-20); both
     # stages share one Trainer
     with _torchrun_group(args.device) as device:
-        trainer = Trainer(_load(args), device=device)
+        trainer = Trainer(_load(args), device=device, keep=_steps(args.keep))
         best = trainer.run()
         trainer.logger.close()
     return best
@@ -588,6 +593,9 @@ def main(argv=None):
 
     sp = add("train", cmd_train)
     sp.add_argument("--cfg", required=True)
+    sp.add_argument("--keep", default="",
+                    help="steps, comma-separated, at which to also write the parameters "
+                         "alone to model_<step>.ckpt.gz")
 
     sp = add("extract-mesh-stage1", cmd_extract_mesh_stage1)
     sp.add_argument("--cfg", required=True)

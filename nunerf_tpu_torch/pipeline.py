@@ -40,6 +40,11 @@ last one, would land past the budget, so no trained step is lost; else at
 the budget (checkpoints are written through ``.tmp`` and ``os.replace``, so
 a kill never leaves half of one).  The other legs train in this process.
 
+``--keep 2500,5000,7500`` hands a leg's ``train`` (the child too) the
+steps at which it also writes the parameters alone, gzip'd, to
+``data/model/<name>/model_<step>.ckpt.gz`` (``Trainer(keep=...)``): copies
+made outside the step, so the run is the same with and without them.
+
 ``run_leg`` is the library form; its ``cfg_overrides`` (``{config path:
 {key: value}}``) and ``extra_args`` (``{subcommand: [arguments]}``, appended,
 so that a later ``--resolution`` or ``--size`` wins) shrink a leg for tests
@@ -82,6 +87,10 @@ def train_command(cfg_path, device):
             "--device", str(device)]
 
 
+def _keep_args(keep):
+    return ["--keep", ",".join(str(int(k)) for k in keep)] if keep else []
+
+
 def _ckpt_step(path):
     """The step of a checkpoint file, or None where there is none."""
     if not os.path.exists(path):
@@ -95,8 +104,9 @@ class _Leg:
     """One leg's state in its working directory: its derived configs, the
     record it builds and the subcommands it runs."""
 
-    def __init__(self, name, device, cfg_overrides, extra_args):
+    def __init__(self, name, device, cfg_overrides, extra_args, keep=()):
         self.device = str(device)
+        self.keep = tuple(keep)
         self.overrides = cfg_overrides or {}
         self.extra_args = extra_args or {}
         self.cfgs = {}
@@ -149,12 +159,15 @@ class _Leg:
         before = _ckpt_step(ckpt)
         paused = False
         if budget is None:
-            self.cli("train", "--cfg", path)
+            self.cli("train", "--cfg", path, *_keep_args(self.keep))
         else:
             paused = self._train_child(path, float(budget), ckpt)
         after = _ckpt_step(ckpt)
         if after is None:
             raise LegError(f"train --cfg {path} left no checkpoint at {ckpt}")
+        if self.keep:
+            self.record["kept"] = sorted(glob.glob(os.path.join(os.path.dirname(ckpt),
+                                                                "model_*.ckpt.gz")))
         self.record["steps"][cfg["name"]] = {"from": before or 0, "to": after,
                                              "total_step": cfg["total_step"],
                                              "paused": paused}
@@ -167,7 +180,7 @@ class _Leg:
         """The child ``train``; True where it was stopped (a pause): right
         after a save of ``ckpt`` when the next would land past the budget,
         else at the budget."""
-        cmd = train_command(path, self.device)
+        cmd = train_command(path, self.device) + _keep_args(self.keep)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
@@ -391,10 +404,11 @@ BUDGET_LEGS = ("stage2", "shell_stage2", "shell_stage2b", "real_stage2", "real_s
 
 
 def run_leg(leg, workdir=DEFAULT_WORKDIR, budget=None, device="cuda", cfg_overrides=None,
-            extra_args=None):
+            extra_args=None, keep=()):
     """Run the leg ``leg`` in ``workdir`` (made if missing; never the
     repository's root); returns its record, which it also prints as the
-    last line and writes to ``<workdir>/runs/leg_<leg>.json``."""
+    last line and writes to ``<workdir>/runs/leg_<leg>.json``.  ``keep``:
+    the steps at which its ``train`` also writes the parameters alone."""
     if leg not in LEGS:
         raise ValueError(f"unknown leg {leg!r}; legs: {', '.join(LEGS)}")
     if leg in BUDGET_LEGS and budget is None:
@@ -407,7 +421,7 @@ def run_leg(leg, workdir=DEFAULT_WORKDIR, budget=None, device="cuda", cfg_overri
     prev = os.getcwd()
     os.chdir(workdir)
     try:
-        state = _Leg(leg, device, cfg_overrides, extra_args)
+        state = _Leg(leg, device, cfg_overrides, extra_args, keep)
         t0 = time.perf_counter()
         LEGS[leg](state, budget)
         state.record["seconds"] = time.perf_counter() - t0
@@ -429,11 +443,15 @@ def main(argv=None):
     p.add_argument("--workdir", default=DEFAULT_WORKDIR)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
+    p.add_argument("--keep", default="",
+                   help="steps, comma-separated, at which train also writes the parameters "
+                        "alone to data/model/<name>/model_<step>.ckpt.gz")
     args = p.parse_args(argv)
     if args.leg in BUDGET_LEGS and args.budget is None:
         p.error(f"leg {args.leg} takes a budget in seconds")
     try:
-        return run_leg(args.leg, args.workdir, args.budget, args.device)
+        keep = [int(k) for k in args.keep.split(",") if k.strip()]
+        return run_leg(args.leg, args.workdir, args.budget, args.device, keep=keep)
     except LegError as e:
         print(f"pipeline: {e}", file=sys.stderr)
         sys.exit(1)

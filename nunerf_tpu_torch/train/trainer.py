@@ -11,8 +11,11 @@
   (``models.build_renderer``), the database and its compact ray store on the
   device, and the warm-up cosine schedule; each step samples its rays on the
   device (``data/device_rays.py``); ``run`` resumes, logs, validates, keeps
-  the best-PSNR checkpoint and saves at the JAX trainer's intervals.
-* ``save_checkpoint`` / ``load_checkpoint`` and ``Logger``.
+  the best-PSNR checkpoint and saves at the JAX trainer's intervals; with
+  ``keep`` it also writes ``model_<step>.ckpt.gz`` (parameters only,
+  gzip'd) at each of those steps, outside the step, so the run is the same.
+* ``save_checkpoint`` / ``load_checkpoint`` (either a pickle or a gzip'd
+  one) and ``Logger``.
 
 Data parallelism (``Trainer(cfg, n_devices=...)`` in every process of a
 ``torch.distributed`` group, ``nunerf_tpu_torch.parallel``): the ranks run
@@ -49,6 +52,7 @@ Differences of form from the JAX package, not of result:
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 import pickle
@@ -193,17 +197,22 @@ class Logger:
             self.tb.close()
 
 
+def _opener(path: str):
+    return gzip.open if path.endswith(".gz") else open
+
+
 def save_checkpoint(path: str, step: int, params, opt_state, best_para: float):
     """The reference's {step, best_para, network_state_dict,
     optimizer_state_dict} (train/trainer.py:218-225) as a pickle of numpy:
     ``params`` the JAX-layout tree, ``opt_state`` a dict (``count``,
-    ``exp_avg``, ``exp_avg_sq``), written through ``.tmp`` and
-    ``os.replace`` so that a crash never leaves half a checkpoint."""
+    ``exp_avg``, ``exp_avg_sq``) or None, written through ``.tmp`` and
+    ``os.replace`` so that a crash never leaves half a checkpoint; gzip'd
+    where ``path`` ends in ``.gz``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     blob = {"step": int(step), "best_para": float(best_para), "params": params,
             "opt_state": opt_state}
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
+    with _opener(path)(tmp, "wb") as f:
         pickle.dump(blob, f)
     os.replace(tmp, path)
 
@@ -213,7 +222,7 @@ def load_checkpoint(path: str):
     package; ``opt_state`` is the port's dict, or ``None`` for a JAX
     checkpoint (flax msgpack bytes).  Unpickling runs code: read only
     checkpoints this project wrote."""
-    with open(path, "rb") as f:
+    with _opener(path)(path, "rb") as f:
         blob = pickle.load(f)
     opt_state = blob.get("opt_state")
     if not isinstance(opt_state, dict):
@@ -231,9 +240,13 @@ class Trainer:
     ``n_devices``: the data-parallel mesh's size (``parallel.make_mesh``),
     by default every rank of the initialised process group, one process
     where there is none.  ``train_ray_num`` and ``test_ray_num`` must divide
-    by it."""
+    by it.
 
-    def __init__(self, cfg: Dict[str, Any], device="cuda", n_devices=None):
+    ``keep``: steps at which ``run`` also writes the parameters alone,
+    gzip'd, to ``model_<step>.ckpt.gz`` beside ``model.ckpt``; each must
+    end a chunk of the loop (a multiple of ``chunk_steps``)."""
+
+    def __init__(self, cfg: Dict[str, Any], device="cuda", n_devices=None, keep=()):
         self.device = resolve_device(device)
         self.mesh = make_mesh(n_devices, device=self.device)
         self.cfg = merge_cfg(TRAINER_DEFAULTS, cfg)
@@ -241,6 +254,10 @@ class Trainer:
         self.model_dir = os.path.join(self.cfg["model_dir"], self.name)
         self.ckpt_path = os.path.join(self.model_dir, "model.ckpt")
         self.best_ckpt_path = os.path.join(self.model_dir, "model_best.ckpt")
+        self.keep = sorted({int(k) for k in keep})
+        off = [k for k in self.keep if k % self.chunk_steps]
+        if off:
+            raise ValueError(f"keep steps {off} end no chunk of {self.chunk_steps} steps")
         if self.writes:
             os.makedirs(self.model_dir, exist_ok=True)
             self.logger = Logger(self.model_dir)
@@ -370,6 +387,9 @@ class Trainer:
             save_checkpoint(path, step, self.params_tree(), self.opt_state_tree(),
                             best_para)
 
+    def kept_path(self, step: int) -> str:
+        return os.path.join(self.model_dir, f"model_{int(step)}.ckpt.gz")
+
     def read_checkpoint(self, path: str):
         """``load_checkpoint(path)`` as rank 0 reads it, on every rank: no
         other rank opens the file, so ``model_dir`` need not be shared.  A
@@ -414,6 +434,15 @@ class Trainer:
             return step, best
         return 0, 0.0
 
+    @property
+    def chunk_steps(self) -> int:
+        """The JAX trainer's chunk, a jitted lax.scan there; here the span
+        of eager steps whose loss terms are summed on the device between
+        two host reads, with the same interval arithmetic."""
+        cfg = self.cfg
+        return max(1, min(cfg.get("scan_chunk", 25), cfg["train_log_step"],
+                          cfg["save_interval"], cfg["val_interval"]))
+
     def run(self):
         """Train from the last checkpoint (or step 0) to ``total_step``;
         returns the best validation PSNR."""
@@ -426,11 +455,7 @@ class Trainer:
         t0 = time.time()
         t0_step = start_step
 
-        # the JAX trainer's chunk, a jitted lax.scan there; here the span of
-        # eager steps whose loss terms are summed on the device between two
-        # host reads, with the same interval arithmetic
-        chunk = max(1, min(cfg.get("scan_chunk", 25), cfg["train_log_step"],
-                           cfg["save_interval"], cfg["val_interval"]))
+        chunk = self.chunk_steps
         step = start_step
         while step < cfg["total_step"]:
             n = min(chunk, cfg["total_step"] - step)
@@ -468,6 +493,9 @@ class Trainer:
                     self.save(self.best_ckpt_path, step, best_para)
             if step % cfg["save_interval"] < chunk:
                 self.save(self.ckpt_path, step, best_para)
+            if step in self.keep and self.writes:
+                save_checkpoint(self.kept_path(step), step, self.params_tree(), None,
+                                best_para)
 
         self.save(self.ckpt_path, cfg["total_step"], best_para)
         # no rank leaves before rank 0's last checkpoint is on disk: a run

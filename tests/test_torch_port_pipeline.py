@@ -420,6 +420,58 @@ def test_a_child_is_stopped_right_after_a_save_when_the_next_is_past_its_budget(
     assert rec["checkpoints"]["extract-mesh-stage2"] == step
 
 
+def _log_without_clock(path):
+    """A train log's records without the wall-clock fields."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [{k: v for k, v in r.items() if k not in ("rays_per_sec", "step_ms")}
+            for r in recs]
+
+
+def test_a_budgeted_leg_keeps_parameters_at_the_asked_steps_and_trains_the_same(
+        shell_legs, tmp_path, monkeypatch):
+    """``shell_stage2`` with ``keep`` in a copy of the legs' working
+    directory without its stage-2 run: its ``train`` child writes the
+    parameters alone, gzip'd, at steps 1 and 2, and its train log and final
+    parameters equal those of the run without ``keep``."""
+    import shutil
+
+    from nunerf_tpu_torch.train.trainer import load_checkpoint
+
+    work, _, _, _, _ = shell_legs
+    copy = str(tmp_path / "work")
+    shutil.copytree(work, copy, ignore=shutil.ignore_patterns("nested_shell_s2*"))
+    assert not os.path.exists(os.path.join(copy, "data/model/nested_shell_s2"))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rec = pl.run_leg("shell_stage2", copy, budget=600, keep=(1, 2), **TINY)
+    run = os.path.join(copy, "data/model/nested_shell_s2")
+    assert rec["kept"] == [os.path.join("data/model/nested_shell_s2", f"model_{s}.ckpt.gz")
+                           for s in (1, 2)]
+    assert "--keep" in rec["commands"][0]["argv"]
+    ref = os.path.join(work, "data/model/nested_shell_s2")
+    assert _log_without_clock(os.path.join(run, "train_log.jsonl")) == \
+        _log_without_clock(os.path.join(ref, "train_log.jsonl"))
+    step, params, opt, _ = load_checkpoint(os.path.join(run, "model_2.ckpt.gz"))
+    assert step == 2 and opt is None
+    _, want, _, _ = load_checkpoint(os.path.join(ref, "model.ckpt"))
+    got, want = _flat(params), _flat(want)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert load_checkpoint(os.path.join(run, "model_1.ckpt.gz"))[0] == 1
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
 def test_leg_geometry_seed_run_refuses_a_trained_workdir(tmp_path):
     ckpt = tmp_path / "data" / "model" / "nested" / "model.ckpt"
     ckpt.parent.mkdir(parents=True)

@@ -1,9 +1,13 @@
-"""Hold the port's stage-1 training step to the JAX package's on trained
-weights: a checkpoint of the port's ``front`` leg loaded into both packages,
-every random draw of the step injected into both, on the CPU.
+"""Hold the port's training step to the JAX package's on trained weights: a
+checkpoint of the port's ``front`` leg (stage 1) or ``shell_stage2`` leg
+(the shell's stage 2) loaded into both packages, every random draw of the
+step injected into both, on the CPU.
 
     python tools/trained_step_compare.py f64 CKPT [CKPT ...] [--moments FULL] [--rays N]
     python tools/trained_step_compare.py traj CKPT [--steps 100] [--every 25] [--rays N]
+    python tools/trained_step_compare.py shell-f64 CKPT [CKPT ...] --workdir W [--moments FULL]
+    python tools/trained_step_compare.py shell-render CKPT --workdir W [--views 0,1,...]
+    python tools/trained_step_compare.py shell-traj CKPT --workdir W [--steps 25] [--control]
 
 ``CKPT`` is a checkpoint of the port's trainer (``save_checkpoint``: the
 parameters as a JAX tree, Adam's ``count``, ``exp_avg`` and ``exp_avg_sq``
@@ -49,6 +53,26 @@ its SDF along ``N_DIRS`` fixed directions (the outermost change from inside
 to outside on radii 0..1).  ``--control`` runs JAX against JAX from the
 checkpoint with every parameter one f32 ulp up, in place of the port: the
 rate at which f32 roundings alone part two runs.
+
+The shell modes run in ``--workdir``, the shell legs' working directory
+(``python -m nunerf_tpu_torch.pipeline shell_front`` then ``shell_stage2``):
+both packages' trainers read the stage-2 config the leg wrote there, its
+stage-1 checkpoint and the outer mesh it traced.  A step's one draw is its
+rays (``shell_indices``).  ``shell-f64``: one step at each checkpoint in
+float64 in both packages (``--rays``, 128 unless given, of the config's
+1,024), every width and sample count the config's, with JAX's float32 pins
+lifted and its step an int64; the record as ``f64``'s, with the worst
+gradient gap of each head (``by_head``), the freeze flags and the inner
+inv_s (``shell_flags``).  ``shell-render``: both packages render the
+validation view and the test views in f32 (the config's bf16 switches
+off, as in every shell mode) through their trainers' ``render_image``
+(``test_outputs``), the TIR mask applied as
+``eval-images`` applies it; per view the largest pixel gap, each package's
+PSNR / SSIM against the ground truth and, by region (``shell_regions``:
+background, rim, through the shell onto the inner object or onto what lies
+behind, TIR-masked), each one's pixels, SSIM, share of the view's SSIM
+deficit and MSE.  ``shell-traj``: as ``traj``, with the steps where each
+package holds the thickness and IoR fields.
 
 One JSON object a line, every record also written to ``--out``.  On 8 CPU
 cores: f64 at 256 rays about 12 s a step in JAX and 15 s in the port after
@@ -171,11 +195,14 @@ def jax_layers_in_f64():
     float64 under x64: ``fields/mlp.py``, ``nerf.py`` and ``sdf.py`` pin
     float32 (``preferred_element_type=jnp.float32``, the heads'
     ``astype(jnp.float32)``) even on float64 operands, which rounds each
-    layer's output to f32.  Their ``jnp`` reads ``float32`` as ``float64``
-    for as long as the step traces."""
+    layer's output to f32; so does stage 2's ``models/stage2.py`` in its
+    logged means (a hit mask cast to f32, ``ior_glass``' denominator).
+    Their ``jnp`` reads ``float32`` as ``float64`` for as long as the step
+    traces."""
     from nunerf_tpu.fields import mlp, nerf, sdf
+    from nunerf_tpu.models import stage2
 
-    mods = (mlp, nerf, sdf)
+    mods = (mlp, nerf, sdf, stage2)
     real = [m.jnp for m in mods]
     for m in mods:
         m.jnp = _F64Names(jnp)
@@ -261,7 +288,10 @@ def port_leaves(module, tree_top, what="param"):
 
     named = {}
     for name, p in module.named_parameters():
-        t = p if what == "param" else p.grad if what == "grad" else what[p]
+        if what == "grad":
+            t = p.grad if p.grad is not None else torch.zeros_like(p)  # a frozen one's
+        else:
+            t = p if what == "param" else what[p]
         named[name] = t.detach().cpu().numpy().copy()
     return flat_leaves(named_to_jax_tree(named, tree_top))
 
@@ -310,13 +340,14 @@ def make_scene(scene_dir):
     return root
 
 
-def read_checkpoint(path, moments=None):
-    """(step, params, opt_state) of a port checkpoint; one without Adam's
-    state takes ``moments``' at its own step."""
+def read_checkpoint(path, moments=None, need_moments=True):
+    """(step, params, opt_state) of a port checkpoint (gzip'd where it ends
+    in ``.gz``); one without Adam's state takes ``moments``' at its own
+    step (or None, where ``need_moments`` is false)."""
     from nunerf_tpu_torch.train.trainer import load_checkpoint
 
     step, params, opt, _ = load_checkpoint(path)
-    if opt is None:
+    if opt is None and need_moments:
         if moments is None:
             raise ValueError(f"{path} holds no Adam state: pass --moments")
         opt = dict(read_checkpoint(moments)[2])
@@ -422,7 +453,8 @@ class PortSide:
         self.dtype = torch.float64 if f64 else torch.float32
         if f64:
             renderer.to(torch.float64)
-        self.cands, self.spec = port_instrument(renderer)
+        self.cands, self.spec = (port_instrument(renderer) if hasattr(renderer, "_occ_select")
+                                 else ([], []))
 
     @classmethod
     def from_trainer(cls, cfg, f64):
@@ -455,7 +487,7 @@ class PortSide:
             terms, grads, updates = port_step(self.train, b, draws, step, self.tree_top)
         finally:
             torch.set_default_dtype(prev)
-        return terms, grads, updates, list(self.cands), self.spec[-1]
+        return terms, grads, updates, list(self.cands), self.spec[-1] if self.spec else None
 
     def flat_params(self):
         return port_leaves(self.renderer, self.tree_top)
@@ -622,30 +654,460 @@ def run_traj(args, log):
             span = []
 
 
+# ---------------------------------------------------------------------------
+# the shell's stage 2 (``shell``): a checkpoint of the port's shell_stage2 leg
+# ---------------------------------------------------------------------------
+
+SHELL_CFG = "configs/stage2/nerf/nested_shell.yaml"
+RIM_COS = 0.25  # a hit with |cos| under this is the rim
+REGIONS = ("background", "rim", "inner", "behind", "tir")
+SCENE_ARRAYS = ("v0", "e1", "e2", "verts", "vertex_normals", "vertex_curvature")
+
+
+def shell_cfg(model_dir, rays=None, full=True):
+    """The shell leg's stage-2 config as the leg wrote it into its working
+    directory, the current one (its ``./datasets``, ``./data/...`` and
+    ``./configs/...`` resolve there), with its bf16 switches off unless
+    ``full`` is false (the frozen nets' ``mixed_precision``, stage 2's,
+    and the inner SDF's ``sdf_mixed_precision``)."""
+    from nunerf_tpu_torch.config import load_cfg
+
+    cfg = load_cfg(SHELL_CFG)
+    cfg.update(model_dir=model_dir, compilation_cache_dir="")
+    if full:
+        cfg.update(mixed_precision=False, sdf_mixed_precision=False)
+    if rays:
+        cfg["train_ray_num"] = int(rays)
+    return cfg
+
+
+def shell_step_fn(renderer, optimizer):
+    """JAX's shell step, jitted: ``(params, opt_state, batch, step) ->
+    (params, opt_state, terms, outputs, grads, updates)``, Adam
+    (``optimizer``) on the ``train`` subtree and nothing on ``frozen`` (the
+    trainer's ``multi_transform``).  Stage 2 draws nothing: its one draw is
+    the batch."""
+    from nunerf_tpu.train.loss import compute_losses
+
+    def step_fn(params, opt_state, batch, step):
+        def loss_fn(p):
+            out = renderer.train_outputs(p, batch, jax.random.PRNGKey(0), step)
+            terms = compute_losses(out, batch, step, renderer.cfg)
+            return terms["loss_total"], (terms, out)
+
+        (_, (terms, out)), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        updates, opt_state = optimizer.update(grads["train"], opt_state, params["train"])
+        params = dict(params, train=optax.apply_updates(params["train"], updates))
+        return params, opt_state, terms, out, grads, {"train": updates}
+
+    return jax.jit(step_fn)
+
+
+class ShellJaxSide:
+    """A JAX shell renderer stepped by ``shell_step_fn`` (Adam at the
+    config's warm-up cosine schedule); ``trainer`` is the JAX ``Trainer``
+    (ray store, ``render_image``), where there is one.  In float64 the
+    scene's arrays are float64, the step traces with JAX's float32 pins
+    lifted and the step is an int64, so that what JAX computes from it (the
+    anneal ratio, the inv_s floor) is float64 too."""
+
+    def __init__(self, renderer, f64, trainer=None):
+        from nunerf_tpu.train.lr import warm_up_cos_schedule
+
+        self.renderer, self.cfg, self.trainer, self.f64 = renderer, renderer.cfg, trainer, f64
+        self.store = trainer.device_store if trainer is not None else None
+        self.dtype = jnp.float64 if f64 else jnp.float32
+        if f64:
+            with jax.enable_x64(True):
+                for name in SCENE_ARRAYS:
+                    setattr(renderer.scene, name,
+                            jnp.asarray(np.asarray(getattr(renderer.scene, name)), jnp.float64))
+        lr = dict(self.cfg.get("lr_cfg") or {})
+        self.optimizer = optax.adam(learning_rate=warm_up_cos_schedule(
+            lr=lr.get("lr", 5e-4), end_warm=lr.get("end_warm", 5000),
+            end_iter=lr.get("end_iter", 300000)))
+        self.fn = shell_step_fn(renderer, self.optimizer)
+        self.compiled = None  # ``lower(...).compile()``, where the caller made it
+        self.outputs = None
+
+    @classmethod
+    def from_trainer(cls, cfg, f64):
+        from nunerf_tpu.train import trainer as jtrainer
+
+        tr = jtrainer.Trainer(cfg, n_devices=1)
+        return cls(tr.renderer, f64, tr)
+
+    num_rays = JaxSide.num_rays
+    batch = JaxSide.batch
+
+    def load(self, params, opt_state):
+        """The parameters (a JAX tree) and the port's Adam state of their
+        ``train`` subtree (``count``, ``exp_avg``, ``exp_avg_sq``)."""
+        with jax.enable_x64(self.f64):
+            self.params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, self.dtype), params)
+            moments = {k: opt_state[k].get("train", opt_state[k])
+                       for k in ("exp_avg", "exp_avg_sq")}
+            self.opt_state = jax_adam_state(self.optimizer, self.params["train"],
+                                            dict(opt_state, **moments), self.dtype)
+
+    def _args(self, batch, step):
+        b = {k: jnp.asarray(v, self.dtype if np.asarray(v).dtype.kind == "f"
+                            else np.asarray(v).dtype) for k, v in batch.items()}
+        return (self.params, self.opt_state, b,
+                jnp.asarray(step, jnp.int64 if self.f64 else jnp.int32))
+
+    def _pins(self):
+        return jax_layers_in_f64() if self.f64 else contextlib.nullcontext()
+
+    def lower(self, batch, step):
+        """The step traced at these inputs' shapes (parameters loaded)."""
+        with jax.enable_x64(self.f64), self._pins():
+            return self.fn.lower(*self._args(batch, step))
+
+    def step(self, batch, step):
+        """(terms, grads, updates) of one step, as numpy by JAX path; its
+        forward's outputs in ``outputs``."""
+        from nunerf_tpu_torch.convert import flat_leaves
+
+        with jax.enable_x64(self.f64), self._pins():
+            self.params, self.opt_state, terms, out, grads, updates = (
+                self.compiled or self.fn)(*self._args(batch, step))
+            self.outputs = {k: np.asarray(v) for k, v in out.items()}
+            return ({k: float(v) for k, v in terms.items()},
+                    {k: np.asarray(v) for k, v in flat_leaves(grads).items()},
+                    {k: np.asarray(v) for k, v in flat_leaves(updates).items()})
+
+    def flat_params(self):
+        from nunerf_tpu_torch.convert import flat_leaves
+        return {k: np.asarray(v) for k, v in flat_leaves(self.params).items()}
+
+    def render(self, info, step):
+        """``render_image`` of the JAX trainer at the loaded parameters (f32)."""
+        self.trainer.params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float32),
+                                                     self.params)
+        return self.trainer.render_image(info, step, jax.random.PRNGKey(0))
+
+
+def shell_port_side(cfg, f64):
+    """The port's ``Trainer`` of the shell's stage 2 on the CPU, as a
+    ``PortSide`` (its scene's arrays in float64 too where ``f64``)."""
+    side = PortSide.from_trainer(cfg, f64)
+    if f64:
+        scene = side.renderer.scene
+        for name in SCENE_ARRAYS:
+            setattr(scene, name, getattr(scene, name).to(torch.float64))
+    return side
+
+
+def shell_flags(terms, params, cfg, step):
+    """The freeze flags of a step and the inner inv_s: the parameter's and
+    the floored value the thickness gate reads."""
+    inv_s = float(np.exp(10.0 * float(np.asarray(params["train/var_inner/variance"]))))
+    start, end = cfg.get("inv_s_floor_start", 0), cfg.get("inv_s_floor_end", 30000)
+    floor = 0.0
+    if cfg.get("inv_s_floor_max") and step >= start:
+        t = min(max((step - start) / max(end - start, 1), 0.0), 1.0)
+        base = float(cfg.get("inv_s_floor_base", 32.0))
+        floor = base * (float(cfg["inv_s_floor_max"]) / base) ** t
+    return dict(ior_frozen=terms.get("ior_frozen"), thickness_frozen=terms.get("thickness_frozen"),
+                absorption_gated=bool(cfg.get("freeze_absorption_step")
+                                      or cfg.get("freeze_absorption_inv_s")),
+                kappa=[terms.get(k) for k in ("kappa_r", "kappa_g", "kappa_b")],
+                inv_s=inv_s, inv_s_floor=floor, inv_s_gate=max(inv_s, floor),
+                ior_glass=terms.get("ior_glass"), thickness_mean=terms.get("thickness_mean"))
+
+
+def by_head(rec, depth=2):
+    """The worst gradient gap of each head (the first ``depth`` parts of a
+    leaf's path) of a ``compare_step`` record."""
+    heads = {}
+    for k, r in rec["grads"].items():
+        head = "/".join(k.split("/")[:depth])
+        if r["gap"] >= heads.get(head, (-1.0, ""))[0]:
+            heads[head] = (r["gap"], k)
+    return {h: dict(gap=g, leaf=k) for h, (g, k) in sorted(heads.items())}
+
+
+def ssim_map(img_gt, img_pr):
+    """The windowed SSIM map behind ``compute_ssim`` (Gaussian window 11,
+    sigma 1.5, data range 1), averaged over channels: [h, w].  Its mean is
+    ``compute_ssim``."""
+    from nunerf_tpu_torch.train.metrics import gaussian_blur
+
+    x, y = np.asarray(img_gt, np.float64), np.asarray(img_pr, np.float64)
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    maps = []
+    for c in range(x.shape[-1]):
+        a, b = x[..., c], y[..., c]
+        mu_a, mu_b = gaussian_blur(a, 11, 1.5), gaussian_blur(b, 11, 1.5)
+        saa = gaussian_blur(a * a, 11, 1.5) - mu_a ** 2
+        sbb = gaussian_blur(b * b, 11, 1.5) - mu_b ** 2
+        sab = gaussian_blur(a * b, 11, 1.5) - mu_a * mu_b
+        maps.append(((2 * mu_a * mu_b + c1) * (2 * sab + c2))
+                    / ((mu_a ** 2 + mu_b ** 2 + c1) * (saa + sbb + c2)))
+    return np.mean(maps, 0)
+
+
+def shell_regions(scene, rays_o, rays_d, tir_mask, ior):
+    """Each pixel's region, an index into ``REGIONS``: ``tir`` where
+    ``eval-images`` masks it out (``tir_mask`` 0), else ``background``
+    where the camera ray misses the outer mesh (the frozen stage-1 NeRF++
+    alone), ``rim`` where it hits with |cos| under ``RIM_COS``, ``inner``
+    where the ray refracted at the hit (the mesh's face normal, IoR
+    ``ior``; the shell's thickness left out) meets the scene's inner
+    spheres (``synth_nested.INNER_SPHERES``), else ``behind``.  The hit is
+    the port's ``Scene.intersect`` on the mesh the run traced."""
+    from nunerf_tpu_torch.tools import synth_nested as sn
+
+    o = torch.as_tensor(np.asarray(rays_o, np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(np.asarray(rays_d, np.float32)), dim=-1)
+    hit = scene.intersect(o, d)
+    h = hit.hit.cpu().numpy()
+    t = hit.t.reshape(-1).cpu().numpy().astype(np.float64)
+    tri = scene.tris_np[np.clip(hit.tri_idx.reshape(-1).cpu().numpy(), 0, None)]
+    v = scene.verts_np.astype(np.float64)
+    n = np.cross(v[tri[:, 1]] - v[tri[:, 0]], v[tri[:, 2]] - v[tri[:, 0]])
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    dd = d.numpy().astype(np.float64)
+    cos = np.sum(n * dd, -1)
+    n = np.where(cos[:, None] > 0, -n, n)  # against the ray
+    p = o.numpy().astype(np.float64) + np.where(h, t, 0.0)[:, None] * dd
+    refr, _ = sn._refract(dd, n, 1.0 / ior)
+    inner_t = sn._inner_hit(p + 1e-4 * refr, refr)[0]
+    label = np.full(len(dd), REGIONS.index("behind"))
+    label[h & np.isfinite(inner_t)] = REGIONS.index("inner")
+    label[h & (np.abs(cos) < RIM_COS)] = REGIONS.index("rim")
+    label[~h] = REGIONS.index("background")
+    label[np.asarray(tir_mask).reshape(-1) < 0.5] = REGIONS.index("tir")
+    return label
+
+
+def region_scores(gt, pr, labels, h, w):
+    """Per region: pixels, mean SSIM (of the map), its share of the image's
+    SSIM deficit (sum of 1 - SSIM over the region / pixels of the image),
+    and MSE; with the image's own SSIM and PSNR."""
+    from nunerf_tpu_torch.train.metrics import compute_psnr, compute_ssim
+
+    smap = ssim_map(gt.reshape(h, w, 3), pr.reshape(h, w, 3)).reshape(-1)
+    err = np.mean((np.asarray(gt, np.float64) - np.asarray(pr, np.float64)) ** 2, -1)
+    out = dict(ssim=float(compute_ssim(gt.reshape(h, w, 3), pr.reshape(h, w, 3))),
+               psnr=float(compute_psnr(gt, pr)), regions={})
+    for i, name in enumerate(REGIONS):
+        m = labels == i
+        out["regions"][name] = dict(
+            pixels=int(m.sum()), ssim=float(smap[m].mean()) if m.any() else None,
+            ssim_deficit=float(np.sum(1.0 - smap[m]) / len(smap)),
+            mse=float(err[m].mean()) if m.any() else None)
+    return out
+
+
+def shell_views(trainer):
+    """(name, imgs_info) of the validation view and the test views, as
+    ``validate`` and ``eval-images --split test`` take them."""
+    from nunerf_tpu_torch.data.database import NeRFSyntheticDatabase
+    from nunerf_tpu_torch.data.ray_store import build_imgs_info
+
+    cfg = trainer.cfg
+    views = [("val_" + str(trainer.test_ids[0]),
+              {k: v[:1] for k, v in trainer.val_info.items()})]
+    db = NeRFSyntheticDatabase(cfg["database_name"], cfg.get("dataset_dir", "./datasets"),
+                               testskip=1)
+    for vid in db.train_test_split()[1]:
+        views.append(("test_" + str(vid), build_imgs_info(db, [vid], with_mask=True)))
+    return views
+
+
+def _masked(outputs):
+    gt, pr = outputs["gt_rgb"], outputs["ray_rgb"]
+    tm = outputs["tir_mask"].reshape(-1, 1)
+    return gt * tm, pr * tm
+
+
+def run_shell_f64(args, log):
+    """One f64 step of both packages at each checkpoint (every width and
+    sample count the config's; ``--rays`` a step)."""
+    cfg = shell_cfg(args.model_dir, args.rays or 128)
+    # both scenes take the brute closest hit: JAX's tile-culled descent
+    # (the default above 32,768 triangles) does not trace under x64 (its
+    # dynamic_slice gets an int64 and an int32 index)
+    os.environ["NUNERF_CULL_TRIS"] = str(2 ** 62)
+    J, P = ShellJaxSide.from_trainer(cfg, True), shell_port_side(cfg, True)
+    rn = J.cfg["train_ray_num"]
+    for path in args.ckpt:
+        step, params, opt = read_checkpoint(path, args.moments)
+        J.load(params, opt)
+        P.load(params, opt)
+        batch = J.batch(shell_indices(rn, J.num_rays, args.seed + step))
+        t0 = time.perf_counter()
+        jterms, jgrads, jupd = J.step(batch, step)
+        t1 = time.perf_counter()
+        pterms, pgrads, pupd, _, _ = P.step(batch, [], step)
+        t2 = time.perf_counter()
+        rec = compare_step((pterms, pgrads, pupd, [], None), (jterms, jgrads, jupd, [], None))
+        for key in ("candidates", "spec_mask"):
+            rec.pop(key)
+        flat = {k: np.asarray(v) for k, v in J.flat_params().items()}
+        rec = dict(mode="shell_f64", ckpt=path, step=step, rays=rn, jax_s=t1 - t0,
+                   port_s=t2 - t1, heads=by_head(rec), flags=dict(
+                       port=shell_flags(pterms, flat, J.cfg, step),
+                       jax=shell_flags(jterms, flat, J.cfg, step)), **rec)
+        _emit(rec, log)
+
+
+def run_shell_render(args, log):
+    """Both packages render the validation view and the test views from the
+    checkpoint in f32 through ``render_image`` (``test_outputs``), the TIR
+    mask applied as ``eval-images`` applies it; per view the largest
+    per-pixel gap, each package's PSNR / SSIM against the ground truth and
+    the region split of the port's."""
+    from nunerf_tpu_torch.convert import load_jax_params
+    from nunerf_tpu_torch.data.ray_store import construct_nerf_ray_batch
+
+    cfg = shell_cfg(args.model_dir)
+    with open(os.path.join("datasets", "nested_shell", "meta.json")) as f:
+        ior = float(json.load(f)["ior"])
+    J, P = ShellJaxSide.from_trainer(cfg, False), shell_port_side(cfg, False)
+    step, params, _ = read_checkpoint(args.ckpt[0], args.moments, need_moments=False)
+    J.params = params
+    load_jax_params(P.renderer, params, P.tree_top)
+    views = shell_views(P.trainer)
+    if args.views:
+        views = [views[int(i)] for i in args.views.split(",")]
+    for name, info in views:
+        t0 = time.perf_counter()
+        jout, h, w = J.render(info, step)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            pout, _, _ = P.trainer.render_image(info, step)
+        t2 = time.perf_counter()
+        jgt, jpr = _masked(jout)
+        pgt, ppr = _masked(pout)
+        batch, _, _ = construct_nerf_ray_batch(P.trainer._downsampled(dict(info)))
+        labels = shell_regions(P.renderer.scene, batch["rays_o"], batch["rays_d"],
+                               pout["tir_mask"], ior)
+        gap = np.abs(np.asarray(ppr, np.float64) - jpr).max(-1)
+        worst = int(np.argmax(gap))
+        rec = dict(mode="shell_render", ckpt=args.ckpt[0], step=int(step), view=name, h=h, w=w,
+                   max_pixel_gap=float(gap[worst]),
+                   pixels_over={f"{t:g}": int((gap > t).sum()) for t in (1e-5, 1e-4, 1e-3)},
+                   worst_pixel=dict(index=worst, region=REGIONS[labels[worst]],
+                                    port=np.asarray(ppr[worst], np.float64).tolist(),
+                                    jax=np.asarray(jpr[worst], np.float64).tolist()),
+                   region_gap={r: float(gap[labels == i].max()) if (labels == i).any() else None
+                               for i, r in enumerate(REGIONS)},
+                   tir_equal=bool(np.array_equal(pout["tir_mask"].reshape(-1) > 0.5,
+                                                 np.asarray(jout["tir_mask"]).reshape(-1) > 0.5)),
+                   port=region_scores(pgt, ppr, labels, h, w),
+                   jax=region_scores(jgt, jpr, labels, h, w), jax_s=t1 - t0, port_s=t2 - t1)
+        _emit(rec, log)
+
+
+def shell_indices(rn, n_rays, seed):
+    """A step's ray indices, from ``RandomState(seed)``: stage 2 draws
+    nothing else."""
+    return np.random.RandomState(seed).randint(0, n_rays, rn)
+
+
+def run_shell_traj(args, log):
+    """``--steps`` f32 steps from the checkpoint in each package, the same
+    rays a step; every ``--every`` steps the parameter distance over JAX's
+    move, each package's mean terms over the span, and the steps where each
+    holds the thickness and IoR fields.  ``--control``: JAX against JAX one
+    f32 ulp up, in place of the port."""
+    cfg = shell_cfg(args.model_dir, args.rays)
+    J = ShellJaxSide.from_trainer(cfg, False)
+    rn = J.cfg["train_ray_num"]
+    step0, params, opt = read_checkpoint(args.ckpt[0], args.moments)
+    J.load(params, opt)
+    if args.control:
+        P = ShellJaxSide.__new__(ShellJaxSide)
+        P.__dict__.update(J.__dict__)
+        P.load(jax.tree_util.tree_map(
+            lambda x: np.nextafter(np.asarray(x, np.float32), np.float32(np.inf)), params), opt)
+    else:
+        P = shell_port_side(cfg, False)
+        P.load(params, opt)
+    theta0 = J.flat_params()
+
+    def point(i, span):
+        pp, jp = P.flat_params(), J.flat_params()
+        dist = float(np.sqrt(sum(np.sum((pp[k].astype(np.float64) - jp[k]) ** 2) for k in jp)))
+        moved = float(np.sqrt(sum(np.sum((jp[k].astype(np.float64) - theta0[k]) ** 2)
+                                  for k in jp)))
+        mean = {side: {k: float(np.mean([s[side][k] for s in span])) for k in span[0][side]}
+                for side in ("port", "jax")} if span else {}
+        held = {side: {flag: [s["step"] for s in span if s[side].get(flag)]
+                       for flag in ("thickness_frozen", "ior_frozen")}
+                for side in ("port", "jax")} if span else {}
+        _emit(dict(mode="shell_traj", step=step0 + i, rays=rn,
+                   against="jax, one ulp off" if args.control else "port",
+                   param_dist=dist, jax_moved=moved, dist_over_moved=dist / moved if moved else 0.0,
+                   inv_s=dict(port=shell_flags({}, pp, J.cfg, step0 + i)["inv_s"],
+                              jax=shell_flags({}, jp, J.cfg, step0 + i)["inv_s"]),
+                   span_terms=mean, held=held), log)
+
+    point(0, [])
+    span = []
+    for i in range(args.steps):
+        step = step0 + i
+        batch = J.batch(shell_indices(rn, J.num_rays, args.seed + step))
+        jterms = J.step(batch, step)[0]
+        pterms = P.step(batch, step)[0] if args.control else P.step(batch, [], step)[0]
+        span.append(dict(step=step, port=pterms, jax=jterms))
+        if (i + 1) % args.every == 0 or i + 1 == args.steps:
+            point(i + 1, span)
+            span = []
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=["f64", "traj"])
+    ap.add_argument("mode", choices=["f64", "traj", "shell-f64", "shell-render", "shell-traj"])
     ap.add_argument("ckpt", nargs="+")
     ap.add_argument("--moments", default=None,
                     help="a full checkpoint whose Adam moments a parameters-only one takes")
-    ap.add_argument("--rays", type=int, default=None, help="rays a step (the config's: 512)")
+    ap.add_argument("--rays", type=int, default=None,
+                    help="rays a step (the config's: 512 for the front leg, 1024 for the "
+                         "shell's stage 2; shell-f64: 128 unless given)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--control", action="store_true",
                     help="traj: JAX against itself one f32 ulp off, in place of the port")
     ap.add_argument("--scene", default="data/trained_step_compare")
+    ap.add_argument("--workdir", default=None,
+                    help="shell modes: the shell legs' working directory (its datasets/, "
+                         "configs/ and the stage-1 checkpoint and mesh under data/)")
+    ap.add_argument("--views", default=None,
+                    help="shell-render: the views to render, comma-separated indices into "
+                         "[validation, test 0, test 1, ...] (all by default)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
-    args.scene = os.path.abspath(args.scene)
-    make_scene(args.scene)
-    log = []
-    with tempfile.TemporaryDirectory() as model_dir:
-        args.model_dir = model_dir
-        (run_f64 if args.mode == "f64" else run_traj)(args, log)
+    args.ckpt = [os.path.abspath(c) for c in args.ckpt]
+    if args.moments:
+        args.moments = os.path.abspath(args.moments)
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        args.out = os.path.abspath(args.out)
+    log = []
+    shell = args.mode.startswith("shell")
+    if shell:
+        if not args.workdir:
+            ap.error("the shell modes take --workdir")
+        prev = os.getcwd()
+        os.chdir(args.workdir)
+    else:
+        args.scene = os.path.abspath(args.scene)
+        make_scene(args.scene)
+    try:
+        with tempfile.TemporaryDirectory() as model_dir:
+            args.model_dir = model_dir
+            {"f64": run_f64, "traj": run_traj, "shell-f64": run_shell_f64,
+             "shell-render": run_shell_render, "shell-traj": run_shell_traj}[args.mode](args, log)
+    finally:
+        if shell:
+            os.chdir(prev)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(log, f, indent=1)
     return log
