@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (DIR holding another tree's ``nunerf_tpu_torch``, for
+instance an unpacked parent commit) also times that tree's K1 at the main
+path's shapes, in turns with this one's.
 
 Phases (any failure exits non-zero):
   1. device: CUDA required; prints the card's name and power limit; TF32 off
@@ -11,7 +15,9 @@ Phases (any failure exits non-zero):
      closest hit), K4 (chain value + Jacobian of channel 0) and K5 (its
      backward) against their plain PyTorch versions at the main paths'
      shapes, with times after warm-up (CUDA events) beside each kernel's
-     bound; K1/K2 also at a shading head's shape (259 inputs) and at the
+     bound; K1's bf16 forward also at every row count the main path gives
+     it (8,192 to 2^21: kernel, wrapper and pack times, bound and share);
+     K1/K2 also at a shading head's shape (259 inputs) and at the
      NeRF++ trunk's, beside the plain modules; K1, K2, K4 and K5 at the shapes
      that can break a tiled MMA (N = 1, 63, 65, 1000; inputs of 39, 84, 131,
      259 and 512; the 217-deep layer; last layers of 1, 3, 64 and 257 with
@@ -395,7 +401,107 @@ def bound_ms(flops, nbytes, dtype):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(renderer, dev):
+# rows the main path gives K1: the legs' 512 rays x 16, BENCH_CFG's sweeps
+# and occlusion march of 1024 rays (16 to 128 points a ray), the
+# extraction's chunks of 2^21 points
+K1_MAIN_N = (8192, 16384, 32768, 65536, 131072, 2 ** 21)
+
+# K1's bf16 forward of a parent tree (``--parent DIR``, DIR holding its
+# ``nunerf_tpu_torch``) on the value-only SDF chain from a pre-built pack, in
+# a process of its own: prints {n: ms} as one JSON line
+PARENT_K1_TIMER = r"""
+import json, math, sys, torch
+from nunerf_tpu_torch.ops import fused_mlp as fm
+sq2 = 1 / math.sqrt(2)
+spec = fm.ChainSpec((39, 256, 256, 256, 217, 256, 256, 256, 256, 1),
+                    ("softplus100",) * 8 + ("none",), (False,) * 4 + (True,) + (False,) * 4,
+                    (1.0,) * 4 + (sq2,) + (1.0,) * 4, "bfloat16")
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(0)
+flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev) for s in fm.flat_weight_shapes(spec)]
+flat += [(torch.randn((1, d), generator=gen) * 0.1).to(dev) for d in spec.dims[1:]]
+lib = fm._lib()
+W, B = fm.pack_mma(spec, flat), fm._pack_biases(spec, flat)
+res = {}
+for n in [int(a) for a in sys.argv[1:]]:
+    x = (torch.rand((n, 39), generator=gen) * 2 - 1).to(dev)
+    out = torch.empty((n, 1), device=dev)
+    fn = lambda: fm._fwd_launch(lib, spec, x, W, B, out, None)
+    fn()
+    torch.cuda.synchronize()
+    reps = max(5, min(100, 2 ** 23 // n))
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    res[n] = e0.elapsed_time(e1) / reps
+print(json.dumps(res))
+"""
+
+
+def parent_k1_ms(parent):
+    """{n: ms} of the parent tree's K1 at ``K1_MAIN_N`` (its build included
+    in the child's time, not in the numbers)."""
+    import os
+    # from inside the tree: ``-c`` puts the working directory first on the path
+    res = subprocess.run([sys.executable, "-c", PARENT_K1_TIMER, *map(str, K1_MAIN_N)],
+                         cwd=os.path.abspath(parent), capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"the parent's K1 failed:\n{res.stderr[-3000:]}")
+    return {int(k): v for k, v in json.loads(res.stdout.strip().splitlines()[-1]).items()}
+
+
+def k1_main_shapes(fm, spec, flat, inputs, parent=None):
+    """K1's bf16 forward on the value-only SDF chain at ``K1_MAIN_N``: held to
+    the plain chain (``CHAIN_TOL``), then its device time from a pre-built
+    pack, the wrapper's (``chain_fwd_cuda``, packing included) and the pack's
+    own (``pack_wgmma``), CUDA events after warm-up, beside the bound and the
+    share of it the kernel reaches; with ``parent``, the parent's kernel
+    timed in turns with this one (parent, this, this, parent)."""
+    lib = fm._lib()
+    W, B = fm.pack_wgmma(spec, flat), fm._pack_biases(spec, flat)
+    par = [parent_k1_ms(parent)] if parent else []
+    rows, xs = [], {}
+    for n in K1_MAIN_N:
+        x = xs[n] = inputs(n)
+        y = fm.chain_fwd_cuda(spec, x, flat)
+        torch.cuda.synchronize()
+        err = rel_err(y, fm.chain_mlp_reference(spec, x, *flat))
+        if not (err <= CHAIN_TOL[("fwd", "bfloat16")] and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"K1 N={n}: rel err {err:.2e} over its tolerance")
+        out = torch.empty_like(y)
+        reps = max(5, min(100, 2 ** 23 // n))
+        dev_ms = cuda_ms(lambda: fm._fwd_launch(lib, spec, x, W, B, out, None), reps)
+        wrap_ms = cuda_ms(lambda: fm.chain_fwd_cuda(spec, x, flat), reps)
+        pack_ms = cuda_ms(lambda: fm.pack_wgmma(spec, flat), reps)
+        b, by = bound_ms(fm.chain_flops(spec, n), chain_bytes(spec, n), "bfloat16")
+        rows.append(dict(n=n, rel_err=err, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                         pack_ms=pack_ms, bound_ms=b, bound_by=by, share=b / dev_ms))
+    if parent:
+        for r in rows:
+            n = r["n"]
+            out = torch.empty((n, 1), device=W.device)
+            r["device_ms_again"] = cuda_ms(
+                lambda: fm._fwd_launch(lib, spec, xs[n], W, B, out, None),
+                max(5, min(100, 2 ** 23 // n)))
+        par.append(parent_k1_ms(parent))
+        for r in rows:
+            r["parent_ms"] = [p[r["n"]] for p in par]
+    for r in rows:
+        extra = ""
+        if parent:
+            extra = (f"; again {r['device_ms_again']:.4f} ms; parent's kernel "
+                     f"{r['parent_ms'][0]:.4f} / {r['parent_ms'][1]:.4f} ms")
+        log(f"K1 sdf value N={r['n']} bf16: rel err {r['rel_err']:.2e}; kernel {r['device_ms']:.4f} "
+            f"ms, wrapper {r['wrapper_ms']:.4f} ms, pack {r['pack_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share {r['share']:.3f}{extra}")
+    return rows
+
+
+def phase_kernels(renderer, dev, parent=None):
     """K1 and K2 against their plain versions at the main path's shapes."""
     from nunerf_tpu_torch.fields.sdf import _sdf_chain
     from nunerf_tpu_torch.ops import fused_mlp as fm
@@ -445,6 +551,11 @@ def phase_kernels(renderer, dev):
                                      shape=f"SDF value-only chain, N={n}, bf16")
                     log(f"K1 N={n} bf16: {ms:.3f} ms, plain {plain:.3f} ms, "
                         f"bound {b:.4f} ms ({by})")
+                    shapes = k1_main_shapes(fm, spec, flat, inputs, parent)
+                    main = next(r for r in shapes if r["n"] == n)
+                    rec["K1"].update(kernel="chain_fwd_wgmma_kernel",
+                                     device_ms=main["device_ms"], share=main["share"],
+                                     by_shape=shapes)
 
     relu = fm.ChainSpec((131, 256, 256, 256, 3), ("relu",) * 3 + ("none",),
                         (False,) * 4, (1.0,) * 4)
@@ -3106,6 +3217,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # --parent DIR: also time the parent tree's K1 (DIR holds its package)
+    parent = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv else None
     dev = torch.device("cuda")
     card = card_line()
     log(card)
@@ -3136,7 +3249,7 @@ def main():
                              "that stage 2 traces")
 
     renderer = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
-    rec = phase_kernels(renderer, dev)
+    rec = phase_kernels(renderer, dev, parent)
     rec.update(phase_kernels_jac(renderer, dev))
     phase_kernels_odd(renderer, dev)
     del renderer
@@ -3201,7 +3314,8 @@ def main():
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
-    names = {"K1": ("chain_fwd", "chain-MLP forward (fused_chain_mlp fwd)"),
+    names = {"K1": ("chain_fwd", "chain-MLP forward (fused_chain_mlp fwd; "
+                                 "chain_fwd_wgmma_kernel)"),
              "K2": ("chain_bwd", "chain-MLP backward (fused_chain_mlp VJP)"),
              "K3": ("closest_hit", "ray/triangle closest hit (ray_mesh_closest_hit)"),
              "K4": ("chain_jac_fwd", "chain-MLP value + Jacobian of channel 0 "
@@ -3223,6 +3337,7 @@ def main():
     measured = (f"ms_n{chunk['n']}", f"plain_ms_n{chunk['n']}", f"bound_ms_n{chunk['n']}",
                 f"rel_err_n{chunk['n']}",
                 "max_rel_err", "tol", "data_pass_dx_err", "data_pass_gz_ulps",
+                "kernel", "device_ms", "share", "by_shape",
                 "split_probe_f32_units", "scratch_gib", "brute_ms", "culled_ms",
                 "culled_rounds", "box_pairs_passed", "tri_pairs_tested", "ms_r131072",
                 "box_pairs_passed_r131072", "tri_pairs_tested_r131072", "mode", "ms_exact",

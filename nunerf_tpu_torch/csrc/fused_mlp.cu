@@ -49,29 +49,24 @@
 // The bf16 route (round_bf16 == 1): the same passes on tensor-core tiles.
 // Every matrix operand is a bf16 value there (the weights rounded once by
 // the wrapper, x0, h, p, zs, qbar and gj rounded where the TPU kernel rounds
-// them), so mma.sync.m16n8k16 with f32 accumulation forms the same products
-// and only the order of the sums changes.  The matrix work itself is small
-// for this card (the value-only SDF chain at 131,072 points: 120 GFLOP,
-// 0.12 ms at the bf16 peak), so each pass is bound by what surrounds it, and
-// the design goes after that:
-//   * Weights are packed as real bf16, each matrix and its transpose,
-//     zero-padded so that every depth and width is a multiple of 16
-//     (MmaLayout in ops/fused_mlp.py): no masks inside a k-step, 16-byte
-//     cp.async pieces, aligned ldmatrix rows.
-//   * A block is 64 rows x 8 warps, each warp a [32, 64] piece of the layer
-//     output: 64 f32 accumulators a thread, the whole layer output in
-//     registers before the epilogue runs.  So one bf16 activation tile
-//     [64][256 + 8] (33 KB, rows 528 bytes apart: conflict-free ldmatrix)
-//     serves as input and output, a barrier between; with the weight stages
-//     a block takes 90-110 KB and two blocks share an SM.
-//   * The weights of a 64-row tile come from L2 (1.07 MB of bf16 for the SDF
-//     chain, every tile again): slices of 32 rows, cp.async into three
-//     stages, two slices in flight behind the one the tensor cores work on,
-//     one barrier a slice; the first two slices of the NEXT layer are started
-//     before the epilogue (scale, bias, activation, rounding, bf16 stores),
-//     so the softplus of 16,384 outputs hides their latency.
-//   * K1's floor is that epilogue (expf + log1pf on every hidden output) and
-//     the L2 stream, not the 0.12 ms of matrix work.
+// them), so a tensor-core product with f32 accumulation forms the same
+// products and only the order of the sums changes.  The matrix work itself
+// is small for this card (the value-only SDF chain at 131,072 points: 120
+// GFLOP, 0.12 ms at the bf16 peak), so each pass is bound by what surrounds
+// it, and the design goes after that:
+//   * K1's forward, on its own and as pass 1 of K2, K4 and K5, is
+//     chain_fwd_wgmma_kernel: persistent, wgmma from shared memory, the
+//     weights streamed once a 128-row tile pair by bulk copies through an
+//     mbarrier ring (its own note says how and why).
+//   * The other passes run mma.sync.m16n8k16 tiles.  Their weights are
+//     packed as real bf16, each matrix and its transpose, zero-padded so
+//     that every depth and width is a multiple of 16 (MmaLayout in
+//     ops/fused_mlp.py): no masks inside a k-step, 16-byte cp.async pieces,
+//     aligned ldmatrix rows.  A block is 64 rows x 8 warps, each warp a
+//     [32, 64] piece of the layer output: 64 f32 accumulators a thread, the
+//     whole layer output in registers before the epilogue runs; weight
+//     slices of 32 rows come from L2 through three cp.async stages, the
+//     next product's first slices started before the epilogue.
 //   * K4/K5 are bound by the scratch stashes that carry a layer's values
 //     from pass to pass through device memory.  They are stored in the
 //     narrowest exact type: h, p, zs and the stored qbar are bf16-exact and
@@ -603,7 +598,8 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
 // loops above would form; only the order of the f32 sums differs.
 
 // Switches for timing alone, set with -D by tools/prof_chain_kernels.py
-// --variants and by nothing else: KS and NSTAGE give another pipeline shape;
+// --variants and by nothing else (K1's forward has switches of its own, in
+// its note): KS and NSTAGE give another pipeline shape;
 // PROF_NO_MMA, PROF_NO_CP_ASYNC, PROF_NO_LDMATRIX, PROF_NO_ACT and
 // PROF_NO_PREFETCH each compile one piece of this route out (such a build
 // computes nothing right: what the piece costs is the time that goes with it);
@@ -1052,104 +1048,652 @@ __device__ __forceinline__ void rows_colsum(const Acc& acc, int ncols, int w,
   for (int c = t; c < w; c += NT) dst[c] = red[c] + red[MAXW + c];
 }
 
-// K1 on the bf16 route.  Shared memory: one bf16 activation tile [64][AS],
-// the weight stages, x0 [64][Ep + 8].  The layer's whole output sits in the
-// accumulators before the epilogue runs, so one tile is enough: a barrier,
-// then scale, bias, activation, rounding and the bf16 store over it (and to
-// the stash, in the padded layout with zero pad columns).  The last layer
-// goes out as f32, 256 columns at a time, and is not stashed.
-__global__ void __launch_bounds__(NT, 2)
-chain_fwd_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ W,
-                     const float* __restrict__ Bs, float* __restrict__ out,
-                     bf16* __restrict__ stash, int n, Chain ch) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const int E = ch.E, Ep = pad16(E), ES = Ep + 8;
-  // x0 [TR][ES] shares the tile's storage when the first layer alone reads
-  // it (x0_alias: every read of x0 precedes the first write of the tile), so
-  // a 259-wide input of a skip-free head still leaves room for two blocks
-  const int tile = TR * (ch.x0_alias && ES > AS ? ES : AS);
-  bf16* hb = reinterpret_cast<bf16*>(smem_mma);  // [TR][AS]
-  bf16* ws = hb + tile;                          // [NSTAGE][KS][WSS]
-  bf16* x0 = ch.x0_alias ? hb : ws + NSTAGE * WSTAGE;
-  const int t = threadIdx.x;
-  const WarpPos wp(t);
-  const long row0 = (long)blockIdx.x * TR;
+// ===================================================================
+// K1 on the bf16 route: wgmma, bulk copies through an mbarrier ring
+// ===================================================================
+//
+// Replaces the Pallas kernel _fwd_kernel (nunerf_tpu/ops/fused_mlp.py) on the
+// bf16 route; pass 1 of K2, K4 and K5 is this kernel too.  The matrix work of
+// the value-only SDF chain at 131,072 rows is 0.12 ms at the bf16 peak, its
+// input and output 20 MB and 0.5 MB: what bounds it is neither but the
+// weights (0.97 MB of bf16 in this pack), which every tile needs whole, and
+// the epilogue (scale, bias, the softplus, rounding) of every hidden output.
+// The design goes after both:
+//   * Persistent: one CTA an SM (the grid is the wrapper's, ``wgmma_grid``)
+//     walking 128-row tile pairs on a static stride, so every row's sums are
+//     formed in the same order from run to run.  Four warpgroups: two for
+//     each 64-row tile (wgmma's M), each taking half of every layer's
+//     columns (m64n128 at a width of 256: 64 f32 accumulators a thread).
+//   * No ping-pong: the tiles' warpgroups interleave their products and
+//     epilogues on their own.  Turns between the tiles (named barriers
+//     ordering their products, so that one tile's epilogue runs under the
+//     other's products) were built and measured slower.
+//   * The weights are streamed once a tile pair, not once a 64-row tile:
+//     ``pack_wgmma`` lays every padded W_h and W_x as slices [width][64] in
+//     the canonical K-major, 128-byte-swizzled layout that a wgmma
+//     descriptor reads, in the order the products take them, so the CTA
+//     walks one contiguous buffer with 1-D bulk copies (cp.async.bulk, no
+//     tensor map) into a ring of 32 KB stages, whose full barriers count the
+//     bytes in.  All four warpgroups read every slice, each its half of the
+//     rows.  No producer warp: the last warpgroup to be done with a stage (a
+//     counter a stage) starts the copy of the slice that follows into it, so
+//     no thread ever waits for a free stage.
+//   * Every product is a wgmma with both operands in shared memory, into f32
+//     accumulators that the epilogue works in registers; it writes the
+//     rounded activations into the tile's own operand tile, in the same
+//     swizzled K-major layout, for the next layer (conflict-free 4-byte
+//     stores from 8 swizzled row bases a thread and immediate offsets), and
+//     to the stash.  x0 (layer 0's input and the skips', rounded
+//     to bf16) has a tile of the same layout; with no skip past layer 0 the
+//     activations' tile takes its place.  A slice is always 4 steps of 16:
+//     the pack's slices are zero past the weights' depth, and the tiles are
+//     written to the end of their 64-wide slab (zeros past the width), so no
+//     branch sits between the wgmmas.
+//   * Why not the usual Hopper shape (PERF.md has the measurements): a
+//     producer warpgroup with setmaxnreg did not raise what ptxas allocates
+//     to the consumers (it kept them within the launch's 168 registers a
+//     thread, spilled and serialised every wgmma), and a producer warp makes
+//     9 warps, 3 on one of the SM's four register files, 168 again.  The
+//     activations kept in registers as wgmma's A fragments need 64 registers
+//     beside 128 accumulators at a width of 256: they spilled.  With two
+//     warpgroups of 128 accumulators, two warps a scheduler could not hide
+//     the softplus's latency; the epilogue is what bounds the kernel, so it
+//     gets four warpgroups.  A cluster of two CTAs sharing each slice by
+//     multicast was no faster: the weights' L2 traffic is not the bound.
+// The widths of the products are the wgmma widths ``pack_wgmma`` rounds each
+// layer to (16, 32, 64, 128, 256, halved between the warpgroups; a last
+// layer wider than 256 in blocks of 256): the columns past a layer's width
+// are zero weights, written as zeros to the operand tile and neither
+// stashed nor stored.
+//
+// Switches for timing alone, set with -D by tools/prof_chain_kernels.py
+// --variants and by nothing else (such a build computes nothing right):
+// PROF_NO_WGMMA leaves the products out, PROF_NO_BULK the weight copies (a
+// stage's full barrier is arrived on without them), PROF_NO_ACT the
+// epilogue's activation math; WG_MAXST caps the ring's depth.
+#define WG_ROWS 64        // rows of a tile (wgmma's M)
+#define WG_PAIR 128       // rows a CTA takes a turn: two tiles
+#define WG_THREADS 512    // four warpgroups, two a tile
+#define WG_STAGE 32768    // bytes of a ring stage: the widest slice, 256 x 128
+#define WG_SLAB 8192      // bytes of 64 rows x 64 bf16 of an operand tile
+#ifndef WG_MAXST
+#define WG_MAXST 8        // deepest ring
+#endif
+#define WG_MAXSL 256      // slices of one pass over a chain
+#define WG_SMEM_MAX 232448
 
-  for (int idx = t; idx < TR * Ep; idx += NT) {
-    const int r = idx / Ep, c = idx - r * Ep;
-    const long g = row0 + r;
-    x0[r * ES + c] =
-        __float2bfloat16_rn((g < n && c < E) ? x[g * E + c] : 0.f);
-  }
+struct WgPlan {
+  int pairs;                // 128-row tile pairs, ceil(n / 128)
+  int stages;               // ring depth
+  int xslabs, hslabs;       // 64-wide slabs of the x0 and activation tiles
+  int alias;                // the activations' tile is x0's
+  int bwsum;                // the biases' columns: every block's width
+  int nsl;                  // slices of one pass over the chain
+  short bw[MAXL][2];        // wgmma width of each column block (0: none)
+  int bytes[WG_MAXSL];      // bytes of each slice, in the products' order
+};
 
-  const bf16* hin = x0;
-  int lda = ES;
-  bool head = false;
-  Acc acc;
-  for (int l = 0; l < ch.L - 1; ++l) {
-    const Layer& Ly = ch.l[l];
-    zero_acc(acc);
-    mma_gemm(acc, hin, lda, {W + Ly.pwh, Ly.outp, Ly.inp, Ly.outp}, ws, t,
-             head);
-    if (Ly.wx >= 0)
-      mma_gemm(acc, x0, ES, {W + Ly.pwx, Ly.outp, Ep, Ly.outp}, ws, t);
-    __syncthreads();  // every read of hb precedes its overwrite
-    {  // the next layer's first weight slices travel while the epilogue runs
-      const Layer& Ln = ch.l[l + 1];
-      gemm_head({W + Ln.pwh, Ln.outp, Ln.inp, Ln.outp < MAXW ? Ln.outp : MAXW},
-                ws, t);
-      head = true;
-    }
-    bf16* st = stash ? stash + (size_t)n * Ly.pstash : nullptr;
-    const int nt = wp.ntiles(Ly.outp);
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      if (ni >= nt) continue;
-      const int c = wp.col(ni);
-      const float b0 = c < Ly.out ? Bs[Ly.b + c] : 0.f;
-      const float b1 = c + 1 < Ly.out ? Bs[Ly.b + c + 1] : 0.f;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = wp.row(mi, hf);
-          float z0 = acc[mi][ni][2 * hf], z1 = acc[mi][ni][2 * hf + 1];
-          if (Ly.scale != 1.f) { z0 *= Ly.scale; z1 *= Ly.scale; }
-          const float v0 = c < Ly.out ? act_mma(Ly.act, z0 + b0) : 0.f;
-          const float v1 = c + 1 < Ly.out ? act_mma(Ly.act, z1 + b1) : 0.f;
-          st_bf16x2(hb + r * AS + c, v0, v1);
-        }
-    }
-    if (st) {  // the tile's rows are the stash's, whole rows at a time
-      __syncthreads();
-      tile_to_stash(hb, AS, st, Ly.outp, row0, n, t);
-    }
-    hin = hb;
-    lda = AS;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait of
+// more than 2^35 clocks (about 20 s) is a fault of the kernel: it traps, and
+// the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 35)) __trap();
   }
-  const Layer& Ly = ch.l[ch.L - 1];
-  for (int cb = 0; cb < Ly.outp; cb += MAXW) {
-    const int ncols = Ly.outp - cb < MAXW ? Ly.outp - cb : MAXW;
-    zero_acc(acc);
-    mma_gemm(acc, hin, lda, {W + Ly.pwh + cb, Ly.outp, Ly.inp, ncols}, ws, t,
-             head && cb == 0);
-    if (Ly.wx >= 0)
-      mma_gemm(acc, x0, ES, {W + Ly.pwx + cb, Ly.outp, Ep, ncols}, ws, t);
-    const int nt = wp.ntiles(ncols);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16) global -> shared, counted on the barrier
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+#ifdef PROF_NO_BULK
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+#else
+  mbar_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+#endif
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// this thread's shared-memory writes, before wgmma reads them
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+
+// The accumulators a wgmma writes asynchronously are not read before the
+// wait that follows it: an empty asm that "writes" them after the wait.
+template <int R>
+__device__ __forceinline__ void keep(float (&r)[R]) {
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      if (ni >= nt) continue;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The descriptor of an operand at shared address saddr (8-row groups
+// 1024-aligned): rows of 64 bf16 (128 bytes, K-major), 128-byte swizzle,
+// 8-row groups 1024 bytes apart; + 2 steps 16 deeper.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64, N] (+)= a[64, 16] b[16, N], both by descriptor; scale_d 0
+// overwrites d.
+template <int N>
+struct WgSS;
+template <> struct WgSS<8> {
+  __device__ __forceinline__ static void mma(float (&d)[4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <> struct WgSS<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <> struct WgSS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <> struct WgSS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+template <> struct WgSS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float ldsf(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float2 lds64(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t atom_add_shared(uint32_t addr, uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(addr), "r"(v)
+               : "memory");
+  return old;
+}
+
+// The ring: stage s holds a slice at base + s * WG_STAGE.  Its bookkeeping
+// sits at meta (shared addresses): the full barriers [WG_MAXST] (8 bytes
+// each), the counters of warpgroups done with each stage [WG_MAXST], the
+// offsets in the pack and the sizes of the chain's slices [WG_MAXSL] each.
+// Slice q of the CTA's walk (turns x the chain's slices, total) sits in stage
+// q % stages.  Only addresses and positions live in registers: the kernel's
+// parameters give the rest where it is used.
+#define WG_META_CNT (8 * WG_MAXST)
+#define WG_META_OFFS (WG_META_CNT + 4 * WG_MAXST)
+#define WG_META_LENS (WG_META_OFFS + 4 * WG_MAXSL)
+#define WG_META_BYTES (WG_META_LENS + 4 * WG_MAXSL)
+struct Ring {
+  uint32_t base, meta;
+  int stage, q, total;
+  uint32_t phase;
+  __device__ __forceinline__ void next(int stages) {
+    ++q;
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// start the copy of slice q (< total) of the walk into stage st
+__device__ __forceinline__ void ring_fill(const Ring& rg, const WgPlan& plan,
+                                          const bf16* W, int q, int st) {
+  const int s = q % plan.nsl;
+  const uint32_t off = lds32(rg.meta + WG_META_OFFS + 4 * s);
+  const uint32_t len = lds32(rg.meta + WG_META_LENS + 4 * s);
+  bulk_g2s(rg.base + st * WG_STAGE,
+           reinterpret_cast<const unsigned char*>(W) + off, len,
+           rg.meta + 8 * st);
+}
+
+// A warpgroup is done with stage st, which held slice q: its first thread
+// counts it, and the fourth warpgroup to be done starts slice q + stages's
+// copy into the stage.  Every read of the stage by all four has completed
+// (each waited for its products first).
+__device__ __forceinline__ void release(const Ring& rg, const WgPlan& plan,
+                                        const bf16* W, int st, int q,
+                                        bool leader) {
+  if (leader && (atom_add_shared(rg.meta + WG_META_CNT + 4 * st, 1) & 3) == 3 &&
+      q + plan.stages < rg.total)
+    ring_fill(rg, plan, W, q + plan.stages, st);
+}
+
+// One column block's products for a warpgroup: acc = A @ W_h (+ x0 @ W_x)
+// over its M columns of the block (b_off: their first row in a slice), the
+// slices taken from the ring in order.  a_tile: the A operand of W_h (x0's
+// tile for layer 0, else the activations'), x_tile x0's; nsh, nsx: slices of
+// W_h and of W_x (0: no skip).  Each slice's 4 steps form one group, waited
+// for before anything else runs (the other warpgroups keep the tensor cores
+// busy meanwhile; with a group left in flight across the next slice's wait
+// and copy, ptxas serialised every wgmma for want of registers), then the
+// slice is released.
+template <int M>
+__device__ __forceinline__ void block_products(
+    float (&acc)[M / 2], uint32_t a_tile, uint32_t x_tile, int nsh, int nsx,
+    uint32_t b_off, Ring& rg, const WgPlan& plan, const bf16* W,
+    bool leader) {
+  int sd = 0;
+  for (int part = 0; part < 2; ++part) {
+    const int ns = part == 0 ? nsh : nsx;
+    const uint32_t tile = part == 0 ? a_tile : x_tile;
+    for (int s = 0; s < ns; ++s) {
+      mbar_wait(rg.meta + 8 * rg.stage, rg.phase);
+      const uint64_t da = sw128_desc(tile + s * WG_SLAB);
+      const uint64_t db = sw128_desc(rg.base + rg.stage * WG_STAGE + b_off);
+      wg_fence();
+#ifndef PROF_NO_WGMMA
+      WgSS<M>::mma(acc, da, db, sd);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int kk = 1; kk < 4; ++kk)
+        WgSS<M>::mma(acc, da + 2 * kk, db + 2 * kk, 1);
+#endif
+      sd = 1;
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+      release(rg, plan, W, rg.stage, rg.q, leader);
+      rg.next(plan.stages);
+    }
+  }
+}
+
+// Byte of element (row r, column c) of an operand tile: 64-wide slabs of 64
+// rows x 128 bytes, 8-row atoms, the 16-byte chunk c / 8 of row r at chunk
+// (c / 8) ^ (r % 8) (``sw128_offset`` in ops/fused_mlp.py).
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  return (c >> 6) * WG_SLAB + (r >> 3) * 1024 + (r & 7) * 128 +
+         ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// A hidden layer's epilogue, in the accumulators' layout: a thread holds
+// columns c0 + 8 j + 2 q + {0, 1} of its warp's rows rt and rt + 8 (rt = 16 w
+// + g in the tile, r in the chain's rows).  z * scale + b, the activation,
+// one rounding to bf16; columns past the layer's width are 0.  Each pair
+// goes to the operand tile ht (4-byte stores: the 8 rows of a warp's store
+// sit in 8 different chunks, conflict-free) and, with a stash, to it (row
+// stride outp, columns below outp).  bias: the layer's biases, zero past its
+// width.  With zero_to (a layer narrower than 64) the columns from zero_to
+// to the slab's end are written as zeros.  At M >= 64 the chunk of column
+// c0 + 8 j is j % 8 (c0 is a multiple of 64), so every store is one of 8
+// row bases a thread plus an immediate.  Shared memory by address.  MASK:
+// the block reaches past the layer's width.  z * scale is one rounding as
+// before, and exact at a scale of 1.
+template <int M, int ACT, bool STASH, bool MASK>
+__device__ __forceinline__ void hidden_epilogue(const float (&acc)[M / 2],
+                                                uint32_t ht, int c0,
+                                                uint32_t bias, int out,
+                                                int outp, float scale,
+                                                bf16* st, int rt, long r,
+                                                int n, int q, int zero_to) {
+  const int g = rt & 7;
+  const uint32_t row = ht + (rt >> 3) * 1024 + g * 128 + 4 * q;
+  uint32_t base[8];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const long g = row0 + wp.row(mi, e >> 1);
-          const int c = cb + wp.col(ni) + (e & 1);
-          if (c >= Ly.out || g >= n) continue;
-          float z = acc[mi][ni][e];
-          if (Ly.scale != 1.f) z *= Ly.scale;
-          out[g * Ly.out + c] = act_f(Ly.act, z + Bs[Ly.b + c]);
+  for (int k = 0; k < 8; ++k)
+    base[k] = row + (M >= 64 ? (c0 >> 6) * WG_SLAB + ((k ^ g) << 4) : 0);
+  bf16* st0 = STASH ? st + r * outp : nullptr;
+#pragma unroll
+  for (int j = 0; j < M / 8; ++j) {
+    const int c = c0 + 8 * j + 2 * q;
+    const float2 bb = lds64(bias + 4 * c);
+    // a column past the width has z = 0 (zero weights, zero bias) and a
+    // finite act(0): a multiply by 0 or 1 masks it without a branch, which
+    // keeps the values' chains free to interleave
+    const float m0 = c < out ? 1.f : 0.f, m1 = c + 1 < out ? 1.f : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float z0 = __fmul_rn(acc[4 * j + 2 * h], scale);
+      const float z1 = __fmul_rn(acc[4 * j + 2 * h + 1], scale);
+      float v0 = act_mma(ACT, z0 + bb.x), v1 = act_mma(ACT, z1 + bb.y);
+      if (MASK) {
+        v0 *= m0;
+        v1 *= m1;
+      }
+      __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+      const uint32_t u = *reinterpret_cast<uint32_t*>(&p);
+      if (M >= 64)
+        sts32(base[j & 7] + (j >> 3) * WG_SLAB + h * 1024, u);
+      else
+        sts32(ht + tile_offset(rt + 8 * h, c), u);
+      if (STASH && c < outp && r + 8 * h < n)
+        *reinterpret_cast<uint32_t*>(st0 + 8 * h * outp + c) = u;
+    }
+  }
+  for (int c = zero_to + 2 * q; c < 64; c += 8) {
+    sts32(ht + tile_offset(rt, c), 0u);
+    sts32(ht + tile_offset(rt + 8, c), 0u);
+  }
+}
+
+// The last layer's epilogue: f32, act_f, columns c0 + ... below out, rows
+// below n, row stride out.  bias: the layer's biases (a shared address).
+template <int M>
+__device__ __forceinline__ void last_epilogue(const float (&acc)[M / 2],
+                                              uint32_t bias, int out, int act,
+                                              float scale, int c0, float* y,
+                                              long r, int n, int q) {
+#pragma unroll
+  for (int j = 0; j < M / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + 8 * j + 2 * q + e;
+      if (c >= out) continue;
+      const float b = ldsf(bias + 4 * c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r + 8 * h >= n) continue;
+        float z = acc[4 * j + 2 * h + e];
+        if (scale != 1.f) z *= scale;
+        y[(r + 8 * h) * out + c] = act_f(act, z + b);
+      }
+    }
+}
+
+// What a thread keeps for the whole kernel.
+struct WgThread {
+  uint32_t xt, ht, bias;  // shared addresses: x0's tile, the activations', the biases
+  int rt, half, rtile, q; // row in the tile, column half, tile, lane % 4
+  bool leader;            // the warpgroup's first thread
+};
+
+// Column block b of layer l for a warpgroup: its half of the block's
+// products, then (both warpgroups of the tile done reading it) the epilogue,
+// and for a hidden layer the tile made ready for the next one.  wb: the
+// layer's first bias; r: this thread's first row.  The layer's fields are
+// read from the parameters after the products.
+template <int N>
+__device__ __forceinline__ void run_block(const Chain& ch, const WgPlan& plan,
+                                          const bf16* W, float* out,
+                                          bf16* stash, int n, int l, int b,
+                                          int wb, long r, const WgThread& th,
+                                          Ring& rg) {
+  constexpr int M = N / 2;
+  float acc[M / 2];
+  {
+    const int nsh = (ch.l[l].inp + 63) >> 6;
+    const int nsx = ch.l[l].wx >= 0 ? plan.xslabs : 0;
+    block_products<M>(acc, l == 0 ? th.xt : th.ht, th.xt, nsh, nsx,
+                      (uint32_t)(th.half * M * 128), rg, plan, W, th.leader);
+  }
+  const Layer& Ly = ch.l[l];
+  const int c0 = b * MAXW + th.half * M;
+  const uint32_t bias = th.bias + 4 * wb;
+  if (l == ch.L - 1) {
+    last_epilogue<M>(acc, bias, Ly.out, Ly.act, Ly.scale, c0, out, r, n, th.q);
+    return;
+  }
+  const int tbar = 1 + th.rtile;  // the tile's two warpgroups
+  bar_sync(tbar, 2 * 128);        // the tile is read: it may be overwritten
+  const int zero_to = N < 64 && th.half ? N : 64;
+  bf16* st = stash ? stash + (size_t)n * Ly.pstash : nullptr;
+#define WG_EPILOGUE(ACT, STASH, MASK)                                       \
+  hidden_epilogue<M, ACT, STASH, MASK>(acc, th.ht, c0, bias, Ly.out, Ly.outp, \
+                                       Ly.scale, st, th.rt, r, n, th.q,      \
+                                       zero_to)
+  const bool mask = c0 + M > Ly.out;
+  if (Ly.act == ACT_SP100) {
+    if (st) {
+      if (mask) WG_EPILOGUE(ACT_SP100, true, true);
+      else WG_EPILOGUE(ACT_SP100, true, false);
+    } else {
+      if (mask) WG_EPILOGUE(ACT_SP100, false, true);
+      else WG_EPILOGUE(ACT_SP100, false, false);
+    }
+  } else if (Ly.act == ACT_RELU) {
+    if (st) WG_EPILOGUE(ACT_RELU, true, true);
+    else WG_EPILOGUE(ACT_RELU, false, true);
+  } else {
+    if (st) WG_EPILOGUE(ACT_NONE, true, true);
+    else WG_EPILOGUE(ACT_NONE, false, true);
+  }
+#undef WG_EPILOGUE
+  fence_async_shared();
+  bar_sync(tbar, 2 * 128);  // the whole tile, before the next layer reads it
+}
+
+// Shared memory of the kernel: the ring (1024-aligned), both tiles' operand
+// tiles (x0's and the activations', or one where they alias), the biases
+// [bwsum] (each layer's as wide as its blocks, zero past its width), the
+// ring's bookkeeping (WG_META_BYTES).
+__host__ __device__ __forceinline__ size_t wg_tile_bytes(int xslabs,
+                                                         int hslabs,
+                                                         int alias) {
+  return (size_t)WG_SLAB *
+         (alias ? (xslabs > hslabs ? xslabs : hslabs) : xslabs + hslabs);
+}
+__host__ __device__ __forceinline__ size_t wg_smem_bytes(int stages,
+                                                         size_t tile,
+                                                         int bwsum) {
+  return 1024 + (size_t)stages * WG_STAGE + 2 * tile +
+         sizeof(float) * bwsum + WG_META_BYTES;
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+chain_fwd_wgmma_kernel(const float* __restrict__ x, const bf16* __restrict__ W,
+                       const float* __restrict__ Bs, float* __restrict__ out,
+                       bf16* __restrict__ stash, int n, Chain ch,
+                       WgPlan plan) {
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  const int E = ch.E;
+  const int S = plan.stages;
+  const size_t tile = wg_tile_bytes(plan.xslabs, plan.hslabs, plan.alias);
+  const uint32_t raw = smem_u32(smem_wg);
+  unsigned char* ring = smem_wg + ((1024 - (raw & 1023)) & 1023);
+  unsigned char* tiles = ring + (size_t)S * WG_STAGE;
+  float* bias = reinterpret_cast<float*>(tiles + 2 * tile);
+  unsigned char* meta = reinterpret_cast<unsigned char*>(bias + plan.bwsum);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+
+  // the tile walk (``tile_walk`` in ops/fused_mlp.py): turn k of CTA b takes
+  // pair b + k G
+  const int turns = (plan.pairs - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;
+  Ring rg{smem_u32(ring), smem_u32(meta), 0, 0, turns * plan.nsl, 0};
+  if (t == 0) {
+    int* cnt = reinterpret_cast<int*>(meta + WG_META_CNT);
+    int* offs = reinterpret_cast<int*>(meta + WG_META_OFFS);
+    int* lens = reinterpret_cast<int*>(meta + WG_META_LENS);
+    for (int s = 0, o = 0; s < plan.nsl; o += plan.bytes[s], ++s) {
+      offs[s] = o;
+      lens[s] = plan.bytes[s];
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(rg.meta + 8 * s, 1);
+      cnt[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q < S && q < rg.total; ++q) ring_fill(rg, plan, W, q, q);
+  }
+  for (int l = 0, base = 0; l < ch.L; ++l) {
+    const int w = plan.bw[l][0] + plan.bw[l][1];
+    for (int c = t; c < w; c += WG_THREADS)
+      bias[base + c] = c < ch.l[l].out ? Bs[ch.l[l].b + c] : 0.f;
+    base += w;
+  }
+  __syncthreads();
+
+  // warpgroup w: tile w / 2, columns half w % 2; a warp's rows in its tile
+  WgThread th;
+  th.rtile = warp >> 3;
+  th.half = (warp >> 2) & 1;
+  th.rt = 16 * (warp & 3) + (lane >> 2);
+  th.q = lane & 3;
+  th.leader = (t & 127) == 0;
+  th.xt = smem_u32(tiles + th.rtile * tile);
+  th.ht = th.xt + (plan.alias ? 0 : WG_SLAB * plan.xslabs);
+  th.bias = smem_u32(bias);
+  const int tbar = 1 + th.rtile;  // the tile's two warpgroups
+  const int xr0 = 8 * (warp & 7);  // the 8 rows of x0 this warp writes
+  for (int k = 0; k < turns; ++k) {
+    const long row0 = ((long)blockIdx.x + (long)k * gridDim.x) * WG_PAIR +
+                      th.rtile * WG_ROWS;
+    // x0: 8 rows a warp of the tile's 8, rounded to bf16, zero past n and E
+    // to the end of the tile; a warp's 32 lanes read 64 columns of a row
+    bar_sync(tbar, 2 * 128);  // the last turn's reads of the tile are done
+    for (int c = 2 * lane; c < 64 * plan.xslabs; c += 64) {
+      float v[16];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const long gr = row0 + xr0 + rr;
+        const float* xr = x + gr * E + c;
+        v[2 * rr] = gr < n && c < E ? xr[0] : 0.f;
+        v[2 * rr + 1] = gr < n && c + 1 < E ? xr[1] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * rr], v[2 * rr + 1]);
+        sts32(th.xt + tile_offset(xr0 + rr, c), *reinterpret_cast<uint32_t*>(&p));
+      }
+    }
+    fence_async_shared();
+    bar_sync(tbar, 2 * 128);
+    const long r = row0 + th.rt;
+    for (int l = 0, wb = 0; l < ch.L; ++l) {
+      for (int b = 0; b < 2; ++b) {
+        switch (plan.bw[l][b]) {
+          case 0: break;
+          case 16: run_block<16>(ch, plan, W, out, stash, n, l, b, wb, r, th, rg); break;
+          case 32: run_block<32>(ch, plan, W, out, stash, n, l, b, wb, r, th, rg); break;
+          case 64: run_block<64>(ch, plan, W, out, stash, n, l, b, wb, r, th, rg); break;
+          case 128: run_block<128>(ch, plan, W, out, stash, n, l, b, wb, r, th, rg); break;
+          default: run_block<256>(ch, plan, W, out, stash, n, l, b, wb, r, th, rg); break;
         }
+      }
+      wb += plan.bw[l][0] + plan.bw[l][1];
     }
   }
 }
@@ -1788,25 +2332,87 @@ static size_t mma_smem(int tw) {
   return sizeof(bf16) * ((size_t)TR * (tw + 8) + NSTAGE * WSTAGE);
 }
 
+// The bf16 forward's plan, from the wrapper (``wgmma_plan`` in
+// ops/fused_mlp.py): grid, slices, then per layer the wgmma widths
+// of its two column blocks (0: none), then the bytes of every slice in the
+// products' order.  It is held to the chain here: the slices' walk (per
+// block W_h's 64-deep slices, then W_x's), each slice its block's width x 128
+// bytes, hidden layers one block, every block as wide as the layer's padded
+// width; the grid at most one CTA a tile pair.  The
+// ring is as deep as the shared memory left beside the operand tiles and the
+// biases allows (``wgmma_stages``), at least two stages.
+static int build_wg_plan(WgPlan* p, const Chain& ch, const int* plan,
+                         int nplan, int n, int* grid) {
+  const int L = ch.L;
+  if (!plan || nplan < 2 + 2 * L) return (int)cudaErrorInvalidValue;
+  *grid = plan[0];
+  p->nsl = plan[1];
+  const int* bw = plan + 2;
+  const int* bytes = plan + 2 + 2 * L;
+  if (*grid < 1 || p->nsl < 1 || p->nsl > WG_MAXSL ||
+      nplan != 2 + 2 * L + p->nsl)
+    return (int)cudaErrorInvalidValue;
+  const int Ep = pad16(ch.E);
+  int s = 0, hidden = 0;
+  for (int l = 0; l < L; ++l) {
+    const Layer& y = ch.l[l];
+    const int k = (y.inp + 63) / 64 + (y.wx >= 0 ? (Ep + 63) / 64 : 0);
+    int cover = 0;
+    for (int b = 0; b < 2; ++b) {
+      const int w = bw[2 * l + b];
+      p->bw[l][b] = (short)w;
+      if (w == 0 && b == 1) continue;
+      if ((w != 16 && w != 32 && w != 64 && w != 128 && w != 256) ||
+          (b == 1 && (l < L - 1 || bw[2 * l] != MAXW)))
+        return (int)cudaErrorInvalidValue;
+      cover += w;
+      if (l < L - 1 && w > hidden) hidden = w;
+      for (int i = 0; i < k; ++i, ++s) {
+        if (s >= p->nsl || bytes[s] != w * 128) return (int)cudaErrorInvalidValue;
+        p->bytes[s] = bytes[s];
+      }
+    }
+    if (cover < y.outp) return (int)cudaErrorInvalidValue;
+  }
+  if (s != p->nsl) return (int)cudaErrorInvalidValue;
+  p->pairs = (n + WG_PAIR - 1) / WG_PAIR;
+  if (*grid > p->pairs) return (int)cudaErrorInvalidValue;
+  p->bwsum = 0;
+  for (int l = 0; l < L; ++l) p->bwsum += bw[2 * l] + bw[2 * l + 1];
+  p->xslabs = (Ep + 63) / 64;
+  p->hslabs = (hidden + 63) / 64;
+  p->alias = ch.x0_alias;
+  const size_t tile = wg_tile_bytes(p->xslabs, p->hslabs, p->alias);
+  int S = WG_MAXST;
+  while (S >= 2 && wg_smem_bytes(S, tile, p->bwsum) > WG_SMEM_MAX) --S;
+  if (S < 2) return (int)cudaErrorInvalidValue;
+  p->stages = S;
+  return 0;
+}
+
+// plan: the bf16 route's (build_wg_plan), unused on the f32 route
 extern "C" int nunerf_chain_fwd(const float* x, const void* W,
                                 const float* B, float* out, void* stash,
                                 int n, const int* meta, const float* scales,
-                                int L, int E, int round_bf16, void* stream) {
+                                int L, int E, int round_bf16, const int* plan,
+                                int nplan, void* stream) {
   Chain ch;
   int err = build_chain(&ch, meta, scales, L, E, round_bf16);
   if (err) return err;
-  const unsigned grid = (unsigned)((n + TR - 1) / TR);
   if (round_bf16) {
-    const int es = pad16(E) + 8;
-    const size_t smem = ch.x0_alias
-                            ? mma_smem(es > AS ? es - 8 : MAXW)
-                            : mma_smem(MAXW) + sizeof(bf16) * TR * es;
-    err = set_smem(chain_fwd_mma_kernel, smem);
+    WgPlan p;
+    int grid;
+    err = build_wg_plan(&p, ch, plan, nplan, n, &grid);
     if (err) return err;
-    chain_fwd_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        x, (const bf16*)W, B, out, (bf16*)stash, n, ch);
+    const size_t smem = wg_smem_bytes(
+        p.stages, wg_tile_bytes(p.xslabs, p.hslabs, p.alias), p.bwsum);
+    err = set_smem(chain_fwd_wgmma_kernel, smem);
+    if (err) return err;
+    chain_fwd_wgmma_kernel<<<grid, WG_THREADS, smem, (cudaStream_t)stream>>>(
+        x, (const bf16*)W, B, out, (bf16*)stash, n, ch, p);
     return launch_check();
   }
+  const unsigned grid = (unsigned)((n + TR - 1) / TR);
   const size_t smem = sizeof(float) * TR *
       (size_t)(ch.x0_alias ? (ch.hw > E ? ch.hw : E) : ch.hw + E);
   err = set_smem(chain_fwd_kernel, smem);

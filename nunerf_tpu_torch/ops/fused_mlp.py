@@ -43,13 +43,17 @@ launches its route's kernels or raises; neither falls back to the other):
   bound by the card's f32 rate without tensor cores; it is the exact route
   that small card steps are held against the CPU with, not the fast one.
 * ``bfloat16``: every matrix operand is a bf16 value (weights rounded once
-  by ``pack_mma``, activations and cotangents rounded where the TPU kernel
+  by the packs, activations and cotangents rounded where the TPU kernel
   rounds them), so the products are exact in f32 and run on the tensor cores
-  (``mma.sync`` m16n8k16, f32 accumulation) in another summation order.
-  Weights are packed as real bf16, zero-padded to multiples of 16
-  (``MmaLayout``), as they are and transposed.  What bounds each pass here is
-  not the matrix work but what surrounds it: K1 the softplus epilogue and the
-  weight slices streamed from L2 for every 64-row tile; K4/K5 the scratch
+  (f32 accumulation) in another summation order.  K1's forward, also pass 1
+  of K2, K4 and K5, is ``wgmma`` from shared memory, its weights laid by
+  ``pack_wgmma`` (``WgmmaLayout``: slices in a wgmma descriptor's swizzled
+  layout, streamed by bulk copies, ``wgmma_plan``), over a persistent grid
+  (``wgmma_grid``, ``tile_walk``); it is bound by the softplus epilogue of
+  every hidden output.  The other passes are ``mma.sync`` m16n8k16 tiles
+  over weights packed as real bf16, zero-padded to multiples of 16
+  (``MmaLayout``), as they are and transposed.  What bounds each of them is
+  not the matrix work but what surrounds it: K4/K5 the scratch
   stashes that carry h, q, p, dbar, qbar and zs between the passes through
   device memory.  So the stashes are kept in the narrowest exact type (h, p,
   zs, qbar are bf16-exact and stored as bf16; q and dbar are unrounded and
@@ -402,7 +406,7 @@ def _lib():
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
         lib.nunerf_chain_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ip, fp, ci,
-                                         ci, ci, vp]
+                                         ci, ci, ip, ci, vp]
         lib.nunerf_chain_bwd_data.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                               ci, ip, fp, ci, ci, ci, vp]
         lib.nunerf_chain_jac_down.argtypes = [vp, vp, vp, vp, vp, vp, ci, ip,
@@ -431,13 +435,19 @@ def _check(lib, err, what):
 def check_limits(spec: ChainSpec, max_in: int = MAX_IN):
     """Raise unless the kernels take the chain's depth and widths (the same
     limits on both routes: a chain beyond them raises, whatever its
-    ``compute_dtype``)."""
+    ``compute_dtype``).  Beside the widths, K1's bf16 forward needs room for
+    two ring stages beside its operand tiles (``wgmma_stages``): a skip past
+    the first layer with an input much wider than 300 leaves none."""
     if (spec.n_layers > MAX_LAYERS or spec.dims[0] > max_in
             or max(spec.dims[1:-1], default=0) > MAX_WIDTH
             or spec.dims[-1] > MAX_OUT):
         raise ValueError(f"{spec}: the kernels take at most {MAX_LAYERS} "
                          f"layers, an input <= {max_in}, hidden widths <= "
                          f"{MAX_WIDTH} and a last layer <= {MAX_OUT}")
+    if wgmma_stages(spec) < 2:
+        raise ValueError(f"{spec}: a skip past the first layer with an input "
+                         f"{spec.dims[0]} wide leaves K1's bf16 forward no room "
+                         "for two weight stages")
 
 
 def _validate(spec: ChainSpec, x, flat, g=None, max_in=MAX_IN):
@@ -491,6 +501,176 @@ def pack_mma(spec: ChainSpec, flat, transposed: bool = False):
         else:
             out[off:off + rp * cp].view(rp, cp)[:r, :c].copy_(w)
     return out
+
+
+# ------------------------------------------- K1's bf16 forward: wgmma slices
+
+WG_ROWS = 64     # rows of a tile: wgmma's M (WG_ROWS in csrc)
+WG_PAIR = 128    # rows a CTA takes a turn: two tiles (WG_PAIR)
+WG_KS = 64       # depth of a weight slice: one 128-byte swizzled row of bf16
+WG_WIDTHS = (16, 32, 64, 128, 256)   # the wgmma widths the kernel is built for
+WG_STAGE = 32768        # bytes of a ring stage: the widest slice (WG_STAGE)
+WG_SLAB = 8192          # 64 rows x 64 bf16 of an operand tile (WG_SLAB)
+WG_MAXST = 8            # the deepest ring (WG_MAXST)
+WG_MAXSL = 256          # slices of one pass over a chain (WG_MAXSL)
+WG_SMEM_MAX = 232448    # shared memory a block may take on the card
+
+
+def wg_width(w: int) -> int:
+    """The wgmma width at which a column block ``w`` wide is computed."""
+    return next(v for v in WG_WIDTHS if v >= w)
+
+
+def sw128_offset(c, k):
+    """Byte of element (row ``c``, depth ``k``) in a slice: rows of 128
+    bytes (64 bf16), 8-row atoms of 1024 bytes, and in each atom the 16-byte
+    chunk ``k // 8`` of row ``c`` at chunk ``(k // 8) ^ (c % 8)`` (the 128-byte
+    swizzle a wgmma descriptor of layout type 1 reads).  Numpy arrays too."""
+    return ((c >> 3) * 1024 + (c & 7) * 128 + ((((k >> 3) ^ c) & 7) << 4)
+            + (k & 7) * 2)
+
+
+class WgmmaLayout:
+    """The weight pack of K1's bf16 forward (``pack_wgmma``), stated once.
+
+    A layer's columns go in blocks: one of ``wg_width(outp)`` columns for a
+    hidden layer, blocks of 256 (the last one ``wg_width`` of the rest) for
+    the last layer.  For every block, in order, the pack holds the slices of
+    ``W_h`` (depth ``k0`` = 0, 64, ... below the padded depth ``inp``) and
+    then, on a skip, those of ``W_x`` (below ``ep``); a slice holds
+    ``W[k0 + k, c0 + c]`` for ``c`` below the block's width and ``k`` below
+    64 at byte ``sw128_offset(c, k)``, zero outside the matrix.  The slices lie
+    one after another in the order the kernel's products take them, so the
+    kernel walks the pack with one bulk copy a slice.
+
+    ``blocks[l]``: ``(c0, width)`` per block; ``slices``: ``(layer, block,
+    part, k0, offset, bytes)``, part 'h' or 'x', offsets in bytes;
+    ``nbytes``: the pack's size."""
+
+    def __init__(self, spec: ChainSpec):
+        lay = mma_layout(spec)
+        self.ep = lay.ep
+        self.blocks, self.slices, off = [], [], 0
+        for l, (ip, wp, _, pwx, _) in enumerate(lay.layers):
+            if l < spec.n_layers - 1:
+                blocks = [(0, wg_width(wp))]
+            else:
+                blocks = [(c0, wg_width(min(MAX_WIDTH, wp - c0)))
+                          for c0 in range(0, wp, MAX_WIDTH)]
+            self.blocks.append(blocks)
+            for b, (c0, w) in enumerate(blocks):
+                parts = [("h", ip)] + ([("x", self.ep)] if pwx >= 0 else [])
+                for part, depth in parts:
+                    for k0 in range(0, depth, WG_KS):
+                        self.slices.append((l, b, part, k0, off, w * 2 * WG_KS))
+                        off += w * 2 * WG_KS
+        self.nbytes = off
+
+
+@lru_cache(maxsize=None)
+def wgmma_layout(spec: ChainSpec) -> WgmmaLayout:
+    return WgmmaLayout(spec)
+
+
+def _wgmma_positions(spec: ChainSpec):
+    """Per flat weight [rows, columns], the bf16 element of the pack that
+    holds each of its entries (int64 numpy)."""
+    lay = wgmma_layout(spec)
+    starts = _layer_starts(spec)
+    pos = [np.empty(s, np.int64) for s in flat_weight_shapes(spec)]
+    for l, b, part, k0, off, nbytes in lay.slices:
+        slot = starts[l] + (1 if part == "x" else 0)
+        rows, cols = pos[slot].shape
+        c0, w = lay.blocks[l][b]
+        k = np.arange(k0, min(rows, k0 + WG_KS))[:, None]
+        c = np.arange(c0, min(cols, c0 + w))[None, :]
+        pos[slot][k, c] = (off + sw128_offset(c - c0, k - k0)) // 2
+    return pos
+
+
+@lru_cache(maxsize=64)
+def _wgmma_index(spec: ChainSpec, device):
+    """Where each bf16 element of ``pack_wgmma``'s buffer comes from: an
+    index into the flat weights concatenated, one past their end (a zero)
+    for every pad.  It depends on the chain alone: built once, kept on the
+    device."""
+    pos = _wgmma_positions(spec)
+    wsum = sum(p.size for p in pos)
+    idx = np.full(wgmma_layout(spec).nbytes // 2, wsum, np.int64)
+    idx[np.concatenate([p.reshape(-1) for p in pos])] = np.arange(wsum)
+    return torch.as_tensor(idx, device=device)
+
+
+def pack_wgmma(spec: ChainSpec, flat):
+    """K1's bf16 weight pack (``WgmmaLayout``): every weight rounded to real
+    ``torch.bfloat16`` (round to nearest even, as ``pack_mma``) and laid in
+    its slices.  One cast and one gather."""
+    ws = flat[:n_weights(spec)]
+    dev = ws[0].device
+    w = torch.cat([t.reshape(-1).to(torch.float32) for t in ws]
+                  + [torch.zeros(1, device=dev)]).to(torch.bfloat16)
+    return w[_wgmma_index(spec, dev)]
+
+
+def unpack_wgmma(spec: ChainSpec, buf):
+    """Per flat weight, its [rows, columns] entries read back from a
+    ``pack_wgmma`` buffer: the inverse of the pack."""
+    return [buf[torch.as_tensor(p, device=buf.device)] for p in _wgmma_positions(spec)]
+
+
+def wgmma_grid(n: int, sms: int) -> int:
+    """CTAs of K1's bf16 forward over ``n`` rows: one an SM, at most one a
+    128-row tile pair."""
+    return max(1, min(sms, -(-n // WG_PAIR)))
+
+
+def tile_walk(n: int, grid: int):
+    """The rows each tile takes, as the kernel walks them: ``[(cta, tile,
+    turn, first row, end row)]``, rows clipped to ``n`` (a tile's two
+    warpgroups take half its columns each).  Turn k of CTA b takes tile pair
+    b + k * grid."""
+    pairs = -(-n // WG_PAIR)
+    out = []
+    for cta in range(grid):
+        for k in range(-(-(pairs - cta) // grid)):
+            for wg in range(2):
+                r0 = (cta + k * grid) * WG_PAIR + wg * WG_ROWS
+                out.append((cta, wg, k, min(r0, n), min(r0 + WG_ROWS, n)))
+    return out
+
+
+def wgmma_plan(spec: ChainSpec, n: int, sms: int):
+    """The ints ``nunerf_chain_fwd`` takes on the bf16 route: the grid, the
+    number of slices, per layer the widths of its two column blocks (0:
+    none), and the bytes of every slice, which the kernel hands to the full
+    barrier as it starts the slice's copy."""
+    lay = wgmma_layout(spec)
+    widths = []
+    for blocks in lay.blocks:
+        widths += [w for _, w in blocks] + [0] * (2 - len(blocks))
+    return ([wgmma_grid(n, sms), len(lay.slices)] + widths
+            + [nbytes for *_, nbytes in lay.slices])
+
+
+def wgmma_stages(spec: ChainSpec) -> int:
+    """Ring stages K1's bf16 forward has room for (``build_wg_plan``): the
+    shared memory a block may take less the two tiles' operand tiles
+    (x0's and the activations' in 64-wide slabs of 8 KB, one tile where no
+    layer past the first reads x0), the biases (each layer's as wide as its
+    blocks) and the ring's bookkeeping, at most ``WG_MAXST``.  Below 2 the kernel
+    cannot take the chain."""
+    lay = wgmma_layout(spec)
+    xs = -(-lay.ep // 64)
+    hs = -(-max([blocks[0][1] for blocks in lay.blocks[:-1]], default=0) // 64)
+    tile = WG_SLAB * (max(xs, hs) if not any(spec.has_skip[1:]) else xs + hs)
+    bwsum = sum(w for blocks in lay.blocks for _, w in blocks)
+    fixed = 1024 + 2 * tile + 4 * bwsum + 12 * WG_MAXST + 8 * WG_MAXSL
+    return min(WG_MAXST, (WG_SMEM_MAX - fixed) // WG_STAGE)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_bf16(w):
@@ -587,15 +767,24 @@ def _ptr(t):
 
 
 def _fwd_launch(lib, spec, x, W, B, out, stash):
-    """The K1 loop.  ``W``: ``_pack`` (f32 route) or ``pack_mma`` (bf16
+    """The K1 loop.  ``W``: ``_pack`` (f32 route) or ``pack_wgmma`` (bf16
     route); ``stash`` likewise f32 in ``_layout``'s columns, or bf16 in
     ``MmaLayout``'s and without the last layer."""
     meta, scales = _c_meta(spec)
+    plan, nplan = None, 0
+    if _is_mma(spec):
+        ints = wgmma_plan(spec, x.shape[0], _sm_count(x.device.index or 0))
+        plan, nplan = (ctypes.c_int * len(ints))(*ints), len(ints)
     err = lib.nunerf_chain_fwd(
         x.data_ptr(), W.data_ptr(), B.data_ptr(), out.data_ptr(), _ptr(stash),
         x.shape[0], meta, scales, spec.n_layers, spec.dims[0],
-        int(_is_mma(spec)), _stream())
+        int(_is_mma(spec)), plan, nplan, _stream())
     _check(lib, err, "chain_fwd")
+
+
+def _fwd_pack(spec: ChainSpec, flat):
+    """The forward's weights in the route's packing."""
+    return pack_wgmma(spec, flat) if _is_mma(spec) else _pack(spec, flat)
 
 
 def chain_fwd_cuda(spec: ChainSpec, x, flat):
@@ -607,8 +796,7 @@ def chain_fwd_cuda(spec: ChainSpec, x, flat):
     if n == 0:
         return out
     lib = _lib()
-    W = pack_mma(spec, flat) if _is_mma(spec) else _pack(spec, flat)
-    _fwd_launch(lib, spec, x, W, _pack_biases(spec, flat), out, None)
+    _fwd_launch(lib, spec, x, _fwd_pack(spec, flat), _pack_biases(spec, flat), out, None)
     launches["chain_fwd"] += 1
     return out
 
@@ -629,7 +817,7 @@ def chain_hidden_cuda(spec: ChainSpec, x, flat):
     if _is_mma(spec):
         lay = mma_layout(spec)
         stash = torch.empty(n * lay.psum_hidden, dtype=torch.bfloat16, device=x.device)
-        _fwd_launch(lib, spec, x, pack_mma(spec, flat), B, out, stash)
+        _fwd_launch(lib, spec, x, pack_wgmma(spec, flat), B, out, stash)
         hidden = [stash[n * base:n * (base + wp)].view(n, wp)[:, :spec.dims[l + 1]].float()
                   for l, (_, wp, _, _, base) in enumerate(lay.layers[:-1])]
     else:
@@ -799,7 +987,7 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat, keep: dict = None):
         bf = dict(dtype=torch.bfloat16, device=dev)
         stash = torch.empty(n * lay.psum_hidden, **bf)
         gzs = torch.empty(n * lay.psum, **bf)
-        _fwd_launch(lib, spec, x, pack_mma(spec, flat), B, out, stash)
+        _fwd_launch(lib, spec, x, pack_wgmma(spec, flat), B, out, stash)
         _bwd_data_launch(lib, spec, n, stash, pack_mma_split(spec, flat), g, dx,
                          gzs, None, dbp, ylast=out)
         dw = _dw_grouped(lib, spec, n, {"x0": _pad_bf16(x, lay.ep), "h": stash,
@@ -940,11 +1128,12 @@ def _jac_down_launch(lib, spec, n, stash, WT, flat, j, qst):
     _check(lib, err, "chain_jac_down")
 
 
-def _jac_packs(spec: ChainSpec, flat):
-    """(W, WT) of the rounded weights for K4/K5, in the route's packing."""
+def _jac_wt(spec: ChainSpec, flat):
+    """The rounded weights' transposes for the J-pass and K5's data pass, in
+    the route's packing."""
     if _is_mma(spec):
-        return pack_mma(spec, flat), pack_mma(spec, flat, transposed=True)
-    return _pack(spec, flat), _pack(spec, flat, transposed=True)
+        return pack_mma(spec, flat, transposed=True)
+    return _pack(spec, flat, transposed=True)
 
 
 def chain_jac_fwd_cuda(spec: ChainSpec, x, flat):
@@ -963,7 +1152,7 @@ def chain_jac_fwd_cuda(spec: ChainSpec, x, flat):
         return y, j
     lib = _lib()
     B = _pack_biases(spec, flat)
-    W, WT = _jac_packs(spec, flat)
+    W, WT = _fwd_pack(spec, flat), _jac_wt(spec, flat)
     rows = min(n, JAC_CHUNK_ROWS)
     if _is_mma(spec):
         stash = torch.empty(rows * mma_layout(spec).psum_hidden,
@@ -1024,7 +1213,7 @@ def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
     _, _, wsum = _layout(spec)
     starts = _layer_starts(spec)
     B = _pack_biases(spec, flat)
-    W, WT = _jac_packs(spec, flat)
+    Wf, W, WT = pack_wgmma(spec, flat), pack_mma(spec, flat), _jac_wt(spec, flat)
     wtop = spec.dims[-2]
     rows = min(n, JAC_CHUNK_ROWS)
     hst, pst, qbs = (torch.empty(rows * lay.psum_hidden, **bf) for _ in range(3))
@@ -1044,7 +1233,7 @@ def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
         n_blocks = -(-nc // ROWS_PER_BLOCK)
         colp = torch.empty((n_blocks, wtop + e), **f32)
         dbp = torch.empty((n_blocks, wsum), **f32)
-        _fwd_launch(lib, spec, x[c0:c1], W, B, y, hst)
+        _fwd_launch(lib, spec, x[c0:c1], Wf, B, y, hst)
         _jac_down_launch(lib, spec, nc, hst, WT, flat, j, qst)
         err = lib.nunerf_chain_jac_up(
             hst.data_ptr(), qst.data_ptr(), W.data_ptr(), gj[c0:c1].data_ptr(),
@@ -1077,7 +1266,7 @@ def _jac_bwd_f32(lib, spec, x, gy, gj, flat):
     dbs = [torch.zeros((1, d), **f32) for d in spec.dims[1:]]
     dx = torch.empty((n, e), **f32)
     B = _pack_biases(spec, flat)
-    W, WT = _jac_packs(spec, flat)
+    W, WT = _pack(spec, flat), _jac_wt(spec, flat)
     _, _, wsum = _layout(spec)
     starts = _layer_starts(spec)
     wtop = spec.dims[-2]

@@ -44,6 +44,10 @@ SPECS = {
     # the value-only SDF chain: the last layer sliced to its first column
     "sdf_value": ((39, 256, 217, 256, 1), ("softplus100",) * 3 + ("none",),
                   (False, False, True, False), (1.0, 1.0, 1 / math.sqrt(2), 1.0)),
+    # the same at full depth, as the sweeps and the extraction run it
+    "sdf_value_full": ((39, 256, 256, 256, 217, 256, 256, 256, 256, 1),
+                       ("softplus100",) * 8 + ("none",), (False,) * 4 + (True,) + (False,) * 4,
+                       (1.0,) * 4 + (1 / math.sqrt(2),) + (1.0,) * 4),
     # a skip on layer 1 and on the last layer, a relu among the activations
     "jac_skips": ((20, 64, 64, 64, 5), ("softplus100", "relu", "softplus100", "none"),
                   (False, True, False, True), (1.0, 0.5, 1.0, 0.7)),
@@ -175,6 +179,58 @@ def test_k2_split_probe_gives_the_f32_weights(cuda, k, m):
     torch.cuda.synchronize()
     units = fm.split_probe_units(g, flat, dx)
     assert units <= 1.0, f"dx off by {units:.0f} units of the last place"
+
+
+# rows the main path gives K1: the legs' 512 rays x 16, BENCH_CFG's sweeps
+# and occlusion march of 1024 rays (16 to 128 points a ray), the
+# extraction's chunks of 2^21 points
+K1_MAIN_N = [8192, 16384, 32768, 65536, 131072, 2 ** 21]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K1_MAIN_N)
+def test_k1_at_the_main_paths_shapes(cuda, n):
+    """K1's bf16 forward on the value-only SDF chain at full depth, at the
+    rows the main path gives it (a CTA walks several 128-row tile pairs from
+    65,536 rows on), against the plain chain at the bf16 forward tolerance;
+    one launch, every output finite."""
+    spec, x, _, flat = _make("sdf_value_full", n, "bfloat16", cuda)
+    fm.reset_launches()
+    y = fm.chain_fwd_cuda(spec, x, flat)
+    torch.cuda.synchronize()
+    assert fm.launches["chain_fwd"] == 1
+    assert y.shape == (n, 1) and bool(torch.isfinite(y).all())
+    _assert_close(y, fm.chain_mlp_reference(spec, x, *flat), TOL[("fwd", "bfloat16")],
+                  f"K1 N={n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("sdf_value_full", 70000), ("sdf", 70000),
+                                    ("relu259", 70000)])
+def test_k1_is_the_same_from_run_to_run(cuda, name, n):
+    """A CTA takes its tile pairs in a fixed order and every sum's order is
+    fixed: two runs of K1's bf16 forward (with its stash: pass 1 of K2, K4
+    and K5) give equal bits, over more rows than one turn of the grid."""
+    spec, x, _, flat = _make(name, n, "bfloat16", cuda)
+    runs = [fm.chain_hidden_cuda(spec, x, flat) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k2_is_the_same_from_run_to_run_over_many_tile_pairs(cuda):
+    """K2's bf16 result over more rows than one turn of K1's grid (pass 1
+    is K1's forward): two runs give equal bits."""
+    spec, x, g, flat = _make("sdf_value_full", 70000, "bfloat16", cuda)
+    runs = []
+    for _ in range(2):
+        dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
+        torch.cuda.synchronize()
+        runs.append((dx,) + dflat)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -9,14 +9,19 @@ whole call (packing, padding and the sums of partials included) and, from
 
 With ``--variants``: builds ``csrc/fused_mlp.cu`` with one piece of the
 tensor-core route compiled out at a time by the source's ``-DPROF_NO_*``
-switches (the ``mma.sync``, the ``cp.async`` weight staging, the epilogues'
-activation math, the ``ldmatrix`` loads, the L2 prefetch of the epilogues'
-inputs; such a build computes nothing right and is only timed), and with other
-pipeline shapes (``-DKS`` rows a weight slice, ``-DNSTAGE`` stages), one
-``nvcc`` each, all started together, into
+switches (such a build computes nothing right and is only timed), and with
+other pipeline shapes, one ``nvcc`` each, all started together, into
 ``nunerf_tpu_torch/build/variants/``; then times K1, K4, K5 and K2 through each.
-What a piece costs is the base time less the time without it; if the pieces'
-costs add up to the whole, nothing overlaps.
+K1's forward (``chain_fwd_wgmma_kernel``, also pass 1 of K2, K4 and K5): its
+``wgmma`` products, its bulk weight copies, the ring's depth
+(``-DWG_MAXST``), and the first two with the activation math (its skeleton:
+loads, stores, barriers).  The ``mma.sync`` passes of K2, K4 and K5:
+the ``mma.sync``, the ``cp.async`` weight staging, the ``ldmatrix`` loads,
+the L2 prefetch of the epilogues' inputs, other pipeline shapes (``-DKS``
+rows a weight slice, ``-DNSTAGE`` stages).  The activation math of every
+epilogue goes with ``-DPROF_NO_ACT``.  What a piece costs is the base time
+less the time without it; if the pieces' costs add up to the whole, nothing
+overlaps.
 
 With ``--split-faults``: builds the source as it is and with a fault planted
 in K2's bf16 data pass (``-DPROF_SPLIT_SKIP``: the ``lo`` or the ``mid`` piece
@@ -49,6 +54,11 @@ HEAD = ((259, 256, 256, 256, 3), ("relu",) * 3 + ("none",), (False,) * 4, (1.0,)
 
 # -D flags of csrc/fused_mlp.cu: a piece compiled out, or another pipeline shape
 VARIANTS = {"base": [],
+            "K1: no wgmma": ["-DPROF_NO_WGMMA"],
+            "K1: no bulk copies": ["-DPROF_NO_BULK"],
+            "K1: ring of 2": ["-DWG_MAXST=2"],
+            "K1: ring of 3": ["-DWG_MAXST=3"],
+            "K1: skeleton": ["-DPROF_NO_WGMMA", "-DPROF_NO_BULK", "-DPROF_NO_ACT"],
             "no mma.sync": ["-DPROF_NO_MMA"],
             "no cp.async": ["-DPROF_NO_CP_ASYNC"],
             "no activation math": ["-DPROF_NO_ACT"],
