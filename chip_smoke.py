@@ -4,7 +4,8 @@
 
 ``--parent DIR`` (DIR holding another tree's ``nunerf_tpu_torch``, for
 instance an unpacked parent commit) also times that tree's K1 at the main
-path's shapes, in turns with this one's.
+path's shapes, and its K2, K4 and K5 whole and by pass at the paths'
+shapes, in turns with this one's.
 
 Phases (any failure exits non-zero):
   1. device: CUDA required; prints the card's name and power limit; TF32 off
@@ -18,7 +19,12 @@ Phases (any failure exits non-zero):
      bound; K1's bf16 forward also at every row count the main path gives
      it (8,192 to 2^21: kernel, wrapper and pack times, bound and share);
      K1/K2 also at a shading head's shape (259 inputs) and at the
-     NeRF++ trunk's, beside the plain modules; K1, K2, K4 and K5 at the shapes
+     NeRF++ trunk's, beside the plain modules; K2 at every chain and row
+     count the stage-1 paths give it held to its plain version, and there
+     and K4 and K5 at the full SDF chain's 131,072 rows, timed whole call,
+     host time and each pass beside the pass's floor (and the dW's
+     ``torch.mm`` yardstick), in processes of their own; K1, K2, K4
+     and K5 at the shapes
      that can break a tiled MMA (N = 1, 63, 65, 1000; inputs of 39, 84, 131,
      259 and 512; the 217-deep layer; last layers of 1, 3, 64 and 257 with
      no activation, a relu or a softplus), f32 and bf16; K2's bf16 data pass
@@ -203,11 +209,13 @@ SMALL_SHELL_CFG = dict(SHELL_CFG, stage1_cfg=SMALL_CFG, n_samples_outer=16,
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
+# K2, K4 and K5: pass 1 is K1's chain_fwd_wgmma_kernel (fused_mlp.cu), the
+# other passes the kernels of chain_bwd_wgmma.cuh (included by fused_mlp.cu)
 SOURCE = {"K1": "nunerf_tpu_torch/csrc/fused_mlp.cu",
-          "K2": "nunerf_tpu_torch/csrc/fused_mlp.cu",
+          "K2": "nunerf_tpu_torch/csrc/chain_bwd_wgmma.cuh",
           "K3": "nunerf_tpu_torch/csrc/ray_intersect.cu",
-          "K4": "nunerf_tpu_torch/csrc/fused_mlp.cu",
-          "K5": "nunerf_tpu_torch/csrc/fused_mlp.cu"}
+          "K4": "nunerf_tpu_torch/csrc/chain_bwd_wgmma.cuh",
+          "K5": "nunerf_tpu_torch/csrc/chain_bwd_wgmma.cuh"}
 REPLACES = {"K1": "nunerf_tpu/ops/fused_mlp.py:168",        # _fwd_kernel
             "K2": "nunerf_tpu/ops/fused_mlp.py:199",        # _make_bwd_kernel
             "K3": "nunerf_tpu/ops/pallas_intersect.py:33",  # _mt_kernel
@@ -406,24 +414,62 @@ def bound_ms(flops, nbytes, dtype):
 # extraction's chunks of 2^21 points
 K1_MAIN_N = (8192, 16384, 32768, 65536, 131072, 2 ** 21)
 
+# The SDF network's chain without its last layer (``fields/sdf.py``
+# ``_sdf_chain``: dims, activations, skips, scales), the shading heads' and
+# the NeRF++ trunk's (``fields/mlp.py`` ``Predictor``, ``fields/nerf.py``)
+SDF_CHAIN = ((39, 256, 256, 256, 217, 256, 256, 256, 256), ("softplus100",) * 8 + ("none",),
+             (False,) * 4 + (True,) + (False,) * 4,
+             (1.0,) * 4 + (1 / math.sqrt(2),) + (1.0,) * 4)
+TRUNK_CHAIN = ((84,) + (256,) * 8, ("relu",) * 8, (False,) * 5 + (True,) + (False,) * 2,
+               (1.0,) * 8)
+
+
+def sdf_chain(out):
+    """``SDF_CHAIN`` with its last layer ``out`` wide (1: the value, 257: the
+    value and the feature)."""
+    return (SDF_CHAIN[0] + (out,),) + SDF_CHAIN[1:]
+
+
+def head_chain(e, o):
+    return (e, 256, 256, 256, o), ("relu",) * 3 + ("none",), (False,) * 4, (1.0,) * 4
+
+
+# K2, K4 and K5 at the paths' shapes: (kernel, what, chain, rows).  K2's are
+# the calls ``tools/prof_chain_kernels.py --paths`` records on the stage-1
+# paths: the init-SDF regulariser's value chain at step 0, path C's NeRF++
+# trunk and shading heads; K4 and K5 run on paths A and B at the full SDF
+# chain's 131,072 rows (K5 in chunks of ``JAC_CHUNK_ROWS``)
+PATH_CASES = (("K2", "sdf value", sdf_chain(1), 65536),
+              ("K2", "trunk", TRUNK_CHAIN, 65536),
+              ("K2", "head 72-3", head_chain(72, 3), 393216),
+              ("K2", "head 111-3", head_chain(111, 3), 262144),
+              ("K2", "head 78-3", head_chain(78, 3), 131072),
+              ("K2", "head 259-1", head_chain(259, 1), 131072),
+              ("K2", "head 72-3", head_chain(72, 3), 1024),
+              ("K4", "sdf full", sdf_chain(257), 131072),
+              ("K5", "sdf full", sdf_chain(257), 131072))
+
+
+def case_key(case):
+    k, what, _, n = case
+    return f"{k} {what} N={n}"
+
+
 # K1's bf16 forward of a parent tree (``--parent DIR``, DIR holding its
-# ``nunerf_tpu_torch``) on the value-only SDF chain from a pre-built pack, in
-# a process of its own: prints {n: ms} as one JSON line
+# ``nunerf_tpu_torch``) on the value-only SDF chain (argv[1], JSON) from a
+# pre-built pack, in a process of its own: prints {n: ms} as one JSON line
 PARENT_K1_TIMER = r"""
 import json, math, sys, torch
 from nunerf_tpu_torch.ops import fused_mlp as fm
-sq2 = 1 / math.sqrt(2)
-spec = fm.ChainSpec((39, 256, 256, 256, 217, 256, 256, 256, 256, 1),
-                    ("softplus100",) * 8 + ("none",), (False,) * 4 + (True,) + (False,) * 4,
-                    (1.0,) * 4 + (sq2,) + (1.0,) * 4, "bfloat16")
+spec = fm.ChainSpec(*[tuple(a) for a in json.loads(sys.argv[1])], "bfloat16")
 dev = torch.device("cuda")
 gen = torch.Generator().manual_seed(0)
 flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev) for s in fm.flat_weight_shapes(spec)]
 flat += [(torch.randn((1, d), generator=gen) * 0.1).to(dev) for d in spec.dims[1:]]
 lib = fm._lib()
-W, B = fm.pack_mma(spec, flat), fm._pack_biases(spec, flat)
+W, B = fm._fwd_pack(spec, flat), fm._pack_biases(spec, flat)
 res = {}
-for n in [int(a) for a in sys.argv[1:]]:
+for n in [int(a) for a in sys.argv[2:]]:
     x = (torch.rand((n, 39), generator=gen) * 2 - 1).to(dev)
     out = torch.empty((n, 1), device=dev)
     fn = lambda: fm._fwd_launch(lib, spec, x, W, B, out, None)
@@ -446,12 +492,320 @@ def parent_k1_ms(parent):
     in the child's time, not in the numbers)."""
     import os
     # from inside the tree: ``-c`` puts the working directory first on the path
-    res = subprocess.run([sys.executable, "-c", PARENT_K1_TIMER, *map(str, K1_MAIN_N)],
+    res = subprocess.run([sys.executable, "-c", PARENT_K1_TIMER, json.dumps(sdf_chain(1)),
+                          *map(str, K1_MAIN_N)],
                          cwd=os.path.abspath(parent), capture_output=True, text=True,
                          timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"the parent's K1 failed:\n{res.stderr[-3000:]}")
     return {int(k): v for k, v in json.loads(res.stdout.strip().splitlines()[-1]).items()}
+
+
+# K2, K4 and K5 at the cases of argv[1] (JSON of ``PATH_CASES``), in a
+# process of its own from a tree's directory: prints one JSON line {case:
+# {"ms": call ms (CUDA events), "host_ms": host ms of a call (the stream
+# drained before it), "kernels": {kernel: device ms} (torch.profiler),
+# "profile_tries", "host_fns": {function: host ms} (cProfile's own time,
+# calls of up to 4,096 rows)}}.  The profiler can lose kernel events: every kernel's count over
+# the timed calls must be their number times its count in one call, else
+# both are taken again, at most three times, and then the run fails.
+CHAIN_TIMER = r"""
+import cProfile, json, math, pstats, sys, time, torch
+from torch.profiler import ProfilerActivity, profile
+from nunerf_tpu_torch.ops import fused_mlp as fm
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(0)
+def events_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+def host_ms(fn, reps):
+    t = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+def profiled(fn, reps):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "chain_" in e.key and e.device_time_total > 0:
+            name = e.key.replace("void ", "").split("(")[0]
+            c, t = out.get(name, (0, 0.0))
+            out[name] = (c + e.count, t + e.device_time_total / 1e3 / reps)
+    return out
+def kernel_ms(fn, reps, what):
+    for tries in range(1, 4):
+        one, got = profiled(fn, 1), profiled(fn, reps)
+        if one and {k: c * reps for k, (c, _) in one.items()} == {k: c for k, (c, _) in got.items()}:
+            return {k: t for k, (_, t) in got.items()}, tries
+        print(f"{what}: kernel events lost ({one} a call, {got} over {reps}), again",
+              file=sys.stderr)
+    raise SystemExit(f"{what}: the profiler lost kernel events in three tries")
+def host_fns(fn, reps):
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    pr.disable()
+    top = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][2])[:12]
+    return {f"{f[2]} ({f[0].rsplit('/', 1)[-1]}:{f[1]})": s[2] / reps * 1e3 for f, s in top}
+res = {}
+for k, what, chain, n in json.loads(sys.argv[1]):
+    dims, acts, skip, scales = (tuple(a) for a in chain)
+    spec = fm.ChainSpec(dims, acts, skip, scales, "bfloat16")
+    flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev)
+            for s in fm.flat_weight_shapes(spec)]
+    flat += [(torch.randn((1, d), generator=gen) * 0.1).to(dev) for d in dims[1:]]
+    x = (torch.randn((n, dims[0]), generator=gen) * 0.5).to(dev)
+    gy = torch.randn((n, dims[-1]), generator=gen).to(dev)
+    gj = torch.randn((n, dims[0]), generator=gen).to(dev)
+    fn = {"K2": lambda: fm.chain_bwd_cuda(spec, x, gy, flat),
+          "K4": lambda: fm.chain_jac_fwd_cuda(spec, x, flat),
+          "K5": lambda: fm.chain_jac_bwd_cuda(spec, x, gy, gj, flat)}[k]
+    reps = 5 if n >= 65536 else 20
+    key = f"{k} {what} N={n}"
+    kern, tries = kernel_ms(fn, reps, key)
+    res[key] = {"ms": events_ms(fn, reps), "host_ms": host_ms(fn, reps), "kernels": kern,
+                "profile_tries": tries}
+    if n <= 4096:
+        res[key]["host_fns"] = host_fns(fn, reps)
+print(json.dumps(res))
+"""
+
+# the passes of K2, K4 and K5 by their device kernels (chain_bwd_wgmma_kernel's
+# first template argument: BW_DATA 0, BW_JDOWN 1, BW_JUP 2); the parent's
+# mma.sync kernels for ``--parent`` runs on a tree that still has them
+PASS_OF = {"chain_fwd_wgmma_kernel": "pass 1 (forward, h stash)",
+           "chain_bwd_wgmma_kernel<0": "data pass", "chain_bwd_wgmma_kernel<1": "J-pass",
+           "chain_bwd_wgmma_kernel<2": "reverse J-pass", "chain_dw_wgmma_kernel": "dW",
+           "chain_bwd_data_mma_kernel": "data pass", "chain_jac_down_mma_kernel": "J-pass",
+           "chain_jac_up_mma_kernel": "reverse J-pass", "chain_dw_mma_kernel": "dW"}
+
+
+def by_pass(kernels):
+    """{pass: device ms} of a CHAIN_TIMER entry's kernels."""
+    out = {}
+    for name, ms in kernels.items():
+        p = next((v for k, v in PASS_OF.items() if name.startswith(k)), name)
+        out[p] = out.get(p, 0.0) + ms
+    return out
+
+
+def chain_timer(tree, cases=PATH_CASES):
+    """CHAIN_TIMER on ``cases`` run from ``tree``'s directory (its build
+    included in the child's time, not in the numbers)."""
+    import os
+    res = subprocess.run([sys.executable, "-c", CHAIN_TIMER, json.dumps(cases)],
+                         cwd=os.path.abspath(tree), capture_output=True, text=True,
+                         timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"the chain timer failed in {tree}:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def pass_floors(spec, n, kind):
+    """{pass: least ms} of K2's (``kind`` "K2") or K5's passes over ``n``
+    rows, and K4's: each the larger of its products at the bf16 peak and its
+    own bytes at the card's memory rate, every array it reads read once and
+    every array it writes written once (the stashes in the bf16 route's
+    padded layout: h, p, qbar, zs bf16; q, dbar f32).  K2's data pass forms
+    three products a weight (the split of the f32 W^T)."""
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    lay = fm.mma_layout(spec)
+    e, out = spec.dims[0], spec.dims[-1]
+    hid, allp, ep = n * lay.psum_hidden, n * lay.psum, n * lay.ep
+    f = fm.chain_flops(spec, n)
+    fj = jac_flops(spec, n) - f
+    w = 2 * sum(a * b for a, b in fm.flat_weight_shapes(spec))
+
+    def ms(flops, nbytes):
+        return bound_ms(flops, nbytes + w, "bfloat16")[0]
+    fwd = ms(f, 4 * n * (e + out) + 2 * hid)
+    if kind == "K2":
+        return {"pass 1 (forward, h stash)": fwd,
+                "data pass": ms(3 * f, 4 * n * (2 * out + e) + 2 * hid + 2 * allp),
+                "dW": ms(f, 2 * (ep + hid + allp) + 2 * w)}
+    jd = ms(fj, 2 * hid + 4 * hid + 4 * n * e)
+    if kind == "K4":
+        return {"pass 1 (forward, h stash)": fwd, "J-pass": jd}
+    return {"pass 1 (forward, h stash)": fwd, "J-pass": jd,
+            "reverse J-pass": ms(fj, 4 * n * e + 2 * hid + 4 * hid + 4 * hid + 2 * hid + 2 * hid),
+            "data pass": ms(f, 4 * n * (out + e) + 2 * hid + 4 * hid + 2 * allp),
+            "dW": ms(f + fj, 2 * (2 * ep + hid + allp + 2 * hid) + 2 * w)}
+
+
+def dw_library_ms(fm, spec, chunks, jac, dev):
+    """The dW's library yardstick: ``torch.mm`` of its own bf16 operands
+    (the stashes' layers, transposed times the zs layer, and K5's second
+    term) with f32 output, one call a weight, over every chunk of rows in
+    ``chunks`` (K5: two of ``JAC_CHUNK_ROWS``), each chunk's operands its
+    own."""
+    lay = fm.mma_layout(spec)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pairs = []
+    for n in chunks:
+        ops = {("x0", None): torch.randn((n, lay.ep), generator=gen, device=dev).bfloat16(),
+               ("gj", None): torch.randn((n, lay.ep), generator=gen, device=dev).bfloat16()}
+        for l, (_, wp, _, _, _) in enumerate(lay.layers):
+            for name in ("h", "zs", "qbar", "p"):
+                ops[(name, l)] = torch.randn((n, wp), generator=gen, device=dev).bfloat16()
+        for l, (_, _, _, pwx, _) in enumerate(lay.layers):
+            second = jac and l < spec.n_layers - 1
+            srcs = [(("x0", None) if l == 0 else ("h", l - 1),
+                     ("gj", None) if l == 0 else ("qbar", l - 1))]
+            if pwx >= 0:
+                srcs.append((("x0", None), ("gj", None)))
+            for a1, a2 in srcs:
+                pairs.append((ops[a1], ops[("zs", l)]))
+                if second:
+                    pairs.append((ops[a2], ops[("p", l)]))
+
+    def run():
+        for a, b in pairs:
+            torch.mm(a.t(), b, out_dtype=torch.float32)
+    return cuda_ms(run, 5)
+
+
+def case_inputs(fm, chain, n, dev, gen):
+    """A bf16 chain of ``PATH_CASES`` with weights, biases, inputs and a
+    cotangent from ``gen``, made as ``CHAIN_TIMER`` makes them."""
+    spec = fm.ChainSpec(*chain, compute_dtype="bfloat16")
+    flat = [(torch.randn(s, generator=gen) / math.sqrt(s[0])).to(dev)
+            for s in fm.flat_weight_shapes(spec)]
+    flat += [(torch.randn((1, d), generator=gen) * 0.1).to(dev) for d in spec.dims[1:]]
+    x = (torch.randn((n, spec.dims[0]), generator=gen) * 0.5).to(dev)
+    g = torch.randn((n, spec.dims[-1]), generator=gen).to(dev)
+    return spec, flat, x, g
+
+
+def phase_path_checks(dev):
+    """K2 at every shape of ``PATH_CASES`` held to its plain version: dx and
+    every weight and bias gradient to autograd through the plain chain at
+    the kernel's own relu gates (``chain_errs``, ``CHAIN_TOL``, no stray row),
+    and its data pass to f32 products of its own stashes
+    (``data_pass_check``).  K4 and K5 at their shape: ``phase_kernels_jac``.
+    Returns {case: errors}."""
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    t_f, t_b = CHAIN_TOL[("fwd", "bfloat16")], CHAIN_TOL[("bwd", "bfloat16")]
+    out, failed = {}, []
+    for case in PATH_CASES:
+        k, _, chain, n = case
+        if k != "K2":
+            continue
+        spec, flat, x, g = case_inputs(fm, chain, n, dev, gen)
+        y = fm.chain_fwd_cuda(spec, x, flat)
+        dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat)
+        torch.cuda.synchronize()
+        e = chain_errs(fm, spec, x, g, flat, (y, dx, dflat), t_b)
+        e_f = max(e["fwd"], e["hidden"])
+        dx_err, ulps = data_pass_check(fm, spec, x, g, flat, case_key(case))
+        ok = e_f <= t_f and e["bwd"] <= t_b and e["stray_rows"] == 0
+        out[case_key(case)] = dict(fwd_rel_err=e_f, bwd_rel_err=e["bwd"],
+                                   flipped_rows=e["flipped_rows"],
+                                   data_pass_dx_err=dx_err, data_pass_gz_ulps=ulps)
+        log(f"{case_key(case)} {spec.dims} bf16: rel err y and hidden {e_f:.2e} (tol "
+            f"{t_f:.0e}); dx and weight gradients at the kernel's gates {e['bwd']:.2e} "
+            f"(tol {t_b:.0e}); a gate differs in {e['flipped_rows']} rows, "
+            f"{e['stray_rows']} outlier rows without one; data pass dx {dx_err:.2e} (tol "
+            f"1e-5), gz within {ulps:.2f} bf16 units (tol 1) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(case_key(case))
+        del y, dx, dflat, x, g, flat
+    if failed:
+        raise AssertionError(f"K2 disagrees with the plain chain at {failed}")
+    return out
+
+
+# the small call whose host time the parent's is held to, in alternating
+# pairs beyond the main turns
+HOST_CASE = ("K2", "head 72-3", head_chain(72, 3), 1024)
+HOST_PAIRS = 4
+
+
+def phase_chain_passes(dev, parent=None):
+    """K2, K4 and K5 at the paths' shapes (``CHAIN_TIMER`` on ``PATH_CASES``),
+    whole call, host time and each pass, beside each pass's floor
+    (``pass_floors``); with ``parent`` the parent tree's kernels timed in
+    turns with this tree's (parent, this, this, parent), and the host time
+    of ``HOST_CASE`` in ``HOST_PAIRS`` alternating pairs; else this tree's
+    once; the dW's ``torch.mm`` yardstick (``dw_library_ms``)."""
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    if parent:
+        runs = [chain_timer(parent), chain_timer("."), chain_timer("."), chain_timer(parent)]
+        here = runs[1:3]
+        host = {"this": [r[case_key(HOST_CASE)]["host_ms"] for r in here],
+                "parent": [runs[i][case_key(HOST_CASE)]["host_ms"] for i in (0, 3)]}
+        for i in range(HOST_PAIRS - 2):
+            for tree in ((".", parent) if i % 2 else (parent, ".")):
+                r = chain_timer(tree, [HOST_CASE])[case_key(HOST_CASE)]
+                host["this" if tree == "." else "parent"].append(r["host_ms"])
+        log(f"{case_key(HOST_CASE)} host ms a call in {HOST_PAIRS} alternating pairs: this "
+            + " / ".join(f"{t:.4f}" for t in host["this"]) + "; parent "
+            + " / ".join(f"{t:.4f}" for t in host["parent"]))
+        for what, i in (("this", 1), ("parent", 0)):
+            log(f"{case_key(HOST_CASE)} {what}'s host ms by function (cProfile): "
+                + json.dumps(runs[i][case_key(HOST_CASE)]["host_fns"]))
+    else:
+        here = [chain_timer(".")]
+    value, full = (fm.ChainSpec(*sdf_chain(o), compute_dtype="bfloat16") for o in (1, 257))
+    half = fm.JAC_CHUNK_ROWS
+    lib_ms = {"K2 sdf value N=65536": dw_library_ms(fm, value, [65536], False, dev),
+              "K5 sdf full N=131072": dw_library_ms(fm, full, [half, 131072 - half], True, dev)}
+    floors = {"K2 sdf value N=65536": pass_floors(value, 65536, "K2"),
+              "K4 sdf full N=131072": pass_floors(full, 131072, "K4"),
+              "K5 sdf full N=131072": pass_floors(full, 131072, "K5")}
+    out = {}
+    for case in here[0]:
+        r = dict(ms=[h[case]["ms"] for h in here], host_ms=[h[case]["host_ms"] for h in here],
+                 passes=[by_pass(h[case]["kernels"]) for h in here],
+                 kernels=here[0][case]["kernels"],
+                 profile_tries=[h[case]["profile_tries"] for h in here])
+        if parent:
+            r["parent_ms"] = [runs[i][case]["ms"] for i in (0, 3)]
+            r["parent_host_ms"] = [runs[i][case]["host_ms"] for i in (0, 3)]
+            r["parent_passes"] = [by_pass(runs[i][case]["kernels"]) for i in (0, 3)]
+            r["parent_profile_tries"] = [runs[i][case]["profile_tries"] for i in (0, 3)]
+            if case == case_key(HOST_CASE):
+                r["host_ms_pairs"] = host
+        if case in floors:
+            r["bound_ms"] = floors[case]
+        if case in lib_ms:
+            r["dw_library_ms"] = lib_ms[case]
+        out[case] = r
+        line = (f"{case}: call {' / '.join(f'{t:.4f}' for t in r['ms'])} ms, host "
+                f"{' / '.join(f'{t:.4f}' for t in r['host_ms'])}"
+                + (f" (parent {r['parent_ms'][0]:.4f} / {r['parent_ms'][1]:.4f}, host "
+                   f"{r['parent_host_ms'][0]:.4f} / {r['parent_host_ms'][1]:.4f})"
+                   if parent else ""))
+        for p in r["passes"][0]:
+            line += f"; {p} " + " / ".join(f"{q.get(p, float('nan')):.4f}" for q in r["passes"])
+            if parent:
+                line += (f" (parent {r['parent_passes'][0].get(p, float('nan')):.4f} / "
+                         f"{r['parent_passes'][1].get(p, float('nan')):.4f})")
+            if p in r.get("bound_ms", {}):
+                line += f" floor {r['bound_ms'][p]:.4f}"
+        if "dw_library_ms" in r:
+            line += f"; dW's torch.mm yardstick {r['dw_library_ms']:.4f} ms"
+        tries = r["profile_tries"] + r.get("parent_profile_tries", [])
+        if max(tries) > 1:
+            line += f"; profiled again after lost kernel events: tries {tries}"
+        log(line)
+    return out
 
 
 def k1_main_shapes(fm, spec, flat, inputs, parent=None):
@@ -3251,6 +3605,8 @@ def main():
     renderer = ShapeRenderer(BENCH_CFG, device=dev, seed=0)
     rec = phase_kernels(renderer, dev, parent)
     rec.update(phase_kernels_jac(renderer, dev))
+    path_checks = phase_path_checks(dev)
+    chain_passes = phase_chain_passes(dev, parent)
     phase_kernels_odd(renderer, dev)
     del renderer
     head_shapes = phase_kernels_heads(dev)
@@ -3316,12 +3672,17 @@ def main():
 
     names = {"K1": ("chain_fwd", "chain-MLP forward (fused_chain_mlp fwd; "
                                  "chain_fwd_wgmma_kernel)"),
-             "K2": ("chain_bwd", "chain-MLP backward (fused_chain_mlp VJP)"),
+             "K2": ("chain_bwd", "chain-MLP backward (fused_chain_mlp VJP; "
+                                 "chain_fwd_wgmma_kernel, chain_bwd_wgmma_kernel<BW_DATA, "
+                                 "split>, chain_dw_wgmma_kernel)"),
              "K3": ("closest_hit", "ray/triangle closest hit (ray_mesh_closest_hit)"),
              "K4": ("chain_jac_fwd", "chain-MLP value + Jacobian of channel 0 "
-                                     "(chain_mlp_with_grad0 fwd)"),
+                                     "(chain_mlp_with_grad0 fwd; chain_fwd_wgmma_kernel, "
+                                     "chain_bwd_wgmma_kernel<BW_JDOWN>)"),
              "K5": ("chain_jac_bwd", "backward of K4 from (gy, gj) "
-                                     "(chain_mlp_with_grad0 VJP)")}
+                                     "(chain_mlp_with_grad0 VJP; chain_fwd_wgmma_kernel, "
+                                     "chain_bwd_wgmma_kernel<BW_JDOWN, BW_JUP, BW_DATA>, "
+                                     "chain_dw_wgmma_kernel)")}
     # beside the contract's keys, only numbers this run measured or counted:
     # the bounds of other shapes and other ray counts stay in the log
     # K1 at the extraction sweep's chunk, beside its main shape
@@ -3352,6 +3713,10 @@ def main():
         r = rec[k]
         extra = {x: r[x] for x in measured if x in r}
         by_path = {p: c.get(counter, 0) for p, c in paths.items()}
+        if k in ("K2", "K4", "K5"):
+            extra["by_pass"] = {c: v for c, v in chain_passes.items() if c.startswith(k)}
+        if k == "K2":
+            extra["path_checks"] = path_checks
         if k in ("K1", "K2"):
             extra["other_shapes"] = [
                 {x: h[x] for x in ("shape", "k1_ms", "module_fwd_ms", "k2_ms",

@@ -46,7 +46,7 @@
 //     writing the rounded zs over dbar.  Every dW is then an A^T B over row
 //     splits (chain_dw_kernel): h_prev^T zs and s qbar^T p, a launch each.
 //
-// The bf16 route (round_bf16 == 1): the same passes on tensor-core tiles.
+// The bf16 route (round_bf16 == 1): the same passes on the tensor cores.
 // Every matrix operand is a bf16 value there (the weights rounded once by
 // the wrapper, x0, h, p, zs, qbar and gj rounded where the TPU kernel rounds
 // them), so a tensor-core product with f32 accumulation forms the same
@@ -58,43 +58,27 @@
 //     chain_fwd_wgmma_kernel: persistent, wgmma from shared memory, the
 //     weights streamed once a 128-row tile pair by bulk copies through an
 //     mbarrier ring (its own note says how and why).
-//   * The other passes run mma.sync.m16n8k16 tiles.  Their weights are
-//     packed as real bf16, each matrix and its transpose, zero-padded so
-//     that every depth and width is a multiple of 16 (MmaLayout in
-//     ops/fused_mlp.py): no masks inside a k-step, 16-byte cp.async pieces,
-//     aligned ldmatrix rows.  A block is 64 rows x 8 warps, each warp a
-//     [32, 64] piece of the layer output: 64 f32 accumulators a thread, the
-//     whole layer output in registers before the epilogue runs; weight
-//     slices of 32 rows come from L2 through three cp.async stages, the
-//     next product's first slices started before the epilogue.
+//   * The other passes (K2's and K5's data pass, the J-pass of K4 and K5 and
+//     its reverse) are chain_bwd_wgmma_kernel, the forward's skeleton with a
+//     walk and an epilogue a pass, and every dW of a chunk is one wgmma GEMM
+//     fed by TMA, chain_dw_wgmma_kernel (chain_bwd_wgmma.cuh, whose note says
+//     how and why).
 //   * K4/K5 are bound by the scratch stashes that carry a layer's values
 //     from pass to pass through device memory.  They are stored in the
-//     narrowest exact type: h, p, zs and the stored qbar are bf16-exact and
-//     go as bf16 (padded rows, zero pad columns, so that the dW kernel reads
-//     them as they lie); q and dbar are unrounded and stay f32, which is why
-//     p and zs get stashes of their own here instead of overwriting them.
-//     The J-pass keeps only p in shared memory: q arrives in the
-//     accumulators and is stored and turned into p by the epilogue; the
-//     reverse pass and the data pass work the same way, and take their
-//     column sums (db, the seed's share of the last dW) from the
-//     accumulators by warp shuffles.
-//   * dW: one launch a chunk for every weight of the chain
-//     (chain_dw_mma_kernel), driven by a table of [128, 128] output tiles x
-//     row splits; a block sums both of K5's terms into one set of
-//     accumulators (s qbar^T p first, then the scale, then h_prev^T zs); both
-//     operands are row-major [rows, width] stashes, read by transposed
-//     ldmatrix from 64-row slices staged by cp.async (zero-filled past the
-//     split's end).  Per-split partials and one sum outside, no atomics: the
-//     result is the same from run to run.
+//     narrowest exact type, in the padded layout of MmaLayout
+//     (ops/fused_mlp.py: every width a multiple of 16, zero pad columns, so
+//     that the dW GEMM reads them as they lie): h, p, zs and the stored qbar
+//     are bf16-exact and go as bf16; q and dbar are unrounded and stay f32,
+//     which is why p and zs get stashes of their own instead of overwriting
+//     them.
 //   * K2's data pass multiplies by the UNROUNDED f32 W^T, as the TPU kernel
-//     does.  Each f32 weight is split into three bf16 pieces whose sum is the
-//     weight (mma_gemm_split), so the pass runs on the tensor cores too: three
-//     MMAs a k-step from one A fragment of the rounded gz, one f32
-//     accumulator, the products of the f32 W^T summed in another order.
+//     does, through an exact three-piece bf16 split of each weight
+//     (chain_bwd_wgmma.cuh says why that gives the f32 products).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #define MAXL 16
 #define TR 64    // rows per block (K1 and K2 pass 2)
@@ -591,98 +575,15 @@ chain_jac_up_kernel(const float* __restrict__ stash, float* __restrict__ qst,
 }
 
 // ===================================================================
-// The bf16 route: tensor-core tiles (mma.sync m16n8k16, f32 accumulation)
+// The bf16 route: wgmma on the tensor cores
 // ===================================================================
 //
 // Every operand is a bf16 value, so the products are the ones the f32 FMA
 // loops above would form; only the order of the f32 sums differs.
 
-// Switches for timing alone, set with -D by tools/prof_chain_kernels.py
-// --variants and by nothing else (K1's forward has switches of its own, in
-// its note): KS and NSTAGE give another pipeline shape;
-// PROF_NO_MMA, PROF_NO_CP_ASYNC, PROF_NO_LDMATRIX, PROF_NO_ACT and
-// PROF_NO_PREFETCH each compile one piece of this route out (such a build
-// computes nothing right: what the piece costs is the time that goes with it);
-// PROF_SPLIT_UNROLLED unrolls K2's split gemm over its three pieces,
-// NSTAGE3 gives that gemm another number of stages, and PROF_DX_GLOBAL sends
-// the data passes' dx to device memory from the accumulators.  One switch
-// plants a fault instead, for tools/prof_chain_kernels.py --split-faults
-// alone: PROF_SPLIT_SKIP=p leaves piece p of K2's split out (2: lo, 1: mid),
-// to show which checks see it.
-#ifndef KS
-#define KS 32            // depth of a staged weight slice
-#endif
-#define AS (MAXW + 8)    // row stride (bf16) of an activation tile: 528 bytes,
-                         // so the 8 rows of an ldmatrix hit 8 different
-                         // 16-byte bank groups
-#define WSS (MAXW + 8)   // row stride of a staged weight slice
-#define WSTAGE (KS * WSS)
-#ifndef NSTAGE
-#define NSTAGE 3         // weight stages: NSTAGE - 1 slices in flight behind the one at work
-#endif
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-
-// 16 bytes global -> shared without passing through registers; with
-// bytes == 0 the destination is filled with zeros and src is not read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-#ifndef PROF_NO_CP_ASYNC
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-#endif
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most the N newest groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-#ifndef PROF_NO_LDMATRIX
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-#endif
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-#ifndef PROF_NO_LDMATRIX
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-#endif
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-#ifndef PROF_NO_MMA
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-#endif
-}
-
-// The block's 8 warps tile a [64, 256] product as 2 x 4 warps of [32, 64]:
-// a warp owns 2 m-tiles x 8 n-tiles of m16n8, 64 f32 accumulators a thread.
-// Accumulator e of tile (mi, ni) sits at
-//   row 32 wr + 16 mi + 8 (e >> 1) + lane / 4,
-//   column 64 wc + 8 ni + 2 (lane % 4) + (e & 1).
-typedef float Acc[2][8][4];
 
 // The epilogues' activation math.  Every value they produce is rounded to
 // bf16 (relative 4e-3) or multiplied into a sum that is, so they evaluate the
@@ -714,338 +615,6 @@ __device__ __forceinline__ float dact_mma(int a_kind, float a) {
   if (a_kind == ACT_RELU) return a > 0.f ? 1.f : 0.f;
   if (a_kind == ACT_SP100) return 1.f - exp2f(-144.26950408889634f * a);
   return 1.f;
-}
-
-// Ask L2 for the rows [row0, row0 + 64) (those below n) of a stash layer
-// whose rows are row_bytes long, a 128-byte line a request: the epilogue
-// that reads them runs after a whole matrix product, and finds them there.
-__device__ __forceinline__ void prefetch_rows(const void* base, long row0,
-                                              int n, int row_bytes, int t) {
-  const int lpr = (row_bytes + 127) >> 7;
-  const char* p = reinterpret_cast<const char*>(base);
-  for (int idx = t; idx < TR * lpr; idx += NT) {
-    const int r = idx / lpr, c = idx - r * lpr;
-#ifndef PROF_NO_PREFETCH
-    if (row0 + r < n)
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
-          p + (size_t)(row0 + r) * row_bytes + c * 128));
-#endif
-  }
-}
-
-__device__ __forceinline__ void zero_acc(Acc& acc) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-struct WarpPos {
-  int wr, wc, g, t2;  // warp row and column, lane / 4, 2 (lane % 4)
-  __device__ WarpPos(int t) {
-    const int warp = t >> 5, lane = t & 31;
-    wr = warp >> 2; wc = warp & 3; g = lane >> 2; t2 = 2 * (lane & 3);
-  }
-  // n-tiles of this warp inside ncols columns (a multiple of 16), <= 0: none
-  __device__ int ntiles(int ncols) const {
-    const int nt = (ncols - 64 * wc) >> 3;
-    return nt > 8 ? 8 : nt;
-  }
-  __device__ int row(int mi, int half) const {
-    return 32 * wr + 16 * mi + 8 * half + g;
-  }
-  __device__ int col(int ni) const { return 64 * wc + 8 * ni + t2; }
-};
-
-template <int ROWS = KS>
-__device__ __forceinline__ void stage_slice(bf16* ws,
-                                            const bf16* __restrict__ B,
-                                            int ldb, int k0, int krows,
-                                            int ncols, int t) {
-  // thread t copies the 16-byte piece t % 32 of rows t / 32, + 8, + 16, ...
-  // (a row has at most 32 pieces): no division, at most ROWS / 8 copies
-  const int c = t & 31;
-  if (c < (ncols >> 3)) {
-    const bf16* src = B + (size_t)k0 * ldb + c * 8;
-    bf16* dst = ws + c * 8;
-#pragma unroll
-    for (int r = t >> 5; r < ROWS; r += NT / 32)
-      if (r < krows) cp_async16(dst + r * WSS, src + (size_t)r * ldb, 16);
-  }
-  cp_async_commit();
-}
-
-// The B operand of a product: bf16 in global memory, [Kp, ncols] at row
-// stride ldb (padded: Kp, ncols and ldb are multiples of 16, ncols <= 256).
-struct GemmB {
-  const bf16* B;
-  int ldb, Kp, ncols;
-};
-
-// Start a product's first two weight slices on their way.  The caller has
-// passed a barrier since the last product's tensor-core work, so the stages
-// are free; it may run an epilogue while the slices travel.
-__device__ __forceinline__ void gemm_head(const GemmB& b, bf16* ws, int t) {
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    const int rest = b.Kp - s * KS;
-    if (rest > 0)
-      stage_slice(ws + s * WSTAGE, b.B, b.ldb, s * KS, rest < KS ? rest : KS,
-                  b.ncols, t);
-    else
-      cp_async_commit();
-  }
-}
-
-// acc += A[64, Kp] @ B.  A: bf16 in shared memory, row stride lda.  B is
-// streamed through the three-stage buffer ws in slices of KS rows with
-// cp.async: slices s + 1 and s + 2 are in flight while the tensor cores work
-// on slice s, one barrier a slice, one (possibly empty) group a slice so that
-// "all but the newest group" always means "slice s has landed".  Every thread
-// of the block calls it.  Without head_done it passes a barrier and starts
-// the head itself; either way the barrier of slice 0 orders the caller's
-// writes of A before the first read.
-__device__ __forceinline__ void mma_gemm(Acc& acc, const bf16* A, int lda,
-                                         const GemmB& b, bf16* ws, int t,
-                                         bool head_done = false) {
-  const int lane = t & 31;
-  const WarpPos wp(t);
-  const int Kp = b.Kp;
-  const int nt = wp.ntiles(b.ncols);
-  const int nsl = (Kp + KS - 1) / KS;
-  if (!head_done) {
-    __syncthreads();
-    gemm_head(b, ws, t);
-  }
-  // ldmatrix row addresses: lanes 8j..8j+7 give the rows of matrix j
-  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
-  const bf16* a_base = A + (32 * wp.wr + lr) * lda + lc;
-  const int b_off = lr * WSS + 64 * wp.wc + lc;
-  int st = 0;  // s % NSTAGE
-  for (int s = 0; s < nsl; ++s) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();
-    const int k0 = s * KS;
-    if (s + NSTAGE - 1 < nsl) {  // into the stage slice s - 1 has left
-      const int rest = Kp - k0 - (NSTAGE - 1) * KS;
-      stage_slice(ws + (st == 0 ? NSTAGE - 1 : st - 1) * WSTAGE, b.B, b.ldb,
-                  k0 + (NSTAGE - 1) * KS, rest < KS ? rest : KS, b.ncols, t);
-    } else {
-      cp_async_commit();
-    }
-    const bf16* wst = ws + st * WSTAGE + b_off;
-    st = st == NSTAGE - 1 ? 0 : st + 1;
-    if (nt <= 0) continue;
-    const int nk = (Kp - k0 < KS ? Kp - k0 : KS) >> 4;
-#pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk) {
-      if (kk >= nk) break;
-      uint32_t a0[4], a1[4];
-      ldmatrix_x4(a0, a_base + k0 + 16 * kk);
-      ldmatrix_x4(a1, a_base + 16 * lda + k0 + 16 * kk);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        if (2 * np < nt) {
-          uint32_t bb[4];  // B is [k][n] with n contiguous: transposed load
-          ldmatrix_x4_trans(bb, wst + 16 * kk * WSS + 16 * np);
-          mma_bf16(acc[0][2 * np], a0, bb[0], bb[1]);
-          mma_bf16(acc[1][2 * np], a1, bb[0], bb[1]);
-          mma_bf16(acc[0][2 * np + 1], a0, bb[2], bb[3]);
-          mma_bf16(acc[1][2 * np + 1], a1, bb[2], bb[3]);
-        }
-      }
-    }
-  }
-}
-
-// K2's transposes are the unrounded f32 weights, each split into three bf16
-// pieces hi = bf16(W), mid = bf16(W - hi), lo = bf16(W - hi - mid), whose
-// sum is W (a 24-bit significand in three 8-bit ones; exact for |W| >=
-// 2^-110, below that within 2^-134, bf16's subnormal grain).  gz is
-// bf16-exact, so gz hi, gz mid and gz lo are exact products and three MMAs
-// into one f32 accumulator form the products of the f32 W^T; only the order
-// of the sums changes.  The split pack (pack_mma_split in ops/fused_mlp.py)
-// stores every transposed matrix as 16-deep k-blocks [kb][piece][16][ncols]
-// at 3x its pack_mma offset, so one staged slice of KS3 = 48 rows is one
-// k-block with all three pieces: one cp.async stage, one barrier a k-block.
-#define KS3 48
-#define WSTAGE3 (KS3 * WSS)
-#ifndef NSTAGE3
-#define NSTAGE3 2        // split slices: one in flight behind the one at work
-#endif
-
-__device__ __forceinline__ void gemm_head_split(const GemmB& b, bf16* ws,
-                                                int t) {
-  const int nkb = b.Kp >> 4;
-#pragma unroll
-  for (int s = 0; s < NSTAGE3 - 1; ++s) {
-    if (s < nkb)
-      stage_slice<KS3>(ws + s * WSTAGE3, b.B, b.ldb, s * KS3, KS3, b.ncols, t);
-    else
-      cp_async_commit();
-  }
-}
-
-// acc += A[64, Kp] @ (hi + mid + lo) with B the split pack [3 Kp, ncols]:
-// mma_gemm's pipeline over k-blocks, NSTAGE3 stages; each k-block's A
-// fragments meet the lo, mid and hi fragments in that order (the small
-// pieces are summed before the large one), one piece at a time: unrolling
-// the three spills registers and measured 0.7 ms slower per 65,536 rows of
-// the SDF chain (H100, tools/prof_chain_kernels.py --variants).
-__device__ __forceinline__ void mma_gemm_split(Acc& acc, const bf16* A,
-                                               int lda, const GemmB& b,
-                                               bf16* ws, int t,
-                                               bool head_done = false) {
-  const int lane = t & 31;
-  const WarpPos wp(t);
-  const int nt = wp.ntiles(b.ncols);
-  const int nsl = b.Kp >> 4;
-  if (!head_done) {
-    __syncthreads();
-    gemm_head_split(b, ws, t);
-  }
-  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
-  const bf16* a_base = A + (32 * wp.wr + lr) * lda + lc;
-  const int b_off = lr * WSS + 64 * wp.wc + lc;
-  int st = 0;
-  for (int s = 0; s < nsl; ++s) {
-    cp_async_wait<NSTAGE3 - 2>();
-    __syncthreads();
-    if (s + NSTAGE3 - 1 < nsl)
-      stage_slice<KS3>(ws + (st == 0 ? NSTAGE3 - 1 : st - 1) * WSTAGE3, b.B,
-                       b.ldb, (s + NSTAGE3 - 1) * KS3, KS3, b.ncols, t);
-    else
-      cp_async_commit();
-    const bf16* wst = ws + st * WSTAGE3 + b_off;
-    st = st == NSTAGE3 - 1 ? 0 : st + 1;
-    if (nt <= 0) continue;
-    uint32_t a0[4], a1[4];
-    ldmatrix_x4(a0, a_base + 16 * s);
-    ldmatrix_x4(a1, a_base + 16 * lda + 16 * s);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (2 * np >= nt) continue;
-#ifdef PROF_SPLIT_UNROLLED
-#pragma unroll
-#else
-#pragma unroll 1
-#endif
-      for (int piece = 2; piece >= 0; --piece) {
-#ifdef PROF_SPLIT_SKIP
-        if (piece == PROF_SPLIT_SKIP) continue;
-#endif
-        uint32_t bb[4];
-        ldmatrix_x4_trans(bb, wst + 16 * piece * WSS + 16 * np);
-        mma_bf16(acc[0][2 * np], a0, bb[0], bb[1]);
-        mma_bf16(acc[1][2 * np], a1, bb[0], bb[1]);
-        mma_bf16(acc[0][2 * np + 1], a0, bb[2], bb[3]);
-        mma_bf16(acc[1][2 * np + 1], a1, bb[2], bb[3]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// The epilogues that read or write global stashes work on the accumulators
-// in "row layout": lanes lane and lane ^ 1 swap halves of every pair of
-// n-tiles, after which a lane holds 4 CONSECUTIVE columns of a row,
-//   x[0..3] = acc[mi][2 np][2 hf], [2 np][2 hf + 1], [2 np + 1][2 hf],
-//             [2 np + 1][2 hf + 1]
-// at row WarpPos::row(mi, hf) and column rcol(np), and the 4 lanes of a row
-// cover 16 columns in a piece: 64 contiguous bytes of an f32 stash row, 32 of
-// a bf16 one, a load or store.  In the MMA's own layout a lane holds 2
-// columns and a warp's access touches 8 rows with 16 or 32 bytes each, twice
-// as many instructions on half-used sectors; measured on the H100 each such
-// access type cost 0.4 ms per 65,536 rows of the SDF chain.
-__device__ __forceinline__ void acc_to_rows(Acc& acc, int nt, int lane) {
-  const bool odd = lane & 1;
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    if (2 * np >= nt) continue;  // warp-uniform
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float& a0 = acc[mi][2 * np][2 * hf];
-        float& a1 = acc[mi][2 * np][2 * hf + 1];
-        float& b0 = acc[mi][2 * np + 1][2 * hf];
-        float& b1 = acc[mi][2 * np + 1][2 * hf + 1];
-        // an even lane keeps its tile-2np pair and gets its neighbour's; an
-        // odd lane keeps its tile-(2np+1) pair, behind its neighbour's
-        const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
-        const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
-        if (odd) { a0 = r0; a1 = r1; }
-        else { b0 = r0; b1 = r1; }
-      }
-  }
-}
-
-// first of the 4 columns a lane holds of n-tile pair np, in row layout
-__device__ __forceinline__ int rcol(const WarpPos& wp, int np, int lane) {
-  return 64 * wp.wc + 16 * np + 8 * (lane & 1) + 4 * ((lane >> 1) & 1);
-}
-
-__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void st_bf16x4(bf16* p, float a, float b, float c,
-                                          float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// Rows of a bf16 tile in shared memory -> a stash layer (row stride wq <=
-// 256, a multiple of 16), whole rows in 16-byte pieces: the values the tile
-// holds for the next product are the ones the stash wants.
-__device__ __forceinline__ void tile_to_stash(const bf16* tile, int ts,
-                                              bf16* dst, int wq, long row0,
-                                              int n, int t) {
-  const int c = t & 31;
-  if (c >= (wq >> 3)) return;
-#pragma unroll
-  for (int r = t >> 5; r < TR; r += NT / 32)
-    if (row0 + r < n)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * wq + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + r * ts + c * 8);
-}
-
-// Column sums over the block's 64 rows of accumulators in row layout -> dst[c],
-// c < w.  red: [2][MAXW] floats of shared memory.
-__device__ __forceinline__ void rows_colsum(const Acc& acc, int ncols, int w,
-                                            float* red, float* dst, int t) {
-  const WarpPos wp(t);
-  const int nt = wp.ntiles(ncols), lane = t & 31;
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    if (2 * np >= nt) continue;  // warp-uniform
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ni = 2 * np + (i >> 1), e = i & 1;
-      float s = (acc[0][ni][e] + acc[0][ni][e + 2]) +
-                (acc[1][ni][e] + acc[1][ni][e + 2]);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (wp.g == 0) red[wp.wr * MAXW + rcol(wp, np, lane) + i] = s;
-    }
-  }
-  __syncthreads();
-  for (int c = t; c < w; c += NT) dst[c] = red[c] + red[MAXW + c];
 }
 
 // ===================================================================
@@ -1698,588 +1267,6 @@ chain_fwd_wgmma_kernel(const float* __restrict__ x, const bf16* __restrict__ W,
   }
 }
 
-// K4 pass 2 on the bf16 route.  The tile holds p_l (bf16-exact); the product
-// q_{l-1} = s p_l W_h^T arrives in the accumulators, where the epilogue
-// stores it unrounded (K5's q stash, f32) and turns it into p_{l-1} =
-// round(q act'(a_{l-1})) for the tile.  j is summed in f32 shared memory.
-// All stashes share the padded layout (layer base n * pstash, row stride outp).
-__global__ void __launch_bounds__(NT, 2)
-chain_jac_down_mma_kernel(const bf16* __restrict__ stash,
-                          const bf16* __restrict__ WT,
-                          const float* __restrict__ wl_h,
-                          const float* __restrict__ wl_x,
-                          float* __restrict__ jout, float* __restrict__ qst,
-                          int n, Chain ch) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const int E = ch.E, Ep = pad16(E);
-  bf16* pb = reinterpret_cast<bf16*>(smem_mma);           // [TR][AS]
-  bf16* ws = pb + TR * AS;                                // [NSTAGE][KS][WSS]
-  float* js = reinterpret_cast<float*>(ws + NSTAGE * WSTAGE);  // [TR][Ep]
-  const int t = threadIdx.x, lane = t & 31;
-  const WarpPos wp(t);
-  const long row0 = (long)blockIdx.x * TR;
-
-  {
-    const Layer& Ll = ch.l[ch.L - 1];
-    const Layer& Lt = ch.l[ch.L - 2];
-    const bf16* a = stash + (size_t)n * Lt.pstash;
-    float* qs = qst ? qst + (size_t)n * Lt.pstash : nullptr;
-    const int wq = Lt.outp;
-    for (int idx = t; idx < TR * wq; idx += NT) {
-      const int r = idx / wq, c = idx - r * wq;
-      const long g = row0 + r;
-      float q = 0.f, p = 0.f;
-      if (c < Lt.out) {
-        q = Ll.scale * wl_h[(size_t)c * Ll.out];
-        if (g < n) p = q * dact_mma(Lt.act, __bfloat162float(a[g * wq + c]));
-      }
-      if (qs && g < n) qs[g * wq + c] = q;
-      pb[r * AS + c] = __float2bfloat16_rn(p);
-    }
-    for (int idx = t; idx < TR * Ep; idx += NT) {
-      const int c = idx % Ep;
-      js[idx] = (wl_x && c < E) ? Ll.scale * wl_x[(size_t)c * Ll.out] : 0.f;
-    }
-  }
-
-  Acc acc;
-  bool head = false;
-  for (int l = ch.L - 2; l >= 0; --l) {
-    const Layer& Ly = ch.l[l];
-    if (Ly.wx >= 0) {
-      zero_acc(acc);
-      mma_gemm(acc, pb, AS, {WT + Ly.pwx, Ep, Ly.outp, Ep}, ws, t, head);
-      head = false;
-      const int nt = wp.ntiles(Ep);
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        if (ni >= nt) continue;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            js[wp.row(mi, e >> 1) * Ep + wp.col(ni) + (e & 1)] +=
-                Ly.scale * acc[mi][ni][e];
-      }
-    }
-    if (l > 0)
-      prefetch_rows(stash + (size_t)n * ch.l[l - 1].pstash, row0, n,
-                    2 * Ly.inp, t);
-    zero_acc(acc);
-    mma_gemm(acc, pb, AS, {WT + Ly.pwh, Ly.inp, Ly.outp, Ly.inp}, ws, t, head);
-    __syncthreads();  // every read of pb precedes its overwrite
-    if (l > 0) {  // the layer below's first weight slices travel meanwhile
-      const Layer& Ln = ch.l[l - 1];
-      if (Ln.wx >= 0) gemm_head({WT + Ln.pwx, Ep, Ln.outp, Ep}, ws, t);
-      else gemm_head({WT + Ln.pwh, Ln.inp, Ln.outp, Ln.inp}, ws, t);
-      head = true;
-    }
-    const int nt = wp.ntiles(Ly.inp);
-    if (l == 0) {
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        if (ni >= nt) continue;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            js[wp.row(mi, e >> 1) * Ep + wp.col(ni) + (e & 1)] +=
-                acc[mi][ni][e] * Ly.scale;
-      }
-      break;
-    }
-    const Layer& Lb = ch.l[l - 1];  // Lb.out == Ly.in, Lb.outp == Ly.inp
-    const int w = Lb.out, wq = Lb.outp;
-    const bf16* a = stash + (size_t)n * Lb.pstash;
-    float* qs = qst ? qst + (size_t)n * Lb.pstash : nullptr;
-    acc_to_rows(acc, nt, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (2 * np >= nt) continue;
-      const int c = rcol(wp, np, lane);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = wp.row(mi, hf);
-          const long g = row0 + r;
-          const float q0 = acc[mi][2 * np][2 * hf] * Ly.scale;
-          const float q1 = acc[mi][2 * np][2 * hf + 1] * Ly.scale;
-          const float q2 = acc[mi][2 * np + 1][2 * hf] * Ly.scale;
-          const float q3 = acc[mi][2 * np + 1][2 * hf + 1] * Ly.scale;
-          float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-          if (g < n) {
-            const float4 av = ld_bf16x4(a + g * wq + c);
-            if (c < w) p0 = q0 * dact_mma(Lb.act, av.x);
-            if (c + 1 < w) p1 = q1 * dact_mma(Lb.act, av.y);
-            if (c + 2 < w) p2 = q2 * dact_mma(Lb.act, av.z);
-            if (c + 3 < w) p3 = q3 * dact_mma(Lb.act, av.w);
-            if (qs)
-              *reinterpret_cast<float4*>(qs + g * wq + c) =
-                  make_float4(q0, q1, q2, q3);
-          }
-          st_bf16x4(pb + r * AS + c, p0, p1, p2, p3);
-        }
-    }
-  }
-  __syncthreads();
-  for (int idx = t; idx < TR * E; idx += NT) {
-    const int r = idx / E, c = idx - r * E;
-    const long g = row0 + r;
-    if (g < n) jout[g * E + c] = js[r * Ep + c];
-  }
-}
-
-// K5 pass 3 on the bf16 route.  The tile holds the rounded qbar (bf16-exact;
-// layer 0 reads the rounded gj tile itself); pbar arrives in the
-// accumulators and the epilogue forms dbar = pbar q (f32 stash), p =
-// round(q act') (bf16 stash of its own: q stays f32, so p cannot overwrite
-// it), and the next qbar = round(pbar act'), which goes to the tile and from
-// there, whole rows at a time, to its bf16 stash.  The top qbar stays
-// unrounded: its column sums are taken from the accumulators.
-__global__ void __launch_bounds__(NT, 2)
-chain_jac_up_mma_kernel(const bf16* __restrict__ stash,
-                        const float* __restrict__ qst,
-                        const bf16* __restrict__ W,
-                        const float* __restrict__ gj, float* __restrict__ dbar,
-                        bf16* __restrict__ qbs, bf16* __restrict__ pst,
-                        float* __restrict__ colp, int n, Chain ch) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const int E = ch.E, Ep = pad16(E), ES = Ep + 8;
-  bf16* qb = reinterpret_cast<bf16*>(smem_mma);  // [TR][AS]
-  bf16* ws = qb + TR * AS;                       // [NSTAGE][KS][WSS]
-  bf16* gjs = ws + NSTAGE * WSTAGE;              // [TR][ES]
-  float* red = reinterpret_cast<float*>(gjs + TR * ES);  // [2][MAXW]
-  const int t = threadIdx.x, lane = t & 31;
-  const WarpPos wp(t);
-  const long row0 = (long)blockIdx.x * TR;
-  const int wtop = ch.l[ch.L - 2].out;
-  float* cp = colp + (size_t)blockIdx.x * (wtop + E);
-
-  for (int idx = t; idx < TR * Ep; idx += NT) {
-    const int r = idx / Ep, c = idx - r * Ep;
-    const long g = row0 + r;
-    gjs[r * ES + c] =
-        __float2bfloat16_rn((g < n && c < E) ? gj[g * E + c] : 0.f);
-  }
-  for (int c = t; c < E; c += NT) {
-    float s = 0.f;
-    for (int r = 0; r < TR; ++r)
-      if (row0 + r < n) s += gj[(row0 + r) * E + c];
-    cp[wtop + c] = s;
-  }
-
-  Acc acc;
-  bool head = false;
-  for (int l = 0; l < ch.L - 1; ++l) {
-    const Layer& Ly = ch.l[l];
-    const int w = Ly.out, wq = Ly.outp;
-    const bool top = l == ch.L - 2;
-    const size_t base = (size_t)n * Ly.pstash;
-    prefetch_rows(qst + base, row0, n, 4 * wq, t);
-    prefetch_rows(stash + base, row0, n, 2 * wq, t);
-    zero_acc(acc);
-    mma_gemm(acc, l == 0 ? gjs : qb, l == 0 ? ES : AS,
-             {W + Ly.pwh, wq, Ly.inp, wq}, ws, t, head);
-    if (Ly.wx >= 0) mma_gemm(acc, gjs, ES, {W + Ly.pwx, wq, Ep, wq}, ws, t);
-    __syncthreads();  // every read of qb precedes its overwrite
-    head = !top;
-    if (head) {  // the next layer's first weight slices travel meanwhile
-      const Layer& Ln = ch.l[l + 1];
-      gemm_head({W + Ln.pwh, Ln.outp, Ln.inp, Ln.outp}, ws, t);
-    }
-    const int nt = wp.ntiles(wq);
-    acc_to_rows(acc, nt, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (2 * np >= nt) continue;
-      const int c = rcol(wp, np, lane);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = wp.row(mi, hf);
-          const long g = row0 + r;
-          float& x0 = acc[mi][2 * np][2 * hf];
-          float& x1 = acc[mi][2 * np][2 * hf + 1];
-          float& x2 = acc[mi][2 * np + 1][2 * hf];
-          float& x3 = acc[mi][2 * np + 1][2 * hf + 1];
-          const float pb0 = Ly.scale * x0, pb1 = Ly.scale * x1;
-          const float pb2 = Ly.scale * x2, pb3 = Ly.scale * x3;
-          float4 q = make_float4(0.f, 0.f, 0.f, 0.f), av = q;
-          if (g < n) {
-            q = *reinterpret_cast<const float4*>(qst + base + g * wq + c);
-            av = ld_bf16x4(stash + base + g * wq + c);
-          }
-          const float d0 = c < w ? dact_mma(Ly.act, av.x) : 0.f;
-          const float d1 = c + 1 < w ? dact_mma(Ly.act, av.y) : 0.f;
-          const float d2 = c + 2 < w ? dact_mma(Ly.act, av.z) : 0.f;
-          const float d3 = c + 3 < w ? dact_mma(Ly.act, av.w) : 0.f;
-          x0 = pb0 * d0; x1 = pb1 * d1; x2 = pb2 * d2; x3 = pb3 * d3;
-          if (g < n) {
-            st_bf16x4(pst + base + g * wq + c, q.x * d0, q.y * d1, q.z * d2,
-                      q.w * d3);
-            *reinterpret_cast<float4*>(dbar + base + g * wq + c) =
-                make_float4(pb0 * q.x, pb1 * q.y, pb2 * q.z, pb3 * q.w);
-          }
-          if (!top) st_bf16x4(qb + r * AS + c, x0, x1, x2, x3);
-        }
-    }
-    if (top) {
-      rows_colsum(acc, wq, wtop, red, cp, t);
-    } else {
-      __syncthreads();
-      tile_to_stash(qb, AS, qbs + base, wq, row0, n, t);
-    }
-  }
-}
-
-// The data pass on the bf16 route, K5's pass 4 (SPLIT false) and K2's pass 2
-// (SPLIT true), every product on the tensor cores.  The tile holds the
-// rounded zs_l; hbar of the layer below arrives in the accumulators, where
-// the epilogue forms zbar = hbar act' (+ dbar act'' for K5), its column sums
-// (db partials) and the next zs = round(zbar s) (the tile, and from there a
-// bf16 stash of its own: dbar is f32 and is only read).  a of the hidden
-// layers comes from the bf16 stash.  K5's transposes are the bf16 pack of the
-// rounded weights and its last layer is linear (K4/K5's condition); K2's are
-// the split pack of the unrounded ones (mma_gemm_split), and its last layer
-// may carry an activation, read off the forward's f32 output ylast as the
-// f32 kernel reads it.  dx is summed 256 columns a product (the input may be
-// 512 wide) into an f32 tile [64][Ep] in shared memory when the wrapper finds
-// room for it beside two blocks an SM (DXS), and written out in whole
-// rows at the end; otherwise (K2's wide inputs) it goes to device memory from
-// the accumulators, the first product writing it and later ones adding to
-// it, every element by the thread that owns it.  The accumulators' own
-// layout makes that access slow (see acc_to_rows), so the tile is the rule.
-template <bool SPLIT>
-__device__ __forceinline__ void data_gemm(Acc& acc, const bf16* A, int lda,
-                                          const GemmB& b, bf16* ws, int t,
-                                          bool head_done) {
-  if (SPLIT) mma_gemm_split(acc, A, lda, b, ws, t, head_done);
-  else mma_gemm(acc, A, lda, b, ws, t, head_done);
-}
-
-template <bool SPLIT, bool DXS>
-__global__ void __launch_bounds__(NT, 2)
-chain_bwd_data_mma_kernel(const bf16* __restrict__ stash,
-                          const bf16* __restrict__ WT,
-                          const float* __restrict__ gin,
-                          const float* __restrict__ ylast,
-                          float* __restrict__ dx, bf16* __restrict__ zst,
-                          const float* __restrict__ dbar,
-                          float* __restrict__ dbp, int n, Chain ch) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  const int E = ch.E, Ep = pad16(E);
-  const int wm = SPLIT ? 3 : 1;  // a matrix's offset in WT: wm x its pack offset
-  const Layer& Ll = ch.l[ch.L - 1];
-  const int TS = (Ll.outp > MAXW ? Ll.outp : MAXW) + 8;
-  bf16* zb = reinterpret_cast<bf16*>(smem_mma);            // [TR][TS]
-  bf16* ws = zb + TR * TS;         // [NSTAGE or NSTAGE3][KS or KS3][WSS]
-  float* red = reinterpret_cast<float*>(ws + (SPLIT ? NSTAGE3 * WSTAGE3 : NSTAGE * WSTAGE));
-  float* dxs = red + 2 * MAXW;                            // [TR][Ep] (DXS)
-  const int t = threadIdx.x, lane = t & 31;
-  const WarpPos wp(t);
-  const long row0 = (long)blockIdx.x * TR;
-  float* dbb = dbp + (size_t)blockIdx.x * ch.bsum;
-
-  {  // the last layer: gz = g act'(y), db from it, zs = round(gz s)
-    const int w = Ll.out, wq = Ll.outp;
-    bf16* zs = zst + (size_t)n * Ll.pstash;
-    for (int idx = t; idx < TR * wq; idx += NT) {
-      const int r = idx / wq, c = idx - r * wq;
-      const long g = row0 + r;
-      float v = 0.f;
-      if (g < n && c < w) {
-        v = gin[g * w + c];
-        if (SPLIT) v *= dact_from_a(Ll.act, ylast[g * w + c]);
-      }
-      if (Ll.scale != 1.f) v *= Ll.scale;
-      const bf16 vb = __float2bfloat16_rn(v);
-      zb[r * TS + c] = vb;
-      if (g < n) zs[g * wq + c] = vb;
-    }
-    for (int c = t; c < w; c += NT) {
-      float s = 0.f;
-      for (int r = 0; r < TR; ++r) {
-        const long g = row0 + r;
-        if (g < n)
-          s += SPLIT ? gin[g * w + c] * dact_from_a(Ll.act, ylast[g * w + c])
-                     : gin[g * w + c];
-      }
-      dbb[Ll.b + c] = s;
-    }
-    if (DXS)
-      for (int idx = t; idx < TR * Ep; idx += NT) dxs[idx] = 0.f;
-  }
-
-  Acc acc;
-  bool head = false, dx_first = true;
-  for (int l = ch.L - 1; l >= 0; --l) {
-    const Layer& Ly = ch.l[l];
-    // dx += zs @ W_x^T (skip) and, at layer 0, zs @ W_h^T: both [outp, Ep]
-    for (int pass = 0; pass < 2; ++pass) {
-      if (pass == 0 ? Ly.wx < 0 : l > 0) continue;
-      const bf16* wt = WT + wm * (pass == 0 ? Ly.pwx : Ly.pwh);
-      for (int cb = 0; cb < Ep; cb += MAXW) {
-        const int ncols = Ep - cb < MAXW ? Ep - cb : MAXW;
-        zero_acc(acc);
-        data_gemm<SPLIT>(acc, zb, TS, {wt + cb, Ep, Ly.outp, ncols}, ws, t, head);
-        head = false;
-        const int nt = wp.ntiles(ncols);
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          if (ni >= nt) continue;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = wp.row(mi, e >> 1), c = cb + wp.col(ni) + (e & 1);
-              if (DXS) {
-                dxs[r * Ep + c] += acc[mi][ni][e];
-                continue;
-              }
-              const long g = row0 + r;
-              if (g >= n || c >= E) continue;
-              float* p = dx + g * E + c;
-              *p = dx_first ? acc[mi][ni][e] : *p + acc[mi][ni][e];
-            }
-        }
-      }
-      dx_first = false;
-    }
-    if (l == 0) break;
-    const Layer& Lb = ch.l[l - 1];  // Lb.out == Ly.in, Lb.outp == Ly.inp
-    const int w = Lb.out, wq = Lb.outp;
-    const size_t base = (size_t)n * Lb.pstash;
-    const bool sp = dbar && Lb.act == ACT_SP100;
-    prefetch_rows(stash + base, row0, n, 2 * wq, t);
-    if (sp) prefetch_rows(dbar + base, row0, n, 4 * wq, t);
-    zero_acc(acc);
-    data_gemm<SPLIT>(acc, zb, TS, {WT + wm * Ly.pwh, Ly.inp, Ly.outp, Ly.inp},
-                     ws, t, head);
-    __syncthreads();  // every read of zb precedes its overwrite
-    {  // the first weight slices of the layer below's first product travel
-       // while the epilogue runs: its skip's W_x^T, else its W_h^T
-      const GemmB nb = Lb.wx >= 0
-          ? GemmB{WT + wm * Lb.pwx, Ep, Lb.outp, Ep < MAXW ? Ep : MAXW}
-          : GemmB{WT + wm * Lb.pwh, Lb.inp, Lb.outp, Lb.inp < MAXW ? Lb.inp : MAXW};
-      if (SPLIT) gemm_head_split(nb, ws, t);
-      else gemm_head(nb, ws, t);
-    }
-    head = true;
-    const int nt = wp.ntiles(wq);
-    acc_to_rows(acc, nt, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (2 * np >= nt) continue;
-      const int c = rcol(wp, np, lane);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const long g = row0 + wp.row(mi, hf);
-          float& x0 = acc[mi][2 * np][2 * hf];
-          float& x1 = acc[mi][2 * np][2 * hf + 1];
-          float& x2 = acc[mi][2 * np + 1][2 * hf];
-          float& x3 = acc[mi][2 * np + 1][2 * hf + 1];
-          float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
-          if (g < n) {
-            const float4 av = ld_bf16x4(stash + base + g * wq + c);
-            const float d0 = dact_mma(Lb.act, av.x), d1 = dact_mma(Lb.act, av.y);
-            const float d2 = dact_mma(Lb.act, av.z), d3 = dact_mma(Lb.act, av.w);
-            v0 = x0 * d0; v1 = x1 * d1; v2 = x2 * d2; v3 = x3 * d3;
-            if (sp) {
-              const float4 db =
-                  *reinterpret_cast<const float4*>(dbar + base + g * wq + c);
-              v0 += db.x * d2act_from_d(Lb.act, d0);
-              v1 += db.y * d2act_from_d(Lb.act, d1);
-              v2 += db.z * d2act_from_d(Lb.act, d2);
-              v3 += db.w * d2act_from_d(Lb.act, d3);
-            }
-            if (c >= w) v0 = 0.f;
-            if (c + 1 >= w) v1 = 0.f;
-            if (c + 2 >= w) v2 = 0.f;
-            if (c + 3 >= w) v3 = 0.f;
-          }
-          x0 = v0; x1 = v1; x2 = v2; x3 = v3;
-        }
-    }
-    rows_colsum(acc, wq, w, red, dbb + Lb.b, t);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (2 * np >= nt) continue;
-      const int c = rcol(wp, np, lane);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float s = Lb.scale;
-          st_bf16x4(zb + wp.row(mi, hf) * TS + c,
-                    acc[mi][2 * np][2 * hf] * s, acc[mi][2 * np][2 * hf + 1] * s,
-                    acc[mi][2 * np + 1][2 * hf] * s,
-                    acc[mi][2 * np + 1][2 * hf + 1] * s);
-        }
-    }
-    __syncthreads();
-    tile_to_stash(zb, TS, zst + base, wq, row0, n, t);
-  }
-  if (DXS) {
-    __syncthreads();
-    for (int idx = t; idx < TR * E; idx += NT) {
-      const int r = idx / E, c = idx - r * E;
-      const long g = row0 + r;
-      if (g < n) dx[g * E + c] = dxs[r * Ep + c];
-    }
-  }
-}
-
-// dW on the bf16 route, every weight of the chain in one launch.  A table row
-// a tile (14 int64: for each of A1, B1, A2, B2 the index of its buffer in
-// DwBuffers, -1 for none, and the element offset of the tile's first column
-// in it; the tile's element offset in a split's partial buffer; lda, ldb,
-// ldo; the tile's valid extents mext <= 128 and next <= 128) and a scale a
-// tile; the table depends on the chain and n alone, the buffers' addresses
-// are launch arguments.  Block (tile, split) forms
-//   part[split][tile] = A1^T B1 + scale * A2^T B2     over the split's rows,
-// both terms in the same accumulators (A2^T B2 first, then the scale, then
-// A1^T B1).  A and B are row-major [rows, width] bf16 stashes, so both MMA
-// operands are transposed ldmatrix loads of staged [64 rows][128] slices;
-// rows past the split's end are zero-filled by cp.async.  Partials, not
-// atomics: the sum over splits is one reduction outside, and the result is
-// the same from run to run.
-#define DT 128         // tile edge
-#define DKS 64         // rows a staged slice
-#define DS (DT + 8)
-#define DSTAGE (DKS * DS)
-#define DNSTAGE 3      // stages: two slices in flight behind the one at work
-
-__device__ __forceinline__ void dw_stage(bf16* dst, const bf16* __restrict__ S,
-                                         int lds, int ext, long r0, long r_end,
-                                         int t) {
-  // thread t copies the 16-byte piece t % 16 of rows t / 16, + 16, ...
-  const int c = t & 15;
-  if (c >= (ext >> 3)) return;
-#pragma unroll
-  for (int r = t >> 4; r < DKS; r += NT / 16) {
-    const bool v = r0 + r < r_end;
-    cp_async16(dst + r * DS + c * 8, v ? S + (r0 + r) * lds + c * 8 : S,
-               v ? 16 : 0);
-  }
-}
-
-#define DW_NBUF 6
-#define DW_ROW 14
-struct DwBuffers { const bf16* p[DW_NBUF]; };
-
-__global__ void __launch_bounds__(NT, 2)
-chain_dw_mma_kernel(const long long* __restrict__ table,
-                    const float* __restrict__ scales, DwBuffers bufs,
-                    float* __restrict__ part, long long part_stride, int n,
-                    int rps) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* as = reinterpret_cast<bf16*>(smem_mma);  // [DNSTAGE][DKS][DS]
-  bf16* bs = as + DNSTAGE * DSTAGE;              // [DNSTAGE][DKS][DS]
-  const long long* tb = table + DW_ROW * (size_t)blockIdx.x;
-  const int lda = (int)tb[9], ldb = (int)tb[10], ldo = (int)tb[11];
-  const int mext = (int)tb[12], next = (int)tb[13];
-  const float scale = scales[blockIdx.x];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int wr = warp >> 1, wc = warp & 1;  // 4 x 2 warps of [32 i][64 c]
-  const long r_begin = (long)blockIdx.y * rps;
-  long r_end = r_begin + rps;
-  if (r_end > n) r_end = n;
-  int nt = (next - 64 * wc) >> 3;
-  nt = nt > 8 ? 8 : nt;
-  const bool active = 32 * wr < mext && nt > 0;
-  // A is [k][m] with m contiguous: matrices (k lo, m lo), (k lo, m hi),
-  // (k hi, m lo), (k hi, m hi) give a0..a3
-  const int a_off = ((lane & 7) + (lane >> 4) * 8) * DS + 32 * wr +
-                    ((lane >> 3) & 1) * 8;
-  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + 64 * wc +
-                    (lane >> 4) * 8;
-  Acc acc;
-  zero_acc(acc);
-  for (int term = 2; term >= 1; --term) {
-    const long long* op = tb + (term == 2 ? 4 : 0);
-    if (op[0] < 0) continue;
-    const bf16* A = nullptr;
-    const bf16* B = nullptr;
-#pragma unroll
-    for (int i = 0; i < DW_NBUF; ++i) {  // no runtime index into a parameter
-      if (op[0] == i) A = bufs.p[i] + op[1];
-      if (op[2] == i) B = bufs.p[i] + op[3];
-    }
-    const int nsl = r_end > r_begin ? (int)((r_end - r_begin + DKS - 1) / DKS) : 0;
-    __syncthreads();  // the last term's reads of the stages are done
-    // slices s + 1 and s + 2 in flight behind slice s, a group a slice
-    for (int s = 0; s < 2; ++s) {
-      if (s < nsl) {
-        dw_stage(as + s * DSTAGE, A, lda, mext, r_begin + s * DKS, r_end, t);
-        dw_stage(bs + s * DSTAGE, B, ldb, next, r_begin + s * DKS, r_end, t);
-      }
-      cp_async_commit();
-    }
-    int st = 0;  // s % NSTAGE
-    for (int s = 0; s < nsl; ++s) {
-      cp_async_wait<1>();
-      __syncthreads();
-      if (s + 2 < nsl) {
-        const long r0 = r_begin + (long)(s + 2) * DKS;
-        const int sn = st == 0 ? 2 : st - 1;
-        dw_stage(as + sn * DSTAGE, A, lda, mext, r0, r_end, t);
-        dw_stage(bs + sn * DSTAGE, B, ldb, next, r0, r_end, t);
-      }
-      cp_async_commit();
-      const int sc = st;
-      st = st == DNSTAGE - 1 ? 0 : st + 1;
-      if (!active) continue;
-      const bf16* ast = as + sc * DSTAGE + a_off;
-      const bf16* bst = bs + sc * DSTAGE + b_off;
-#pragma unroll
-      for (int kk = 0; kk < DKS / 16; ++kk) {
-        uint32_t a0[4], a1[4];
-        ldmatrix_x4_trans(a0, ast + 16 * kk * DS);
-        ldmatrix_x4_trans(a1, ast + 16 * kk * DS + 16);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          if (2 * np < nt) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, bst + 16 * kk * DS + 16 * np);
-            mma_bf16(acc[0][2 * np], a0, b[0], b[1]);
-            mma_bf16(acc[1][2 * np], a1, b[0], b[1]);
-            mma_bf16(acc[0][2 * np + 1], a0, b[2], b[3]);
-            mma_bf16(acc[1][2 * np + 1], a1, b[2], b[3]);
-          }
-        }
-      }
-    }
-    if (term == 2) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] *= scale;
-    }
-  }
-  float* p = part + (size_t)blockIdx.y * part_stride + tb[8];
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int c = 64 * wc + 8 * ni + t2;
-    if (c >= next) continue;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int i = 32 * wr + 16 * mi + 8 * hf + g;
-        if (i < mext)
-          *reinterpret_cast<float2*>(p + (size_t)i * ldo + c) =
-              make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
-      }
-  }
-}
-
 // ---------------------------------------------------------------- C interface
 // meta: 12 ints per layer (in, out, wh, wx, wht, wxt, b, act, stash, and the
 // bf16 route's pwh, pwx, pstash); scales: one float per layer.  round_bf16
@@ -2326,11 +1313,7 @@ static int set_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// bytes of the tensor-core kernels' common part: a tile of TR rows, tw wide,
-// and the two weight stages
-static size_t mma_smem(int tw) {
-  return sizeof(bf16) * ((size_t)TR * (tw + 8) + NSTAGE * WSTAGE);
-}
+#include "chain_bwd_wgmma.cuh"
 
 // The bf16 forward's plan, from the wrapper (``wgmma_plan`` in
 // ops/fused_mlp.py): grid, slices, then per layer the wgmma widths
@@ -2433,117 +1416,61 @@ static int build_jac_chain(Chain* ch, const int* meta, const float* scales,
   return 0;
 }
 
-// K2's data pass (dbar null) and K5's (dbar given).  On the bf16 route both
-// run on the tensor cores: K5's with WT the bf16 pack of the rounded
-// transposes, K2's with WT the split pack of the f32 ones and the last
-// activation from ylast; stash and gzs are bf16 in the padded layout.  On the
-// f32 route both run the f32 FMA kernel (ylast unused).
-extern "C" int nunerf_chain_bwd_data(const void* stash, const void* WT,
-                                     const float* g, float* dx, void* gzs,
-                                     const float* dbar, float* dbp,
-                                     const float* ylast, int n,
+// The f32 route's passes (the bf16 route's are nunerf_chain_bwd_wgmma):
+// K2's data pass (dbar null) and K5's (dbar given), the J-pass and its
+// reverse, which writes p over q.
+extern "C" int nunerf_chain_bwd_data(const float* stash, const float* WT,
+                                     const float* g, float* dx, float* gzs,
+                                     const float* dbar, float* dbp, int n,
                                      const int* meta, const float* scales,
-                                     int L, int E, int round_bf16,
-                                     void* stream) {
+                                     int L, int E, void* stream) {
   Chain ch;
-  int err = dbar ? build_jac_chain(&ch, meta, scales, L, E, round_bf16)
-                 : build_chain(&ch, meta, scales, L, E, round_bf16);
+  int err = dbar ? build_jac_chain(&ch, meta, scales, L, E, 0)
+                 : build_chain(&ch, meta, scales, L, E, 0);
   if (err) return err;
   const unsigned grid = (unsigned)((n + TR - 1) / TR);
-  if (round_bf16) {
-    const bool split = dbar == nullptr;
-    if (split && !ylast) return (int)cudaErrorInvalidValue;
-    const int lw = ch.l[L - 1].outp;
-    const size_t base =
-        sizeof(bf16) * ((size_t)TR * ((lw > MAXW ? lw : MAXW) + 8) +
-                        (split ? NSTAGE3 * (size_t)WSTAGE3 : NSTAGE * (size_t)WSTAGE)) +
-        sizeof(float) * 2 * MAXW;
-    // the f32 dx tile goes into shared memory where two blocks still fit on
-    // an SM (its 228 KB less 1 KB a block)
-    const size_t with_dx = base + sizeof(float) * TR * (size_t)pad16(E);
-#ifdef PROF_DX_GLOBAL
-    const int dx_smem = 0;
-#else
-    const int dx_smem = with_dx <= (228 - 2) * 1024 / 2;
-#endif
-    const size_t smem = dx_smem ? with_dx : base;
-    auto kernel = split ? (dx_smem ? chain_bwd_data_mma_kernel<true, true>
-                                   : chain_bwd_data_mma_kernel<true, false>)
-                        : (dx_smem ? chain_bwd_data_mma_kernel<false, true>
-                                   : chain_bwd_data_mma_kernel<false, false>);
-    err = set_smem(kernel, smem);
-    if (err) return err;
-    kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const bf16*)stash, (const bf16*)WT, g, split ? ylast : nullptr, dx,
-        (bf16*)gzs, dbar, dbp, n, ch);
-    return launch_check();
-  }
   const size_t smem = (size_t)TR * (ch.gw + E) * sizeof(float);
   err = set_smem(chain_bwd_data_kernel, smem);
   if (err) return err;
   chain_bwd_data_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)stash, (const float*)WT, g, dx, (float*)gzs, dbar, dbp, n,
-      ch);
+      stash, WT, g, dx, gzs, dbar, dbp, n, ch);
   return launch_check();
 }
 
-extern "C" int nunerf_chain_jac_down(const void* stash, const void* WT,
+extern "C" int nunerf_chain_jac_down(const float* stash, const float* WT,
                                      const float* wl_h, const float* wl_x,
                                      float* j, float* qst, int n,
                                      const int* meta, const float* scales,
-                                     int L, int E, int round_bf16,
-                                     void* stream) {
+                                     int L, int E, void* stream) {
   Chain ch;
-  int err = build_jac_chain(&ch, meta, scales, L, E, round_bf16);
+  int err = build_jac_chain(&ch, meta, scales, L, E, 0);
   if (err) return err;
   if ((ch.l[L - 1].wx >= 0) != (wl_x != nullptr))
     return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((n + TR - 1) / TR);
-  if (round_bf16) {
-    const size_t smem = mma_smem(MAXW) + sizeof(float) * TR * pad16(E);
-    err = set_smem(chain_jac_down_mma_kernel, smem);
-    if (err) return err;
-    chain_jac_down_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const bf16*)stash, (const bf16*)WT, wl_h, wl_x, j, qst, n, ch);
-    return launch_check();
-  }
   const size_t smem = (size_t)TR * (ch.hw + E) * sizeof(float);
   err = set_smem(chain_jac_down_kernel, smem);
   if (err) return err;
   chain_jac_down_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)stash, (const float*)WT, wl_h, wl_x, j, qst, n, ch);
+      stash, WT, wl_h, wl_x, j, qst, n, ch);
   return launch_check();
 }
 
-// pst: the bf16 route's p stash (the f32 route writes p over q and takes none)
-extern "C" int nunerf_chain_jac_up(const void* stash, float* qst,
-                                   const void* W, const float* gj,
-                                   float* dbar, void* qbs, void* pst,
-                                   float* colp, int n, const int* meta,
-                                   const float* scales, int L, int E,
-                                   int round_bf16, void* stream) {
+extern "C" int nunerf_chain_jac_up(const float* stash, float* qst,
+                                   const float* W, const float* gj,
+                                   float* dbar, float* qbs, float* colp,
+                                   int n, const int* meta, const float* scales,
+                                   int L, int E, void* stream) {
   Chain ch;
-  int err = build_jac_chain(&ch, meta, scales, L, E, round_bf16);
+  int err = build_jac_chain(&ch, meta, scales, L, E, 0);
   if (err) return err;
   const unsigned grid = (unsigned)((n + TR - 1) / TR);
-  if (round_bf16) {
-    if (!pst) return (int)cudaErrorInvalidValue;
-    const size_t smem = mma_smem(MAXW) + sizeof(bf16) * TR * (pad16(E) + 8) +
-                        sizeof(float) * 2 * MAXW;
-    err = set_smem(chain_jac_up_mma_kernel, smem);
-    if (err) return err;
-    chain_jac_up_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const bf16*)stash, qst, (const bf16*)W, gj, dbar, (bf16*)qbs,
-        (bf16*)pst, colp, n, ch);
-    return launch_check();
-  }
   const size_t smem =
       (size_t)TR * ((ch.hw > E ? ch.hw : E) + E) * sizeof(float);
   err = set_smem(chain_jac_up_kernel, smem);
   if (err) return err;
   chain_jac_up_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)stash, qst, (const float*)W, gj, dbar, (float*)qbs, colp,
-      n, ch);
+      stash, qst, W, gj, dbar, qbs, colp, n, ch);
   return launch_check();
 }
 
@@ -2558,24 +1485,96 @@ extern "C" int nunerf_chain_dw(const float* H, const float* GZ, float* part,
   return launch_check();
 }
 
-// Every dW of a chain in one launch (the bf16 route): ntiles table rows,
-// splits row ranges of rps rows (a multiple of 64), part [splits][part_stride].
-extern "C" int nunerf_chain_dw_grouped(const long long* table,
-                                       const float* tile_scales,
-                                       const void* const* buffers,
-                                       float* part, long long part_stride,
-                                       int ntiles, int n, int splits, int rps,
-                                       void* stream) {
-  if (ntiles < 1 || splits < 1 || splits > 65535 || rps < 1 || rps % DKS)
-    return (int)cudaErrorInvalidValue;
-  DwBuffers bufs;
-  for (int i = 0; i < DW_NBUF; ++i) bufs.p[i] = (const bf16*)buffers[i];
-  const size_t smem = sizeof(bf16) * 2 * DNSTAGE * DSTAGE;
-  int err = set_smem(chain_dw_mma_kernel, smem);
+// The backward walks on the bf16 route (chain_bwd_wgmma_kernel): pass
+// BW_DATA (split: K2's, from ylast; else K5's, with dbar), BW_JDOWN (q, zst:
+// K5's q and p stashes, null for K4), BW_JUP.  W: the walk's pack from its
+// first slice; h: the activation stash; zst: the stash the A tile goes to
+// (the data pass's zs, the J-pass's p, its reverse's qbar); grid: the
+// persistent CTAs (``wgmma_grid``); nsl, nbytes: the wrapper's counts of the
+// walk (``bwd_walk``), held to the kernel's own.
+extern "C" int nunerf_chain_bwd_wgmma(int pass, int split, const void* W,
+                                      const float* g, const float* ylast,
+                                      const void* h, float* out, void* zst,
+                                      const float* dbar, float* q, float* dbo,
+                                      float* part, const float* wl_h,
+                                      const float* wl_x, int n, const int* meta,
+                                      const float* scales, int L, int E,
+                                      int grid, int nsl, int nbytes,
+                                      void* stream) {
+  Chain ch;
+  const bool k2 = pass == BW_DATA && split;
+  int err = k2 ? build_chain(&ch, meta, scales, L, E, 1)
+               : build_jac_chain(&ch, meta, scales, L, E, 1);
   if (err) return err;
-  dim3 grid(ntiles, splits);
-  chain_dw_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      table, tile_scales, bufs, part, part_stride, n, rps);
+  if (pass != BW_DATA && split) return (int)cudaErrorInvalidValue;
+  // h: the hidden layers' stash (none in a one-layer chain)
+  if (!W || (L > 1 && !h) || (pass != BW_JDOWN && !g)) return (int)cudaErrorInvalidValue;
+  if (pass == BW_JDOWN && (q == nullptr) != (zst == nullptr))
+    return (int)cudaErrorInvalidValue;
+  BwPlan plan;
+  err = build_bw_plan(&plan, ch, pass, split, n, grid, nsl, nbytes);
+  if (err) return err;
+  // the tensor maps: h's hidden layers, and the layers of the A tile's stash
+  BwMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const bf16* hb = (const bf16*)h;
+  bf16* zb = (bf16*)zst;
+  for (int l = 0; l < L - 1; ++l) {
+    err = encode_box_map(&maps.a[l], hb + (size_t)n * ch.l[l].pstash, n, ch.l[l].outp);
+    if (err) return err;
+  }
+  const int nout = pass == BW_DATA ? L : pass == BW_JDOWN ? (zb ? L - 1 : 0) : L - 2;
+  for (int l = 0; l < nout; ++l) {
+    err = encode_box_map(&maps.out[l], zb + (size_t)n * ch.l[l].pstash, n, ch.l[l].outp);
+    if (err) return err;
+  }
+  const BwPtrs P{(const bf16*)W, g, ylast, hb, out, zb, dbar, q, dbo, part, wl_h, wl_x};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (pass) {
+    case BW_DATA:
+      if (!out || !zst || !part || (k2 ? !ylast : !dbar))
+        return (int)cudaErrorInvalidValue;
+      return k2 ? launch_bw<BW_DATA, true>(maps, P, n, ch, plan, grid, s)
+                : launch_bw<BW_DATA, false>(maps, P, n, ch, plan, grid, s);
+    case BW_JDOWN:
+      if (!out || !wl_h || (ch.l[L - 1].wx >= 0) != (wl_x != nullptr))
+        return (int)cudaErrorInvalidValue;
+      return q ? launch_bw<BW_JDOWN, true>(maps, P, n, ch, plan, grid, s)
+               : launch_bw<BW_JDOWN, false>(maps, P, n, ch, plan, grid, s);
+    case BW_JUP:
+      if ((L > 2 && !zst) || !q || !dbo || !part) return (int)cudaErrorInvalidValue;
+      return launch_bw<BW_JUP, false>(maps, P, n, ch, plan, grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Every dW of a chain over n rows in one launch (the bf16 route): ntiles
+// table rows (DW_ROWW ints), splits row ranges of rps rows (a multiple of
+// 64), part [splits][part_stride]; the tensor maps of the operands' stash
+// layers, each [n, width] bf16 at maps[i]; grid persistent CTAs.
+extern "C" int nunerf_chain_dw_wgmma(const int* table, const float* scales,
+                                     const void* const* maps,
+                                     const int* widths, int nmaps,
+                                     float* part, long long part_stride,
+                                     int ntiles, int n, int splits, int rps,
+                                     int grid, void* stream) {
+  if (ntiles < 1 || splits < 1 || rps < 1 || rps % 64 || n < 1 || nmaps < 1 ||
+      nmaps > DW_MAXMAPS || grid < 1 || grid > ntiles * splits)
+    return (int)cudaErrorInvalidValue;
+  DwMaps m;
+  memset(&m, 0, sizeof(m));
+  for (int i = 0; i < nmaps; ++i) {
+    const int err = encode_box_map(&m.m[i], maps[i], n, widths[i]);
+    if (err) return err;
+  }
+  const int stages = DW_MAXST;
+  const size_t smem = 1024 + (size_t)stages * DW_STAGE + 16 * DW_MAXST;
+  const int err = set_smem(chain_dw_wgmma_kernel, smem);
+  if (err) return err;
+  chain_dw_wgmma_kernel<<<grid, DW_THREADS, smem, (cudaStream_t)stream>>>(
+      m, table, scales, part, part_stride, ntiles, ntiles * splits, n, rps,
+      stages);
   return launch_check();
 }
 

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, under
 ``nunerf_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``.  A library is named by the hash of its source, so an edited
-source is rebuilt and an unchanged one is reused.
+``ctypes``.  A library is named by the hash of its source and of the
+``csrc/*.cuh`` headers beside it, so an edited source is rebuilt and an
+unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it (a header may be included)
+    for f in [f"{name}.cu"] + sorted(h for h in os.listdir(CSRC_DIR) if h.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -45,25 +45,28 @@ launches its route's kernels or raises; neither falls back to the other):
 * ``bfloat16``: every matrix operand is a bf16 value (weights rounded once
   by the packs, activations and cotangents rounded where the TPU kernel
   rounds them), so the products are exact in f32 and run on the tensor cores
-  (f32 accumulation) in another summation order.  K1's forward, also pass 1
-  of K2, K4 and K5, is ``wgmma`` from shared memory, its weights laid by
+  (f32 accumulation) in another summation order.  Every pass is ``wgmma``
+  from shared memory over a persistent grid (``wgmma_grid``, ``tile_walk``).
+  K1's forward, also pass 1 of K2, K4 and K5, streams its weights laid by
   ``pack_wgmma`` (``WgmmaLayout``: slices in a wgmma descriptor's swizzled
-  layout, streamed by bulk copies, ``wgmma_plan``), over a persistent grid
-  (``wgmma_grid``, ``tile_walk``); it is bound by the softplus epilogue of
-  every hidden output.  The other passes are ``mma.sync`` m16n8k16 tiles
-  over weights packed as real bf16, zero-padded to multiples of 16
-  (``MmaLayout``), as they are and transposed.  What bounds each of them is
-  not the matrix work but what surrounds it: K4/K5 the scratch
-  stashes that carry h, q, p, dbar, qbar and zs between the passes through
-  device memory.  So the stashes are kept in the narrowest exact type (h, p,
-  zs, qbar are bf16-exact and stored as bf16; q and dbar are unrounded and
-  stay f32), and all dW of a chunk come from one launch over a work table
-  (``dw_work_table``), each block summing both of K5's terms, with per-split
-  partials reduced by one sum.  K2's data pass multiplies by the unrounded
-  f32 ``W^T`` (as the TPU kernel does): each f32 weight is split into three
-  bf16 pieces whose sum is the weight (``split_bf16``, ``pack_mma_split``),
-  so that pass runs on the tensor cores as well, three MMAs a k-step into one
-  f32 accumulator, forming the products of the f32 ``W^T``.
+  layout, streamed by bulk copies, ``wgmma_plan``); it is bound by the
+  softplus epilogue of every hidden output.  The backward passes (the data
+  pass of K2 and K5, the J-pass of K4 and K5 and its reverse) walk the
+  chain on the same skeleton with an epilogue a pass
+  (``chain_bwd_wgmma_kernel``): the transposed walks stream
+  ``pack_wgmma_t`` (``WgmmaTLayout``, ``bwd_walk``), the reverse J-pass the
+  forward's pack.  What bounds K2 and K5 is not the matrix work but the
+  scratch stashes that carry h, q, p, dbar, qbar and zs between the passes
+  through device memory.  So the stashes are kept in the narrowest exact
+  type (h, p, zs, qbar are bf16-exact and stored as bf16; q and dbar are
+  unrounded and stay f32) in ``MmaLayout``'s padded layout, and all dW of a
+  chunk come from one wgmma GEMM fed by TMA over a work table
+  (``dw_work_table``, ``_dw_plan``), each tile summing both of K5's terms,
+  with per-split partials reduced by one sum.  K2's data pass multiplies by
+  the unrounded f32 ``W^T`` (as the TPU kernel does): each f32 weight is
+  split into three bf16 pieces whose sum is the weight (``split_bf16``,
+  ``pack_wgmma_t(split=True)``), three products a step into one f32
+  accumulator, forming the products of the f32 ``W^T``.
 
 Second-order differentiation through K1/K2 is not supported (as in the JAX
 package): without ``fused_sdf`` the SDF's eikonal path runs the plain module.
@@ -79,7 +82,7 @@ import numpy as np
 import torch
 
 ACT_CODES = {"none": 0, "relu": 1, "softplus100": 2}
-ROWS_PER_BLOCK = 64  # TR in csrc/fused_mlp.cu
+ROWS_PER_BLOCK = 64  # rows of a tile whose db (and column) partials a pass writes
 MAX_WIDTH = 256      # widest hidden layer the kernels take (K4/K5: input too)
 MAX_IN = 512         # widest input of K1/K2
 MAX_OUT = 512        # widest last layer
@@ -330,12 +333,12 @@ class MmaLayout:
     """The bf16 route's padded layout of a chain.
 
     Every depth and width is padded with zeros to a multiple of 16 (the depth
-    of an ``m16n8k16`` step, and two of its n-tiles), so the kernels never
-    mask inside a k-step.  ``layers[l]`` is ``(inp, outp, pwh, pwx, pstash)``:
-    padded input and output widths, the element offsets of ``W_h`` [inp,
-    outp] and ``W_x`` [ep, outp] (-1: none) in the bf16 weight pack (their
-    transposes sit at the same offsets of the transposed pack, and the dW
-    partials use the offsets too), and the sum of the padded output widths of
+    of a ``wgmma`` step), so the kernels never mask inside a k-step, and a
+    stash row is a multiple of 32 bytes (a TMA box's row stride).
+    ``layers[l]`` is ``(inp, outp, pwh, pwx, pstash)``: padded input and
+    output widths, the element offsets of ``W_h`` [inp, outp] and ``W_x``
+    [ep, outp] (-1: none) in ``pack_mma``'s buffer (the layout of the summed
+    dW partials), and the sum of the padded output widths of
     the layers before (a layer's base in a stash is ``n * pstash``, its row
     stride ``outp``).  ``wtot``: elements of a pack; ``psum``: padded stash
     columns of all layers, ``psum_hidden`` of all but the last; ``ep``: the
@@ -407,18 +410,21 @@ def _lib():
         ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
         lib.nunerf_chain_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ip, fp, ci,
                                          ci, ci, ip, ci, vp]
-        lib.nunerf_chain_bwd_data.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                              ci, ip, fp, ci, ci, ci, vp]
+        lib.nunerf_chain_bwd_data.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                                              ip, fp, ci, ci, vp]
         lib.nunerf_chain_jac_down.argtypes = [vp, vp, vp, vp, vp, vp, ci, ip,
-                                              fp, ci, ci, ci, vp]
-        lib.nunerf_chain_jac_up.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                            ip, fp, ci, ci, ci, vp]
+                                              fp, ci, ci, vp]
+        lib.nunerf_chain_jac_up.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ip,
+                                            fp, ci, ci, vp]
         lib.nunerf_chain_dw.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.nunerf_chain_dw_grouped.argtypes = [vp, vp, vp, vp, cl, ci, ci, ci,
-                                                ci, vp]
+        lib.nunerf_chain_bwd_wgmma.argtypes = [ci, ci] + [vp] * 12 + [
+            ci, ip, fp, ci, ci, ci, ci, ci, vp]
+        lib.nunerf_chain_dw_wgmma.argtypes = [vp, vp, vp, ip, ci, vp, cl, ci, ci,
+                                              ci, ci, ci, vp]
         for fn in (lib.nunerf_chain_fwd, lib.nunerf_chain_bwd_data,
                    lib.nunerf_chain_jac_down, lib.nunerf_chain_jac_up,
-                   lib.nunerf_chain_dw, lib.nunerf_chain_dw_grouped):
+                   lib.nunerf_chain_dw, lib.nunerf_chain_bwd_wgmma,
+                   lib.nunerf_chain_dw_wgmma):
             fn.restype = ci
         lib.nunerf_error_string.argtypes = [ci]
         lib.nunerf_error_string.restype = ctypes.c_char_p
@@ -673,6 +679,140 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# ------------------- the backward passes on the bf16 route: wgmma chain walks
+
+# the passes of ``chain_bwd_wgmma_kernel`` (BW_* in csrc/fused_mlp.cu)
+BW_DATA, BW_JDOWN, BW_JUP = 0, 1, 2
+SPLIT_PIECES = (2, 1, 0)   # a split slice triple: lo, mid, hi of ``split_bf16``
+
+
+class WgmmaTLayout:
+    """The weight pack of the backward passes' transposed walks
+    (``pack_wgmma_t``): the data pass of K2 and K5 and the J-pass of K4/K5.
+
+    The data pass walks the layers from the last down, the J-pass from the
+    last hidden layer down.  At each layer the product with ``W_x^T`` of a
+    skip comes first (into dx or j), then the one with ``W_h^T`` (into the
+    layer below, or at layer 0 into dx or j).  A product's depth is the
+    layer's padded output width ``outp``.  Its columns are the weight's
+    rows: one block of ``wg_width(inp)`` for a hidden ``W_h^T``, blocks of
+    256 (the last one ``wg_width`` of the rest) for a product into dx or j,
+    ``ep`` wide.  For every block, in order, the pack holds the slices of the
+    64-deep steps ``k0`` below ``outp``, each ``pieces`` times (K2: the lo,
+    mid and hi of ``split_bf16``, small pieces first; K4/K5: the rounded
+    weight).  A slice holds ``W[c0 + c, k0 + k]`` at byte ``sw128_offset(c,
+    k)``, the layout of ``WgmmaLayout``'s slices for the transposed matrix,
+    and zeros outside the matrix.
+
+    ``steps``: ``(layer, part, c0, width, out)``, part 'h' or 'x', ``out``
+    True for a product into dx or j; ``slices``: ``(step, k0, piece, offset,
+    bytes)``, piece an index into ``split_bf16``'s three (0 for the rounded
+    weight); ``nbytes``; ``jac_slice`` and ``jac_offset``: the first slice of
+    the J-pass's walk (the layers below the last) and its byte offset."""
+
+    def __init__(self, spec: ChainSpec, split: bool):
+        lay = mma_layout(spec)
+        pieces = SPLIT_PIECES if split else (0,)
+        self.steps, self.slices, off = [], [], 0
+        self.jac_slice = self.jac_offset = None
+        for l in reversed(range(spec.n_layers)):
+            ip, wp, _, pwx, _ = lay.layers[l]
+            if l < spec.n_layers - 1 and self.jac_slice is None:
+                self.jac_slice, self.jac_offset = len(self.slices), off
+            parts = ([("x", lay.ep, True)] if pwx >= 0 else []) + [("h", ip, l == 0)]
+            for part, rows, out in parts:
+                blocks = ([(c0, wg_width(min(MAX_WIDTH, rows - c0)))
+                           for c0 in range(0, rows, MAX_WIDTH)] if out
+                          else [(0, wg_width(rows))])
+                for c0, w in blocks:
+                    self.steps.append((l, part, c0, w, out))
+                    for k0 in range(0, wp, WG_KS):
+                        for piece in pieces:
+                            self.slices.append((len(self.steps) - 1, k0, piece, off,
+                                                w * 2 * WG_KS))
+                            off += w * 2 * WG_KS
+        self.nbytes = off
+
+
+@lru_cache(maxsize=None)
+def wgmma_t_layout(spec: ChainSpec, split: bool) -> WgmmaTLayout:
+    return WgmmaTLayout(spec, split)
+
+
+def _wgmma_t_positions(spec: ChainSpec, split: bool):
+    """Per piece (``split_bf16``'s index, 0 alone without the split) and flat
+    weight [rows, columns], the bf16 element of ``pack_wgmma_t``'s buffer
+    that holds each entry (int64 numpy)."""
+    lay = wgmma_t_layout(spec, split)
+    starts = _layer_starts(spec)
+    shapes = flat_weight_shapes(spec)
+    pos = {p: [np.empty(s, np.int64) for s in shapes]
+           for p in (SPLIT_PIECES if split else (0,))}
+    for si, k0, piece, off, _ in lay.slices:
+        l, part, c0, w, _ = lay.steps[si]
+        slot = starts[l] + (1 if part == "x" else 0)
+        rows, cols = shapes[slot]
+        c = np.arange(c0, min(rows, c0 + w))[:, None]
+        k = np.arange(k0, min(cols, k0 + WG_KS))[None, :]
+        pos[piece][slot][c, k] = (off + sw128_offset(c - c0, k - k0)) // 2
+    return pos
+
+
+@lru_cache(maxsize=64)
+def _wgmma_t_index(spec: ChainSpec, split: bool, device):
+    """Where each element of ``pack_wgmma_t``'s buffer comes from: an index
+    into the pieces of the flat weights concatenated, ``[pieces, wsum + 1]``
+    flattened (the last column a zero for the pads).  Built once a chain,
+    kept on the device."""
+    pos = _wgmma_t_positions(spec, split)
+    wsum = sum(a * b for a, b in flat_weight_shapes(spec))
+    idx = np.full(wgmma_t_layout(spec, split).nbytes // 2, wsum, np.int64)
+    for piece, per_weight in pos.items():
+        idx[np.concatenate([p.reshape(-1) for p in per_weight])] = (
+            piece * (wsum + 1) + np.arange(wsum))
+    return torch.as_tensor(idx, device=device)
+
+
+def pack_wgmma_t(spec: ChainSpec, flat, split: bool):
+    """The transposed walks' weight pack (``WgmmaTLayout``): with ``split``
+    (K2's data pass) the f32 weights' three bf16 pieces (``split_bf16``),
+    else (K4/K5) every weight rounded to bf16 as ``pack_wgmma`` rounds it.
+    One cast or split, and one gather."""
+    ws = flat[:n_weights(spec)]
+    dev = ws[0].device
+    w = torch.cat([t.reshape(-1).to(torch.float32) for t in ws]
+                  + [torch.zeros(1, device=dev)])
+    src = torch.stack(split_bf16(w)).view(-1) if split else w.to(torch.bfloat16)
+    return src[_wgmma_t_index(spec, split, dev)]
+
+
+def unpack_wgmma_t(spec: ChainSpec, buf, split: bool):
+    """Per flat weight, f32 ``[pieces, rows, columns]`` read back from a
+    ``pack_wgmma_t`` buffer (the pieces in ``split_bf16``'s order): the
+    inverse of the pack."""
+    pos = _wgmma_t_positions(spec, split)
+    out = []
+    for slot in range(n_weights(spec)):
+        out.append(torch.stack([buf[torch.as_tensor(pos[p][slot], device=buf.device)].float()
+                                for p in sorted(pos)]))
+    return out
+
+
+def bwd_walk(spec: ChainSpec, pas: int, split: bool = False):
+    """``(slices, bytes, byte offset)`` of the walk of pass ``pas`` (BW_*)
+    in its pack: the data pass ``pack_wgmma_t`` whole (``split``: K2's, else
+    K5's), the J-pass the rounded ``pack_wgmma_t`` from its ``jac_offset``,
+    the J-pass's reverse the slices of ``pack_wgmma`` (the forward's walk) of
+    every layer but the last.  The kernel builds the same walk from the chain
+    and refuses a launch whose counts differ from these."""
+    if pas == BW_JUP:
+        sl = [s for s in wgmma_layout(spec).slices if s[0] < spec.n_layers - 1]
+        return len(sl), sum(s[-1] for s in sl), 0
+    lay = wgmma_t_layout(spec, split)
+    first, off = (0, 0) if pas == BW_DATA else (lay.jac_slice, lay.jac_offset)
+    return len(lay.slices) - first, lay.nbytes - off, off
+
+
 def split_bf16(w):
     """``(hi, mid, lo)``, three bf16 tensors with ``hi + mid + lo == w``: hi =
     bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), each residual
@@ -686,52 +826,6 @@ def split_bf16(w):
     mid = r.to(torch.bfloat16)
     lo = (r - mid.float()).to(torch.bfloat16)
     return hi, mid, lo
-
-
-@lru_cache(maxsize=64)
-def _split_index(spec: ChainSpec, device):
-    """Where each element of ``pack_mma_split``'s buffer comes from: an index
-    into the three pieces of the flat weights, ``[3, wsum + 1]`` flattened
-    (``wsum`` the weights' elements; the last column is a zero for the
-    pads).  It depends on the chain alone: built once, kept on the device."""
-    lay = mma_layout(spec)
-    wsum = sum(a * b for a, b in flat_weight_shapes(spec))
-    idx = np.empty(3 * lay.wtot, np.int64)
-    src = 0
-    for off, rp, cp, r, c in lay.weight_slots(spec):
-        k = np.arange(cp)[:, None]                 # row of W^T: W's column
-        col = np.arange(rp)[None, :]               # column of W^T: W's row
-        at = np.where((k < c) & (col < r), src + col * c + k, wsum)   # [cp, rp]
-        blocks = at.reshape(cp // PAD, 1, PAD, rp)
-        pieces = np.arange(3).reshape(1, 3, 1, 1) * (wsum + 1)
-        idx[3 * off:3 * (off + rp * cp)] = (blocks + pieces).reshape(-1)
-        src += r * c
-    return torch.as_tensor(idx, device=device)
-
-
-def pack_mma_split(spec: ChainSpec, flat):
-    """K2's transposed weights on the bf16 route: every f32 weight's
-    transpose [outp, inp] (zero-padded as ``pack_mma(transposed=True)``) in
-    three bf16 pieces (``split_bf16``), stored as 16-deep k-blocks
-    ``[outp / 16][piece: hi, mid, lo][16][inp]`` at three times its
-    ``pack_mma`` offset: one staged slice of 48 rows is one k-block with all
-    three pieces.  One split of the flat weights and one gather."""
-    ws = flat[:n_weights(spec)]
-    dev = ws[0].device
-    w = torch.cat([x.reshape(-1).to(torch.float32) for x in ws]
-                  + [torch.zeros(1, device=dev)])
-    return torch.stack(split_bf16(w)).view(-1)[_split_index(spec, dev)]
-
-
-def unpack_mma_split(spec: ChainSpec, buf):
-    """Per flat weight, its three pieces from a ``pack_mma_split`` buffer:
-    f32 ``[3, rows, columns]`` (hi, mid, lo of the weight, untransposed)."""
-    out = []
-    for off, rp, cp, r, c in mma_layout(spec).weight_slots(spec):
-        blk = buf[3 * off:3 * (off + rp * cp)].view(cp // PAD, 3, PAD, rp)
-        out.append(blk.transpose(0, 1).reshape(3, cp, rp)[:, :c, :r]
-                   .transpose(1, 2).float())
-    return out
 
 
 def unpack_mma(spec: ChainSpec, buf):
@@ -831,12 +925,13 @@ def chain_hidden_cuda(spec: ChainSpec, x, flat):
     return out, hidden
 
 
-def _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, dbar, dbp, ylast=None):
+def _bwd_data_launch(lib, spec, n, stash, WT, g, dx, gzs, dbar, dbp):
+    """The f32 route's data pass (K2's without dbar, K5's with it)."""
     meta, scales = _c_meta(spec)
     err = lib.nunerf_chain_bwd_data(
         _ptr(stash), WT.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        gzs.data_ptr(), _ptr(dbar), dbp.data_ptr(), _ptr(ylast), n, meta,
-        scales, spec.n_layers, spec.dims[0], int(_is_mma(spec)), _stream())
+        gzs.data_ptr(), _ptr(dbar), dbp.data_ptr(), n, meta, scales,
+        spec.n_layers, spec.dims[0], _stream())
     _check(lib, err, "chain_bwd_data")
 
 
@@ -851,7 +946,7 @@ def _dw(lib, h, gz, n, hi, w):
     return part.sum(0)
 
 
-DW_TILE = 128  # DT in csrc/fused_mlp.cu: a dW block's output tile edge
+DW_TILE = 128  # a dW work item's output tile edge (two 64-wide TMA boxes)
 
 
 def dw_work_table(spec: ChainSpec, jac: bool):
@@ -884,46 +979,67 @@ def dw_work_table(spec: ChainSpec, jac: bool):
     return table
 
 
-DW_BUFFERS = ("x0", "gj", "h", "zs", "qbar", "p")  # operand names, in the kernel's order
+DW_ROW = 12       # ints a row of the dW launch's table (DW_ROWW in csrc)
+DW_MAXMAPS = 64   # tensor maps a dW launch takes (DW_MAXMAPS)
+
+
+def dw_splits(n: int, ntiles: int):
+    """``(splits, rows a split)`` of the dW launch over ``n`` rows: about
+    four work items an SM of the card (132 SMs) and at least 512 rows a
+    split, the rows a multiple of 64 (the depth of a TMA box)."""
+    splits = max(1, min(-(-n // 512), -(-528 // ntiles)))
+    rps = -(-(-(-n // splits)) // 64) * 64
+    return -(-n // rps), rps
+
+
+def dw_work(ntiles: int, splits: int, grid: int):
+    """The work items each persistent CTA of the dW launch takes, as the
+    kernel walks them: ``[(cta, tile, split)]``, item w being tile ``w %
+    ntiles`` of split ``w // ntiles`` and CTA b taking w = b, b + grid, ..."""
+    return [(cta, w % ntiles, w // ntiles)
+            for cta in range(grid) for w in range(cta, ntiles * splits, grid)]
 
 
 @lru_cache(maxsize=64)
 def _dw_plan(spec: ChainSpec, n: int, jac: bool, device):
-    """The grouped dW launch over ``n`` rows: the work table on the device
-    and the row splits.  A table row a tile, 14 int64: per operand a1, b1,
-    a2, b2 its buffer's index in ``DW_BUFFERS`` (-1: none) and the element
-    offset of the tile's first column in it; the tile's offset in a split's
-    partials; the row strides of a, b and the output; the tile's extents.  It
-    depends on the chain and ``n`` alone (the buffers' addresses go in at the
+    """The grouped dW launch over ``n`` rows: the work table on the device,
+    the tensor maps it names and the row splits.  A table row a tile,
+    ``DW_ROW`` int32: for a1, b1, a2, b2 the index of its operand's map
+    (-1: none) and the tile's first column in it; the tile's offset in a
+    split's partials, their row stride, the tile's extents.  A map is an
+    operand's stash layer ``(name, first element, width)``: 'x0' and 'gj'
+    ([n, ep]) or a stash's layer ([n, outp] at ``n * pstash``).  It depends
+    on the chain and ``n`` alone (the buffers' addresses go in at the
     launch), so it is built and copied to the device once."""
     lay = mma_layout(spec)
     slots = lay.weight_slots(spec)
     work = dw_work_table(spec, jac)
+    maps = []
 
     def operand(op, col):
-        """(buffer index, offset of column ``col`` of row 0, row stride)."""
         if op is None:
-            return -1, 0, 0
+            return [-1, 0]
         name, l = op
-        base, ld = (0, lay.ep) if l is None else (n * lay.layers[l][4],
-                                                  lay.layers[l][1])
-        return DW_BUFFERS.index(name), base + col, ld
+        m = (name, 0, lay.ep) if l is None else (name, n * lay.layers[l][4],
+                                                 lay.layers[l][1])
+        if m not in maps:
+            maps.append(m)
+        return [maps.index(m), col]
 
     rows, tile_scales = [], []
     for slot, i0, mext, c0, next_, a1, b1, a2, b2, scale in work:
         off, _, cp, _, _ = slots[slot]
-        (ia1, oa1, lda), (ib1, ob1, ldb) = operand(a1, i0), operand(b1, c0)
-        (ia2, oa2, _), (ib2, ob2, _) = operand(a2, i0), operand(b2, c0)
-        rows.append([ia1, oa1, ib1, ob1, ia2, oa2, ib2, ob2,
-                     off + i0 * cp + c0, lda, ldb, cp, mext, next_])
+        rows.append(operand(a1, i0) + operand(b1, c0) + operand(a2, i0)
+                    + operand(b2, c0) + [off + i0 * cp + c0, cp, mext, next_])
         tile_scales.append(scale)
-    # about four blocks an SM slot (132 SMs x 2), and at least 512 rows a split
-    splits = max(1, min(-(-n // 512), -(-1056 // len(work))))
-    rps = -(-(-(-n // splits)) // 64) * 64
-    splits = -(-n // rps)
-    return dict(table=torch.tensor(rows, dtype=torch.int64, device=device),
+    if len(maps) > DW_MAXMAPS:
+        raise ValueError(f"{spec}: {len(maps)} stash layers, the dW launch takes "
+                         f"{DW_MAXMAPS}")
+    splits, rps = dw_splits(n, len(work))
+    return dict(table=torch.tensor(rows, dtype=torch.int32, device=device),
                 scales=torch.tensor(tile_scales, dtype=torch.float32, device=device),
-                wtot=lay.wtot, ntiles=len(work), n=n, splits=splits, rps=rps)
+                maps=maps, wtot=lay.wtot, ntiles=len(work), n=n, splits=splits,
+                rps=rps)
 
 
 def _dw_grouped(lib, spec: ChainSpec, n: int, bufs: dict, jac: bool):
@@ -934,14 +1050,35 @@ def _dw_grouped(lib, spec: ChainSpec, n: int, bufs: dict, jac: bool):
     dev = bufs["zs"].device
     plan = _dw_plan(spec, n, jac, dev)
     part = torch.empty((plan["splits"], plan["wtot"]), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(DW_BUFFERS))(
-        *[bufs[k].data_ptr() if k in bufs else None for k in DW_BUFFERS])
-    err = lib.nunerf_chain_dw_grouped(
-        plan["table"].data_ptr(), plan["scales"].data_ptr(), ptrs,
+    k = len(plan["maps"])
+    ptrs = (ctypes.c_void_p * k)(*[bufs[name].data_ptr() + 2 * first
+                                   for name, first, _ in plan["maps"]])
+    widths = (ctypes.c_int * k)(*[w for *_, w in plan["maps"]])
+    nwork = plan["ntiles"] * plan["splits"]
+    err = lib.nunerf_chain_dw_wgmma(
+        plan["table"].data_ptr(), plan["scales"].data_ptr(), ptrs, widths, k,
         part.data_ptr(), plan["wtot"], plan["ntiles"], n, plan["splits"],
-        plan["rps"], _stream())
-    _check(lib, err, "chain_dw_grouped")
+        plan["rps"], min(nwork, _sm_count(dev.index or 0)), _stream())
+    _check(lib, err, "chain_dw_wgmma")
     return part.sum(0)
+
+
+def _bwd_walk_launch(lib, spec: ChainSpec, pas: int, n: int, W, split=False,
+                     g=None, ylast=None, h=None, out=None, zst=None, dbar=None,
+                     q=None, dbo=None, part=None, wl_h=None, wl_x=None):
+    """One backward walk of the bf16 route (``chain_bwd_wgmma_kernel``, pass
+    ``pas``) over ``n`` rows: W is the pass's pack (``bwd_walk``), ``zst`` the
+    stash its tile goes to (the data pass's zs, K5's J-pass's p, the reverse
+    J-pass's qbar)."""
+    nsl, nbytes, off = bwd_walk(spec, pas, split)
+    meta, scales = _c_meta(spec)
+    grid = wgmma_grid(n, _sm_count(W.device.index or 0))
+    err = lib.nunerf_chain_bwd_wgmma(
+        pas, int(split), W.data_ptr() + off, _ptr(g), _ptr(ylast), _ptr(h),
+        _ptr(out), _ptr(zst), _ptr(dbar), _ptr(q), _ptr(dbo), _ptr(part),
+        _ptr(wl_h), _ptr(wl_x), n, meta, scales, spec.n_layers,
+        spec.dims[0], grid, nsl, nbytes, _stream())
+    _check(lib, err, ("chain_bwd_data", "chain_jac_down", "chain_jac_up")[pas])
 
 
 def _stash_layers(spec: ChainSpec, buf, n, layers):
@@ -988,8 +1125,9 @@ def chain_bwd_cuda(spec: ChainSpec, x, g, flat, keep: dict = None):
         stash = torch.empty(n * lay.psum_hidden, **bf)
         gzs = torch.empty(n * lay.psum, **bf)
         _fwd_launch(lib, spec, x, pack_wgmma(spec, flat), B, out, stash)
-        _bwd_data_launch(lib, spec, n, stash, pack_mma_split(spec, flat), g, dx,
-                         gzs, None, dbp, ylast=out)
+        _bwd_walk_launch(lib, spec, BW_DATA, n, pack_wgmma_t(spec, flat, split=True),
+                         split=True, g=g, ylast=out, h=stash, out=dx, zst=gzs,
+                         part=dbp)
         dw = _dw_grouped(lib, spec, n, {"x0": _pad_bf16(x, lay.ep), "h": stash,
                                         "zs": gzs}, jac=False)
         dws = [d.contiguous() for d in unpack_mma(spec, dw)]
@@ -1115,8 +1253,8 @@ def _validate_jac(spec: ChainSpec, x, flat, gy=None, gj=None):
 
 
 def _jac_down_launch(lib, spec, n, stash, WT, flat, j, qst):
-    """The J-pass over ``n`` rows; the seed is read from the unrounded last
-    W_h (and W_x on a last-layer skip)."""
+    """The f32 route's J-pass over ``n`` rows; the seed is read from the
+    unrounded last W_h (and W_x on a last-layer skip)."""
     last = _layer_starts(spec)[-1]
     wl_h = flat[last].contiguous()
     wl_x = flat[last + 1].contiguous() if spec.has_skip[-1] else None
@@ -1124,15 +1262,25 @@ def _jac_down_launch(lib, spec, n, stash, WT, flat, j, qst):
     err = lib.nunerf_chain_jac_down(
         stash.data_ptr(), WT.data_ptr(), wl_h.data_ptr(), _ptr(wl_x),
         j.data_ptr(), _ptr(qst), n, meta, scales, spec.n_layers, spec.dims[0],
-        int(_is_mma(spec)), _stream())
+        _stream())
     _check(lib, err, "chain_jac_down")
+
+
+def _jdown_launch(lib, spec, n, stash, WT, flat, j, qst=None, pst=None):
+    """The bf16 J-pass over ``n`` rows (``pack_wgmma_t`` from its J-pass
+    walk), K5's with its q and p stashes; the seed from the unrounded last
+    W_h (and W_x)."""
+    last = _layer_starts(spec)[-1]
+    wl_x = flat[last + 1].contiguous() if spec.has_skip[-1] else None
+    _bwd_walk_launch(lib, spec, BW_JDOWN, n, WT, h=stash, out=j, q=qst, zst=pst,
+                     wl_h=flat[last].contiguous(), wl_x=wl_x)
 
 
 def _jac_wt(spec: ChainSpec, flat):
     """The rounded weights' transposes for the J-pass and K5's data pass, in
     the route's packing."""
     if _is_mma(spec):
-        return pack_mma(spec, flat, transposed=True)
+        return pack_wgmma_t(spec, flat, split=False)
     return _pack(spec, flat, transposed=True)
 
 
@@ -1162,7 +1310,10 @@ def chain_jac_fwd_cuda(spec: ChainSpec, x, flat):
     for c0 in range(0, n, JAC_CHUNK_ROWS):
         c1 = min(n, c0 + JAC_CHUNK_ROWS)
         _fwd_launch(lib, spec, x[c0:c1], W, B, y[c0:c1], stash)
-        _jac_down_launch(lib, spec, c1 - c0, stash, WT, flat, j[c0:c1], None)
+        if _is_mma(spec):
+            _jdown_launch(lib, spec, c1 - c0, stash, WT, flat, j[c0:c1])
+        else:
+            _jac_down_launch(lib, spec, c1 - c0, stash, WT, flat, j[c0:c1], None)
     launches["chain_jac_fwd"] += 1
     return y, j
 
@@ -1205,7 +1356,6 @@ def chain_jac_bwd_cuda(spec: ChainSpec, x, gy, gj, flat):
 
 def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
     n, e = x.shape
-    n_l = spec.n_layers
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     bf = dict(dtype=torch.bfloat16, device=dev)
@@ -1213,7 +1363,7 @@ def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
     _, _, wsum = _layout(spec)
     starts = _layer_starts(spec)
     B = _pack_biases(spec, flat)
-    Wf, W, WT = pack_wgmma(spec, flat), pack_mma(spec, flat), _jac_wt(spec, flat)
+    Wf, WT = pack_wgmma(spec, flat), _jac_wt(spec, flat)
     wtop = spec.dims[-2]
     rows = min(n, JAC_CHUNK_ROWS)
     hst, pst, qbs = (torch.empty(rows * lay.psum_hidden, **bf) for _ in range(3))
@@ -1225,7 +1375,6 @@ def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
     dw = torch.zeros(lay.wtot, **f32)
     db = torch.zeros(wsum, **f32)
     col = torch.zeros(wtop + e, **f32)
-    meta, scales = _c_meta(spec)
     chunks = [(c0, min(n, c0 + JAC_CHUNK_ROWS)) for c0 in range(0, n, JAC_CHUNK_ROWS)]
     x0b, gjb = _pad_bf16(x, lay.ep), _pad_bf16(gj, lay.ep)
     for c0, c1 in chunks:
@@ -1234,14 +1383,11 @@ def _jac_bwd_mma(lib, spec, x, gy, gj, flat):
         colp = torch.empty((n_blocks, wtop + e), **f32)
         dbp = torch.empty((n_blocks, wsum), **f32)
         _fwd_launch(lib, spec, x[c0:c1], Wf, B, y, hst)
-        _jac_down_launch(lib, spec, nc, hst, WT, flat, j, qst)
-        err = lib.nunerf_chain_jac_up(
-            hst.data_ptr(), qst.data_ptr(), W.data_ptr(), gj[c0:c1].data_ptr(),
-            dbar.data_ptr(), qbs.data_ptr(), pst.data_ptr(), colp.data_ptr(),
-            nc, meta, scales, n_l, e, 1, _stream())
-        _check(lib, err, "chain_jac_up")
-        _bwd_data_launch(lib, spec, nc, hst, WT, gy[c0:c1], dx[c0:c1], zst,
-                         dbar, dbp)
+        _jdown_launch(lib, spec, nc, hst, WT, flat, j, qst, pst)
+        _bwd_walk_launch(lib, spec, BW_JUP, nc, Wf, g=gj[c0:c1], h=hst, zst=qbs,
+                         q=qst, dbo=dbar, part=colp)
+        _bwd_walk_launch(lib, spec, BW_DATA, nc, WT, g=gy[c0:c1], h=hst,
+                         out=dx[c0:c1], zst=zst, dbar=dbar, part=dbp)
         dw += _dw_grouped(lib, spec, nc, {"x0": x0b[c0:c1], "gj": gjb[c0:c1], "h": hst,
                                           "zs": zst, "qbar": qbs, "p": pst}, jac=True)
         db += dbp.sum(0)
@@ -1286,8 +1432,8 @@ def _jac_bwd_f32(lib, spec, x, gy, gj, flat):
         # p overwrites q and zs overwrites dbar in place
         err = lib.nunerf_chain_jac_up(
             stash.data_ptr(), qst.data_ptr(), W.data_ptr(),
-            gj[c0:c1].data_ptr(), dbar.data_ptr(), qbs.data_ptr(), None,
-            colp.data_ptr(), nc, meta, scales, n_l, e, 0, _stream())
+            gj[c0:c1].data_ptr(), dbar.data_ptr(), qbs.data_ptr(),
+            colp.data_ptr(), nc, meta, scales, n_l, e, _stream())
         _check(lib, err, "chain_jac_up")
         _bwd_data_launch(lib, spec, nc, stash, WT, gy[c0:c1], dx[c0:c1], dbar,
                          dbar, dbp)

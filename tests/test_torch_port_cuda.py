@@ -392,6 +392,80 @@ def test_grad0_autograd_function_runs_the_kernels(cuda):
         fm.chain_mlp_with_grad0(spec, x.double(), *flat)
 
 
+# chains of the backward walks' cases (``chain_bwd_wgmma_kernel``): inputs 39
+# (padded to 48) and 259 wide, a 217-wide layer, last layers of 3; relu, no
+# activation and softplus100; a skip on a hidden layer (dx and j from two
+# products) and on the last layer
+WALK_SPECS = {
+    "w39_217": ((39, 217, 256, 3), ("softplus100", "relu", "none"),
+                (False, True, False), (1.0, 1 / math.sqrt(2), 1.0)),
+    "w259_none": ((259, 128, 64, 3), ("none", "softplus100", "none"),
+                  (False, False, True), (0.5, 1.0, 1.0)),
+    # K4/K5 take inputs up to 256 wide
+    "w64_none": ((64, 217, 128, 3), ("none", "relu", "none"), (False, True, True),
+                 (0.5, 1.0, 0.8)),
+}
+WALK_N = [1, 63, 65, 127, 129, 4097]
+
+
+def _walk_case(name, n, dev):
+    dims, acts, skip, scales = WALK_SPECS[name]
+    spec = fm.ChainSpec(dims, acts, skip, scales, compute_dtype="bfloat16")
+    rs = np.random.RandomState(n + len(name))
+    flat = [(rs.randn(*s) / np.sqrt(s[0])).astype(np.float32)
+            for s in fm.flat_weight_shapes(spec)]
+    flat += [rs.randn(1, d).astype(np.float32) * 0.1 for d in dims[1:]]
+    arrays = [rs.randn(n, dims[0]), rs.randn(n, dims[-1]), rs.randn(n, dims[0])]
+    x, g, gj = (torch.as_tensor(a.astype(np.float32), device=dev) for a in arrays)
+    return spec, x, g, gj, [torch.as_tensor(f, device=dev) for f in flat]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", WALK_N)
+@pytest.mark.parametrize("name", list(WALK_SPECS))
+def test_k2_backward_walk_matches_plain_version(cuda, name, n):
+    """K2's bf16 data pass (its wgmma walk down the layers, the split
+    ``W^T``) and its dW GEMM at ragged rows: dx, every dW and db against
+    autograd through the plain chain at the kernel's own relu gates (3e-2),
+    and the data pass against f32 products of its own stashes (dx 1e-5, the
+    rounded gz one bf16 unit).  dx goes to device memory from the
+    accumulators, the first product writing it and the others adding."""
+    spec, x, g, _, flat = _walk_case(name, n, cuda)
+    kept = {}
+    dx, dflat = fm.chain_bwd_cuda(spec, x, g, flat, keep=kept)
+    torch.cuda.synchronize()
+    leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
+    gates = fm.relu_gates(spec, kept["hidden"], kept["y"])
+    y_g, _ = fm.chain_hidden_reference(spec, *leaves, gates=gates)
+    ref = torch.autograd.grad(torch.sum(y_g * g), leaves)
+    for i, (a, r) in enumerate(zip((dx,) + dflat, ref)):
+        _assert_close(a, r, TOL[("bwd", "bfloat16")], f"K2 grad {i}")
+    dx_err, gzs_ulps = fm.data_pass_errors(spec, g, flat, kept, dx)
+    assert dx_err <= 1e-5 and gzs_ulps <= 1.0, (dx_err, gzs_ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", WALK_N)
+@pytest.mark.parametrize("name", ["w39_217", "w64_none"])
+def test_k4_k5_backward_walks_match_plain_version(cuda, monkeypatch, name, n):
+    """K4's J-pass and K5's J-pass, its reverse and its data pass (wgmma
+    walks), with the dW GEMM of both terms, at ragged rows and across
+    chunks: y, j, dx, every dW and db against the plain version (3e-2)."""
+    monkeypatch.setattr(fm, "JAC_CHUNK_ROWS", 2048)
+    spec, x, gy, gj, flat = _walk_case(name, n, cuda)
+    leaves = [a.clone().requires_grad_(True) for a in [x] + flat]
+    y_ref, j_ref = fm.chain_mlp_with_grad0_reference(spec, *leaves)
+    (torch.sum(y_ref * gy) + torch.sum(j_ref * gj)).backward()
+    y, j = fm.chain_jac_fwd_cuda(spec, x, flat)
+    dx, dflat = fm.chain_jac_bwd_cuda(spec, x, gy, gj, flat)
+    torch.cuda.synchronize()
+    t = TOL[("bwd", "bfloat16")]
+    _assert_close(y, y_ref.detach(), TOL[("fwd", "bfloat16")], "K4 y")
+    _assert_close(j, j_ref.detach(), t, "K4 j")
+    for i, (a, r) in enumerate(zip((dx,) + dflat, leaves)):
+        _assert_close(a, r.grad, t, f"K5 grad {i}")
+
+
 def _sphere_soup(n_lat, n_lon, radius=0.5, pad_to=256):
     """(v0, e1, e2) of a latitude/longitude sphere, padded with far-away
     degenerate triangles to a multiple of ``pad_to``."""

@@ -1,14 +1,15 @@
 """K2's data pass on the bf16 route: the three-piece bf16 split of the f32
-``W^T`` and its pack, on the CPU.
+``W^T``, on the CPU.
 
 The kernel multiplies the rounded gz by hi, mid and lo (``split_bf16``) in
 one f32 accumulator in place of the f32 ``W^T``.  These tests hold the split
 itself (exact for ``|W| >= 2**-110``, within 2**-134 below, where bf16's
-subnormal grain ends), the layout of ``pack_mma_split`` that the kernel
-stages, and a plain emulation of the split data pass against the JAX
-``fused_chain_mlp`` gradient - K2 in Pallas interpret mode, bf16 compute, as
-``tests/test_torch_port_fused_mlp.py`` runs it.  The kernel itself runs only
-on the card (``tests/test_torch_port_cuda.py``).
+subnormal grain ends) and a plain emulation of the split data pass against
+the JAX ``fused_chain_mlp`` gradient - K2 in Pallas interpret mode, bf16 compute, as
+``tests/test_torch_port_fused_mlp.py`` runs it.  The kernel's pack of the
+pieces (``pack_wgmma_t``) and an emulation in the kernel's order of the sums
+are held in ``tests/test_torch_port_wgmma_bwd.py``; the kernel itself runs
+only on the card (``tests/test_torch_port_cuda.py``).
 """
 
 import math
@@ -104,34 +105,6 @@ def test_split_products_are_the_f32_products():
     three = gz.double() @ lo.double() + gz.double() @ mid.double() + gz.double() @ hi.double()
     ref = gz.double() @ w.double()
     assert float((three - ref).abs().max()) <= 1e-14 * float(ref.abs().max())
-
-
-@pytest.mark.parametrize("name", ["sdf_value", "relu_predictor", "trunk_cut", "softplus_out"])
-def test_split_pack_round_trips(name):
-    """``pack_mma_split``: every transposed weight at three times its
-    ``pack_mma`` offset, as 16-deep k-blocks of [hi, mid, lo] rows; the
-    pieces read back sum to the weight, hi is the ``pack_mma`` of the
-    transposes, and every pad is zero."""
-    spec, _, flat, _ = _make(name, 1, seed=4)
-    flat = [t(f) for f in flat]
-    lay = fm.mma_layout(spec)
-    buf = fm.pack_mma_split(spec, flat)
-    assert buf.dtype == torch.bfloat16 and buf.numel() == 3 * lay.wtot
-    covered = torch.zeros(3 * lay.wtot, dtype=torch.bool)
-    for w, pieces, (off, rp, cp, r, c) in zip(flat, fm.unpack_mma_split(spec, buf),
-                                              lay.weight_slots(spec)):
-        assert torch.equal(_f64(*pieces), w.double())
-        blk = buf[3 * off:3 * (off + rp * cp)].view(cp // 16, 3, 16, rp)
-        hi_t = blk[:, 0].reshape(cp, rp)
-        assert torch.equal(hi_t[:c, :r].float(), w.t().to(torch.bfloat16).float())
-        full = blk.float().transpose(0, 1).reshape(3, cp, rp)
-        assert not full[:, c:].any() and not full[:, :, r:].any()
-        covered[3 * off:3 * (off + rp * cp)] = True
-    assert covered.all()
-    hi_pack = fm.pack_mma(spec, flat, transposed=True)
-    for (off, rp, cp, _, _) in lay.weight_slots(spec):
-        blk = buf[3 * off:3 * (off + rp * cp)].view(cp // 16, 3, 16, rp)
-        assert torch.equal(blk[:, 0].reshape(-1), hi_pack[off:off + rp * cp])
 
 
 def _split_data_pass(spec, x, g, flat, drop=None):

@@ -1,6 +1,6 @@
 """Where the time of the chain kernels (K1, K2, K4, K5) goes, on one GPU.
 
-    python3 tools/prof_chain_kernels.py [--variants | --split-faults] [--n 131072]
+    python3 tools/prof_chain_kernels.py [--variants | --split-faults | --paths] [--n 131072]
 
 Without ``--variants``: each wrapper at the SDF chain's full width (and K1 at
 a 259-input head), bf16, random weights from a seed; CUDA-event time of the
@@ -8,20 +8,26 @@ whole call (packing, padding and the sums of partials included) and, from
 ``torch.profiler``, the device time of every kernel the call launches.
 
 With ``--variants``: builds ``csrc/fused_mlp.cu`` with one piece of the
-tensor-core route compiled out at a time by the source's ``-DPROF_NO_*``
-switches (such a build computes nothing right and is only timed), and with
-other pipeline shapes, one ``nvcc`` each, all started together, into
-``nunerf_tpu_torch/build/variants/``; then times K1, K4, K5 and K2 through each.
-K1's forward (``chain_fwd_wgmma_kernel``, also pass 1 of K2, K4 and K5): its
-``wgmma`` products, its bulk weight copies, the ring's depth
-(``-DWG_MAXST``), and the first two with the activation math (its skeleton:
-loads, stores, barriers).  The ``mma.sync`` passes of K2, K4 and K5:
-the ``mma.sync``, the ``cp.async`` weight staging, the ``ldmatrix`` loads,
-the L2 prefetch of the epilogues' inputs, other pipeline shapes (``-DKS``
-rows a weight slice, ``-DNSTAGE`` stages).  The activation math of every
-epilogue goes with ``-DPROF_NO_ACT``.  What a piece costs is the base time
-less the time without it; if the pieces' costs add up to the whole, nothing
-overlaps.
+bf16 route compiled out at a time by the source's ``-DPROF_NO_*`` switches
+(such a build computes nothing right and is only timed), and with other
+ring depths, one ``nvcc`` each, all started together, into
+``nunerf_tpu_torch/build/variants/``; then times K1, K4, K5 and K2 through
+each.  The switches act on every pass of the route alike: K1's forward
+(``chain_fwd_wgmma_kernel``, also pass 1 of K2, K4 and K5), the backward
+walks (``chain_bwd_wgmma_kernel``: the data pass, the J-pass and its
+reverse) and the dW GEMM (``chain_dw_wgmma_kernel``): their ``wgmma``
+products (``-DPROF_NO_WGMMA``), their bulk copies, L2 prefetches and TMA
+boxes (``-DPROF_NO_BULK``), the ring's depth (``-DWG_MAXST``), the
+epilogues' activation math (``-DPROF_NO_ACT``), and all three at once (the
+skeleton: loads, stores, barriers).  What a piece costs is the base time
+less the time without it; if the pieces' costs add up to the whole,
+nothing overlaps.
+
+With ``--paths``: records the row counts and chains K2 is called with on
+the stage-1 paths (``BENCH_CFG`` at step 0, where the init-SDF regulariser
+runs K2, and path C, ``fused_mlp``, at step 25000: the NeRF++ trunk and the
+shading heads), each call's own inputs kept, then times every distinct
+(chain, rows) call as above, whole call and each kernel it launches.
 
 With ``--split-faults``: builds the source as it is and with a fault planted
 in K2's bf16 data pass (``-DPROF_SPLIT_SKIP``: the ``lo`` or the ``mid`` piece
@@ -47,28 +53,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from nunerf_tpu_torch.ops import cuda_build  # noqa: E402
 from nunerf_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 
-SQ2 = 1 / math.sqrt(2)
-SDF = ((39, 256, 256, 256, 217, 256, 256, 256, 256), ("softplus100",) * 8 + ("none",),
-       (False,) * 4 + (True,) + (False,) * 4, (1.0,) * 4 + (SQ2,) + (1.0,) * 4)
-HEAD = ((259, 256, 256, 256, 3), ("relu",) * 3 + ("none",), (False,) * 4, (1.0,) * 4)
+# the SDF chain without its last layer, and the 259-input shading head
+from chip_smoke import SDF_CHAIN as SDF, head_chain  # noqa: E402
+
+HEAD = head_chain(259, 3)
 
 # -D flags of csrc/fused_mlp.cu: a piece compiled out, or another pipeline shape
 VARIANTS = {"base": [],
-            "K1: no wgmma": ["-DPROF_NO_WGMMA"],
-            "K1: no bulk copies": ["-DPROF_NO_BULK"],
-            "K1: ring of 2": ["-DWG_MAXST=2"],
-            "K1: ring of 3": ["-DWG_MAXST=3"],
-            "K1: skeleton": ["-DPROF_NO_WGMMA", "-DPROF_NO_BULK", "-DPROF_NO_ACT"],
-            "no mma.sync": ["-DPROF_NO_MMA"],
-            "no cp.async": ["-DPROF_NO_CP_ASYNC"],
+            "no wgmma": ["-DPROF_NO_WGMMA"],
+            "no bulk copies": ["-DPROF_NO_BULK"],
+            "ring of 2": ["-DWG_MAXST=2"],
+            "ring of 3": ["-DWG_MAXST=3"],
             "no activation math": ["-DPROF_NO_ACT"],
-            "no L2 prefetch": ["-DPROF_NO_PREFETCH"],
-            "no ldmatrix": ["-DPROF_NO_LDMATRIX"],
-            "KS=64 NSTAGE=2": ["-DKS=64", "-DNSTAGE=2"],
-            "KS=32 NSTAGE=2": ["-DKS=32", "-DNSTAGE=2"],
-            "split pieces unrolled": ["-DPROF_SPLIT_UNROLLED"],
-            "split 3 stages": ["-DNSTAGE3=3"],
-            "dx from accumulators": ["-DPROF_DX_GLOBAL"]}
+            "skeleton": ["-DPROF_NO_WGMMA", "-DPROF_NO_BULK", "-DPROF_NO_ACT"]}
 
 # -D flags of the planted faults: a piece of K2's split left out
 FAULTS = {"sound": [], "no lo": ["-DPROF_SPLIT_SKIP=2"], "no mid": ["-DPROF_SPLIT_SKIP=1"]}
@@ -109,6 +106,39 @@ def by_kernel(what, fn, reps):
           f"{sum(r[1] for r in rows) / 1e3:.3f} ms")
     for key, us, count in rows[:8]:
         print(f"   {us / 1e3:8.3f} ms  x{count:5.1f}  {key[:88]}")
+
+
+def path_calls(dev):
+    """``{(dims, n): (spec, x, g, flat, count)}`` of the K2 calls of one
+    stage-1 step at step 0 (plain) and one at step 25000 with ``fused_mlp``:
+    the first call of each chain and row count kept with its inputs."""
+    from nunerf_tpu_torch.bench import BENCH_CFG, synthetic_batch
+    from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+    from nunerf_tpu_torch.train.trainer import TrainStep
+
+    calls, orig = {}, fm.chain_bwd_cuda
+
+    def record(spec, x, g, flat, keep=None):
+        key = (spec.dims, x.shape[0])
+        if key in calls:
+            calls[key][-1] += 1
+        else:
+            calls[key] = [spec, x.detach().clone(), g.detach().clone(),
+                          [f.detach().clone() for f in flat], 1]
+        return orig(spec, x, g, flat, keep)
+
+    fm.chain_bwd_cuda = record
+    try:
+        for step, gate in ((0, None), (25000, "fused_mlp")):
+            cfg = dict(BENCH_CFG, **({gate: True} if gate else {}))
+            train = TrainStep(ShapeRenderer(cfg, device=dev, seed=0), 5e-4)
+            train(synthetic_batch(cfg["train_ray_num"], dev), step)
+            torch.cuda.synchronize()
+            print(f"step {step} gate {gate}: K2 calls so far "
+                  f"{sum(c[-1] for c in calls.values())}")
+    finally:
+        fm.chain_bwd_cuda = orig
+    return calls
 
 
 def build_variants(variants):
@@ -152,6 +182,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--split-faults", action="store_true")
+    ap.add_argument("--paths", action="store_true")
     ap.add_argument("--n", type=int, default=131072)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -182,6 +213,11 @@ def main():
         f"K2 value, N={half}": (lambda: fm.chain_bwd_cuda(val[0], xhalf, g1, val[1]), 3),
         "K2 head": (lambda: fm.chain_bwd_cuda(head[0], xh, gh, head[1]), 3),
     }
+    if args.paths:
+        for (dims, rows), (spec, xp, gp, fp, count) in path_calls(dev).items():
+            by_kernel(f"K2 {dims} {spec.compute_dtype}, N={rows} (x{count} a step)",
+                      lambda: fm.chain_bwd_cuda(spec, xp, gp, fp), 5)
+        return 0
     if args.split_faults:
         torch.backends.cuda.matmul.allow_tf32 = False
         wide = make_chain(*WIDE, dev, gen)
@@ -203,6 +239,8 @@ def main():
         cuda_build.load_from("fused_mlp", lib)
         print(f"{name:20s} " + "   ".join(f"{what} {cuda_ms(fn, reps):.3f} ms"
                                            for what, (fn, reps) in calls.items()), flush=True)
+        for what in ("K5", f"K2 value, N={half}"):
+            by_kernel(f"{name}: {what}", *calls[what])
     return 0
 
 
