@@ -120,7 +120,18 @@ Phases (any failure exits non-zero):
      never reaches; every artifact's presence, the chained mesh names, the
      outer chamfer and the test scores checked, and ``eval_shell`` on the
      leg's checkpoint on the card against the CPU (1e-5); the inner mesh of
-     a 100-step stage 2 is empty, and only its report as empty is checked.
+     a 100-step stage 2 is empty, and only its report as empty is checked;
+ 12. the leg runner's zero-thickness ``stage2`` leg (``phase_pipeline_stage2``,
+     path ``pipeline_stage2``: K3 in its budgeted ``train`` child, counted
+     there and read back from the child's launch record, K1 in
+     ``extract-mesh-stage2``, K3 in ``eval-images``) in ``phase_pipeline``'s
+     working directory, on its 100-step ``front``:
+     ``configs/stage2/nerf/nested.yaml`` at full width with its own rays and
+     samples, cut to 100 steps (validations and checkpoints at 50 and 100),
+     the front mesh chained through ``cfg_overrides``; every artifact, the
+     mesh names, the steps and validations logged, a finite loss, the inner
+     chamfer and the 8 test views finite (not judged), the step's ms, rays/s
+     and the child's peak memory printed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -587,13 +598,10 @@ print(json.dumps(res))
 """
 
 # the passes of K2, K4 and K5 by their device kernels (chain_bwd_wgmma_kernel's
-# first template argument: BW_DATA 0, BW_JDOWN 1, BW_JUP 2); the parent's
-# mma.sync kernels for ``--parent`` runs on a tree that still has them
+# first template argument: BW_DATA 0, BW_JDOWN 1, BW_JUP 2)
 PASS_OF = {"chain_fwd_wgmma_kernel": "pass 1 (forward, h stash)",
            "chain_bwd_wgmma_kernel<0": "data pass", "chain_bwd_wgmma_kernel<1": "J-pass",
-           "chain_bwd_wgmma_kernel<2": "reverse J-pass", "chain_dw_wgmma_kernel": "dW",
-           "chain_bwd_data_mma_kernel": "data pass", "chain_jac_down_mma_kernel": "J-pass",
-           "chain_jac_up_mma_kernel": "reverse J-pass", "chain_dw_mma_kernel": "dW"}
+           "chain_bwd_wgmma_kernel<2": "reverse J-pass", "chain_dw_wgmma_kernel": "dW"}
 
 
 def by_pass(kernels):
@@ -2718,6 +2726,109 @@ def phase_pipeline_shell(dev, work):
     return launches, out
 
 
+PIPELINE_STAGE2_STEPS = 100   # the stage2 leg's 60,000 steps cut to 100
+PIPELINE_STAGE2_INTERVAL = 50   # its validations and checkpoints
+PIPELINE_STAGE2_BUDGET = 1200.0   # seconds of its train child: never reached
+
+
+def phase_pipeline_stage2(dev, work):
+    """The leg runner's zero-thickness ``stage2`` leg in ``phase_pipeline``'s
+    working directory, on its ``front`` leg: ``configs/stage2/nerf/nested.yaml``
+    at full width, with its own rays and samples (1,024 rays, 176 clipped
+    outer samples, 64 + 2 x 32 inside the glass, three K3 traces a step),
+    cut to ``PIPELINE_STAGE2_STEPS`` steps with validations and checkpoints
+    every ``PIPELINE_STAGE2_INTERVAL`` and reading the front leg's chained
+    mesh through ``cfg_overrides``; its ``train`` in a budgeted child that
+    never reaches its budget, then ``extract-mesh-stage2`` at 256^3 (K1),
+    ``postprocess-stage2 --outer`` the front mesh, ``eval-geometry`` of the
+    inner mesh against the scene's and ``eval-images`` on the test split
+    (K3).  Checked: every artifact, the chained mesh names, the steps and
+    validations logged, a finite loss, the inner chamfer and the 8 test
+    views finite (not judged: 100 steps carve no inner surface), and the
+    launches: K3 in the child (its own count, ``train_child``) and K1 and K3
+    in this process.  Returns (launches of the path: this process's and the
+    child's, summed; numbers)."""
+    import os
+
+    from nunerf_tpu_torch import pipeline as pl
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+
+    t_phase = time.perf_counter()
+    leg_dir = os.path.join(work, "leg_front")
+    n, every = PIPELINE_STAGE2_STEPS, PIPELINE_STAGE2_INTERVAL
+    mesh = f"./data/meshes/nested-{PIPELINE_STEPS}_simplified.ply"
+    cut = dict(total_step=n, val_interval=every, save_interval=every, stage1_mesh_dir=mesh)
+    fm.reset_launches()
+    ri.reset_launches()
+    rec = pl.run_leg("stage2", leg_dir, budget=PIPELINE_STAGE2_BUDGET, device=dev,
+                     cfg_overrides={pl.S2_NESTED: cut})
+    torch.cuda.synchronize()
+    here = dict(fm.launches, **ri.launches)
+
+    child = rec.get("train_child")
+    if child is None:
+        raise AssertionError(f"the stage2 train child left no launch record: {rec['commands']}")
+    launches = {k: here[k] + child["launches"].get(k, 0) for k in here}
+    inner = f"data/meshes/nested_s2-{n}-inner.ply"
+    if rec["meshes"] != dict(inner=inner, inner_post=inner[:-4] + "_post.ply"):
+        raise AssertionError(f"the stage2 leg's meshes are {rec['meshes']}")
+    post = [c["argv"] for c in rec["commands"] if c["command"] == "postprocess-stage2"]
+    if post != [["postprocess-stage2", "--input", inner, "--outer", mesh]]:
+        raise AssertionError(f"postprocess-stage2 ran {post}")
+    want = [os.path.join(leg_dir, p) for p in (
+        "data/model/nested_s2/model.ckpt", "data/model/nested_s2/model_best.ckpt",
+        "data/model/nested_s2/train_log.jsonl", "data/eval/nested_s2/eval_test.json",
+        "runs/leg_stage2.json", *rec["meshes"].values())]
+    missing = [p for p in want if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"the stage2 leg left no {missing}")
+    if rec["steps"]["nested_s2"] != {"from": 0, "to": n, "total_step": n, "paused": False}:
+        raise AssertionError(f"the stage2 leg trained {rec['steps']}")
+    logs = read_log(os.path.join(leg_dir, "data/model/nested_s2/train_log.jsonl"))
+    val = {r["step"]: r for r in logs if r["prefix"] == "val"}
+    last = [r for r in logs if r["prefix"] == "train" and r["step"] == n]
+    if sorted(val) != list(range(every, n + 1, every)) or not all(
+            math.isfinite(r["psnr"]) for r in val.values()):
+        raise AssertionError(f"the stage2 leg validated {val}")
+    if not (last and math.isfinite(last[0]["loss_total"]) and last[0]["step_ms"] > 0
+            and last[0]["rays_per_sec"] > 0):
+        raise AssertionError(f"the stage2 leg logged {last}")
+    last = last[0]
+    cham = rec["chamfer"]["inner"]["chamfer"]
+    ev = rec["eval_images"]["nested_s2"]
+    if cham is None or not math.isfinite(cham):
+        raise AssertionError(f"eval-geometry of the inner mesh: {rec['chamfer']}")
+    if ev["views"] != 8 or ev["step"] not in range(every, n + 1, every) or not (
+            math.isfinite(ev["mean_psnr"]) and math.isfinite(ev["mean_ssim"])):
+        raise AssertionError(f"eval-images: {ev}")
+    for where, counter, count in (("the train child", "closest_hit", child["launches"]),
+                                  ("eval-images", "closest_hit", here),
+                                  ("extract-mesh-stage2", "chain_fwd", here)):
+        if not count.get(counter, 0) > 0:
+            raise AssertionError(f"{where} launched {counter} no time: {count}")
+    rays = round(last["rays_per_sec"] * last["step_ms"] / 1e3)
+    out = dict(seconds={c["command"]: c["s"] for c in rec["commands"]}, rays=rays,
+               step_ms=last["step_ms"], rays_per_s=last["rays_per_sec"],
+               peak_gib=(child["max_memory_allocated"] or 0) / 2 ** 30,
+               loss_total=last["loss_total"], ior_frozen=last.get("ior_frozen"),
+               val={s: (r["psnr"], r["ssim"]) for s, r in val.items()}, inner_chamfer=cham,
+               test_psnr=ev["mean_psnr"], test_ssim=ev["mean_ssim"], test_step=ev["step"],
+               outer_mesh=mesh, launches=launches,
+               launches_by_process={"train_child": child["launches"], "this": here})
+    log(f"stage2 leg (pipeline.run_leg, nested.yaml at full width: {rays} rays a step, {n} "
+        f"steps, on {mesh}): " + ", ".join(f"{c['command']} {c['s']:.2f} s"
+                                          for c in rec["commands"]))
+    log(f"stage2 leg: step {n} {out['step_ms']:.1f} ms/step ({last['rays_per_sec']:.0f} "
+        f"rays/s, the child's log), peak memory {out['peak_gib']:.2f} GiB; validation "
+        f"PSNR/SSIM {out['val']}; inner chamfer {cham:.6f} (not judged); test ({ev['views']} "
+        f"views, step {ev['step']}) PSNR {ev['mean_psnr']:.3f} SSIM {ev['mean_ssim']:.4f}; "
+        f"launches {out['launches_by_process']}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase_pipeline_stage2: {out['s']:.1f} s")
+    return launches, out
+
+
 def k3_device_split(fn, reps=3):
     """Device time of K3's kernels over ``reps`` calls of ``fn``, by kernel
     (``torch.profiler``, as ``tools/prof_k3.py`` splits it): {name: ms a
@@ -3641,6 +3752,7 @@ def main():
         paths.update(pipe_paths)
         paths["pipeline_front"], res_leg = phase_pipeline(
             dev, work, os.path.join(work, "model", SHELL_CFG["name"], "model.ckpt"))
+        paths["pipeline_stage2"], res_leg_stage2 = phase_pipeline_stage2(dev, work)
         paths["pipeline_shell"], res_leg_shell = phase_pipeline_shell(dev, work)
         tool_paths, res_tools = phase_tools(dev, work, ckpt1, res_x["extract_s1"]["mesh"],
                                             outer_mesh)
@@ -3666,7 +3778,8 @@ def main():
                           ("parallel_s2_f32", "closest_hit"),
                           ("pipeline_front", "chain_fwd"), ("pipeline_front", "chain_bwd"),
                           ("pipeline_shell", "chain_fwd"), ("pipeline_shell", "chain_bwd"),
-                          ("pipeline_shell", "closest_hit")):
+                          ("pipeline_shell", "closest_hit"),
+                          ("pipeline_stage2", "chain_fwd"), ("pipeline_stage2", "closest_hit")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -3754,6 +3867,7 @@ def main():
                "shell_pipeline": res_pipe,
                "pipeline_front": res_leg,
                "pipeline_shell": res_leg_shell,
+               "pipeline_stage2": res_leg_stage2,
                "tools": res_tools,
                "parallel": res_par,
                "seconds": time.perf_counter() - t_start}

@@ -36,6 +36,12 @@ them: every process joins the group (``nccl``, each on ``cuda:LOCAL_RANK``;
 rank 0 writes and prints.  On N cards:
 
     torchrun --nproc_per_node=N -m nunerf_tpu_torch.cli train --cfg ...
+
+With ``NUNERF_LAUNCH_LOG=PATH`` in the environment, a subcommand that
+returns writes to PATH the launch counts of this process's kernels
+(``fused_mlp.launches``, ``ray_intersect.launches``) and the card's peak
+allocated bytes (null on the CPU), as one JSON object: how the leg runner
+reads what a ``train`` child ran.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import time
 import numpy as np
 
 SWEEP_CHUNK = 2 ** 21
+LAUNCH_LOG = "NUNERF_LAUNCH_LOG"
 
 
 def _checkpoint(cfg, ckpt):
@@ -685,7 +692,24 @@ def main(argv=None):
     sp.add_argument("--output", default="data/materials")
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    out = args.fn(args)
+    if os.environ.get(LAUNCH_LOG):
+        write_launch_log(os.environ[LAUNCH_LOG])
+    return out
+
+
+def write_launch_log(path):
+    """This process's kernel launch counts and the card's peak allocated
+    bytes (None without CUDA), as JSON to ``path``."""
+    import torch
+
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None
+    with open(path, "w") as f:
+        json.dump({"launches": dict(fm.launches, **ri.launches),
+                   "max_memory_allocated": peak}, f)
 
 
 if __name__ == "__main__":

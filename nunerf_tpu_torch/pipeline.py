@@ -38,7 +38,10 @@ from the last checkpoint and a rerun resumes exactly.  The child is stopped
 right after a ``model.ckpt`` save once the next save, at the pace of the
 last one, would land past the budget, so no trained step is lost; else at
 the budget (checkpoints are written through ``.tmp`` and ``os.replace``, so
-a kill never leaves half of one).  The other legs train in this process.
+a kill never leaves half of one).  A child that ends by itself leaves its
+kernels' launch counts and peak memory in the record (``train_child``,
+through ``cli``'s ``NUNERF_LAUNCH_LOG``).  The other legs train in this
+process.
 
 ``--keep 2500,5000,7500`` hands a leg's ``train`` (the child too) the
 steps at which it also writes the parameters alone, gzip'd, to
@@ -180,10 +183,15 @@ class _Leg:
         """The child ``train``; True where it was stopped (a pause): right
         after a save of ``ckpt`` when the next would land past the budget,
         else at the budget."""
+        from nunerf_tpu_torch import cli
+
         cmd = train_command(path, self.device) + _keep_args(self.keep)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        os.makedirs("runs", exist_ok=True)
+        log = env[cli.LAUNCH_LOG] = os.path.abspath(
+            os.path.join("runs", f"launches_train_{os.getpid()}.json"))
         print(f"[pipeline] train (budget {budget:.0f} s): {' '.join(cmd)}", flush=True)
         t0 = time.perf_counter()
         child = subprocess.Popen(cmd, env=env, start_new_session=True)
@@ -204,6 +212,10 @@ class _Leg:
         secs = time.perf_counter() - t0
         self.record["commands"].append({"command": "train", "argv": cmd[2:], "s": secs,
                                         "budget_s": budget, "paused": rc is None})
+        if os.path.exists(log):
+            with open(log) as f:
+                self.record["train_child"] = json.load(f)
+            os.remove(log)
         print(f"[pipeline] train: {secs:.2f} s", flush=True)
         if rc not in (None, 0):
             raise LegError(f"train --cfg {path} exited with {rc}")

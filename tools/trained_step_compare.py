@@ -664,15 +664,16 @@ REGIONS = ("background", "rim", "inner", "behind", "tir")
 SCENE_ARRAYS = ("v0", "e1", "e2", "verts", "vertex_normals", "vertex_curvature")
 
 
-def shell_cfg(model_dir, rays=None, full=True):
-    """The shell leg's stage-2 config as the leg wrote it into its working
-    directory, the current one (its ``./datasets``, ``./data/...`` and
-    ``./configs/...`` resolve there), with its bf16 switches off unless
-    ``full`` is false (the frozen nets' ``mixed_precision``, stage 2's,
-    and the inner SDF's ``sdf_mixed_precision``)."""
+def shell_cfg(model_dir, rays=None, full=True, rel=SHELL_CFG):
+    """A stage-2 leg's config (the shell's unless ``rel`` names another) as
+    the leg wrote it into its working directory, the current one (its
+    ``./datasets``, ``./data/...`` and ``./configs/...`` resolve there), with
+    its bf16 switches off unless ``full`` is false (the frozen nets'
+    ``mixed_precision``, stage 2's, and the inner SDF's
+    ``sdf_mixed_precision``)."""
     from nunerf_tpu_torch.config import load_cfg
 
-    cfg = load_cfg(SHELL_CFG)
+    cfg = load_cfg(rel)
     cfg.update(model_dir=model_dir, compilation_cache_dir="")
     if full:
         cfg.update(mixed_precision=False, sdf_mixed_precision=False)
@@ -926,7 +927,7 @@ def _masked(outputs):
 def run_shell_f64(args, log):
     """One f64 step of both packages at each checkpoint (every width and
     sample count the config's; ``--rays`` a step)."""
-    cfg = shell_cfg(args.model_dir, args.rays or 128)
+    cfg = shell_cfg(args.model_dir, args.rays or 128, rel=args.cfg)
     # both scenes take the brute closest hit: JAX's tile-culled descent
     # (the default above 32,768 triangles) does not trace under x64 (its
     # dynamic_slice gets an int64 and an int32 index)
@@ -963,8 +964,9 @@ def run_shell_render(args, log):
     from nunerf_tpu_torch.convert import load_jax_params
     from nunerf_tpu_torch.data.ray_store import construct_nerf_ray_batch
 
-    cfg = shell_cfg(args.model_dir)
-    with open(os.path.join("datasets", "nested_shell", "meta.json")) as f:
+    cfg = shell_cfg(args.model_dir, rel=args.cfg)
+    with open(os.path.join(cfg["dataset_dir"], cfg["database_name"].split("/")[-1],
+                           "meta.json")) as f:
         ior = float(json.load(f)["ior"])
     J, P = ShellJaxSide.from_trainer(cfg, False), shell_port_side(cfg, False)
     step, params, _ = read_checkpoint(args.ckpt[0], args.moments, need_moments=False)
@@ -1014,7 +1016,7 @@ def run_shell_traj(args, log):
     move, each package's mean terms over the span, and the steps where each
     holds the thickness and IoR fields.  ``--control``: JAX against JAX one
     f32 ulp up, in place of the port."""
-    cfg = shell_cfg(args.model_dir, args.rays)
+    cfg = shell_cfg(args.model_dir, args.rays, rel=args.cfg)
     J = ShellJaxSide.from_trainer(cfg, False)
     rn = J.cfg["train_ray_num"]
     step0, params, opt = read_checkpoint(args.ckpt[0], args.moments)
@@ -1077,6 +1079,9 @@ def main(argv=None):
     ap.add_argument("--workdir", default=None,
                     help="shell modes: the shell legs' working directory (its datasets/, "
                          "configs/ and the stage-1 checkpoint and mesh under data/)")
+    ap.add_argument("--cfg", default=SHELL_CFG,
+                    help="shell modes: the stage-2 config in --workdir (the shell's by "
+                         "default; configs/stage2/nerf/nested.yaml for the nested stage2 leg)")
     ap.add_argument("--views", default=None,
                     help="shell-render: the views to render, comma-separated indices into "
                          "[validation, test 0, test 1, ...] (all by default)")
