@@ -131,7 +131,19 @@ Phases (any failure exits non-zero):
      the front mesh chained through ``cfg_overrides``; every artifact, the
      mesh names, the steps and validations logged, a finite loss, the inner
      chamfer and the 8 test views finite (not judged), the step's ms, rays/s
-     and the child's peak memory printed.
+     and the child's peak memory printed;
+ 13. the leg runner's three real-capture legs (``phase_pipeline_real``,
+     path ``pipeline_real``) in a working directory of their own, each at
+     full width with its config's rays and samples cut to 100 steps:
+     ``real_front``, ``real_boot`` (prior masks from the cloud's hull, the
+     mask term on the ``rawmask`` database, masks rendered anew from its
+     mesh), ``real_stage2`` on the boot's mesh (``boot_overrides``) in a
+     budgeted child; the 56 masks of each kind, every artifact, finite
+     losses, chamfers, test views and ``eval_shell`` checked, and each
+     subcommand's launches (K1, K2 in the stage-1 ``train``s, K1 in the
+     extractions, K3 in ``postprocess-outer``, ``render-mask``, the child
+     and the stage 2's ``eval-images``); step ms, rays/s and peak memory of
+     each leg and the seconds of each subcommand printed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2829,6 +2841,217 @@ def phase_pipeline_stage2(dev, work):
     return launches, out
 
 
+PIPELINE_REAL_STEPS = 100   # each real leg's 20,000 / 32,000 / 30,000 steps cut to 100
+PIPELINE_REAL_INTERVAL = 50   # their validations and checkpoints
+PIPELINE_REAL_BUDGET = 1200.0   # seconds of real_stage2's train child: never reached
+REAL_VIEWS, REAL_TEST_VIEWS = 56, 7   # synth-scene --colmap --n-train 56; 1/8 held out
+
+
+def phase_pipeline_real(dev, work):
+    """The leg runner's three real-capture legs in a working directory of
+    their own, at full width with each config's own rays and samples, each
+    cut to ``PIPELINE_REAL_STEPS`` steps with validations and checkpoints
+    every ``PIPELINE_REAL_INTERVAL``: ``real_front`` (``synth-scene --colmap
+    --shell --n-train 56``, ``configs/shape/real/nested_real.yaml``: NeRO
+    rays, ``sphere_direction``, ``normal_ori``; ``extract-mesh-stage1`` at
+    384^3, ``postprocess-outer``, ``eval-geometry``, ``render-mask``,
+    ``mask-erosion``), ``real_boot`` (``silhouette-prior``, ``render-mask``
+    of the hull, ``nested_real_boot.yaml`` on the ``rawmask`` database with
+    the mask term, then its mesh at 384^3, ``postprocess-outer``,
+    ``eval-geometry``, ``render-mask`` and ``mask-erosion`` anew,
+    ``eval-images --split test`` of ``model.ckpt``), then ``real_stage2``
+    (``configs/stage2/real/nested_real.yaml`` on the boot's mesh and
+    checkpoint through ``pipeline.boot_overrides``; its ``train`` in a
+    budgeted child that never reaches its budget, ``eval_shell``,
+    ``extract-mesh-stage2`` at 256^3, ``postprocess-stage2``,
+    ``eval-geometry``, ``eval-images --split test``).  Checked: every
+    artifact and the mesh names handed on, the 56 prior, boot and eroded
+    masks, the steps and validations logged, finite losses, the chamfers,
+    the test views and ``eval_shell``'s fields finite (not judged: 100 steps
+    carve no surface), and the launches of each subcommand: K1 and K2 in the
+    stage-1 ``train``s, K1 in the three extractions and the boot's
+    ``eval-images``, K3 in ``postprocess-outer``, ``render-mask``, the
+    stage-2 child (its own count) and the stage 2's ``eval-images``.  Returns (launches of the path: this
+    process's and the child's, summed; numbers)."""
+    import glob
+    import hashlib
+    import os
+
+    from nunerf_tpu_torch import pipeline as pl
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+
+    t_phase = time.perf_counter()
+    leg_dir = os.path.join(work, "leg_real")
+    n, every = PIPELINE_REAL_STEPS, PIPELINE_REAL_INTERVAL
+    cut = dict(total_step=n, val_interval=every, save_interval=every)
+    over = {pl.S1_REAL: cut, pl.S1_BOOT: cut, pl.S2_REAL: cut}
+    scene = os.path.join(leg_dir, "datasets/nested_real")
+    by_command, masks, peaks = [], {}, {}
+    real_cli = pl._Leg.cli
+
+    def cli(leg, *argv):
+        # each subcommand's launches, and the masks each mask writer leaves
+        before = dict(fm.launches, **ri.launches)
+        out = real_cli(leg, *argv)
+        torch.cuda.synchronize()
+        after = dict(fm.launches, **ri.launches)
+        by_command.append((leg.record["leg"], argv[0],
+                           {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        if argv[0] in ("render-mask", "mask-erosion"):
+            sub = "mask" if argv[0] == "render-mask" else "mask_erosion"
+            files = sorted(glob.glob(os.path.join(scene, sub, "*.png")))
+            digest = hashlib.sha256(b"".join(open(f, "rb").read() for f in files)).hexdigest()
+            masks.setdefault(leg.record["leg"], []).append((argv[0], len(files), digest))
+        return out
+
+    fm.reset_launches()
+    ri.reset_launches()
+    pl._Leg.cli = cli
+    recs = {}
+    try:
+        for leg in ("real_front", "real_boot", "real_stage2"):
+            torch.cuda.reset_peak_memory_stats()
+            if leg == "real_stage2":
+                boot = pl.boot_overrides(leg_dir)[pl.S2_REAL]
+                over[pl.S2_REAL] = dict(cut, **boot)
+            recs[leg] = pl.run_leg(leg, leg_dir, device=dev, cfg_overrides=over,
+                                   budget=PIPELINE_REAL_BUDGET if leg == "real_stage2" else None)
+            torch.cuda.synchronize()
+            peaks[leg] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        pl._Leg.cli = real_cli
+    here = dict(fm.launches, **ri.launches)
+    front, boot, stage2 = recs["real_front"], recs["real_boot"], recs["real_stage2"]
+    child = stage2.get("train_child")
+    if child is None:
+        raise AssertionError(f"real_stage2's train child left no launch record: "
+                             f"{stage2['commands']}")
+    launches = {k: here[k] + child["launches"].get(k, 0) for k in here}
+
+    names = {"real_front": "nested_real", "real_boot": "nested_real_boot"}
+    for leg, name in names.items():
+        want = dict(stage1=f"data/meshes/{name}-{n}_simplified.ply",
+                    outer=f"data/meshes/{name}-{n}_simplified_outer.ply")
+        if recs[leg]["meshes"] != want:
+            raise AssertionError(f"{leg}'s meshes are {recs[leg]['meshes']}, not {want}")
+    traced = "./" + boot["meshes"]["outer"]
+    if stage2["stage1"] != {"mesh": traced, "ckpt": "./data/model/nested_real_boot/model.ckpt",
+                            "ckpt_step": n}:
+        raise AssertionError(f"real_stage2 traced {stage2['stage1']}")
+    inner = f"data/meshes/nested_real_s2-{n}-inner.ply"
+    if stage2["meshes"] != dict(inner=inner, inner_post=inner[:-4] + "_post.ply"):
+        raise AssertionError(f"real_stage2's meshes are {stage2['meshes']}")
+    want = [os.path.join(leg_dir, p) for p in (
+        "datasets/nested_real/meta.json", "data/meshes/nested_real_silhouette.ply",
+        "data/eval/nested_real_boot/eval_test.json", "data/eval/nested_real_s2/eval_test.json",
+        "runs/eval_shell_nested_real_s2.json",
+        *[f"runs/leg_{leg}.json" for leg in recs],
+        *[f"data/model/{name}/{f}" for name in ("nested_real", "nested_real_boot",
+                                                "nested_real_s2")
+          for f in ("model.ckpt", "model_best.ckpt", "train_log.jsonl")],
+        *[m for r in recs.values() for m in r["meshes"].values()])]
+    missing = [p for p in want if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"the real legs left no {missing}")
+    # the masks: the front's, the boot's prior ones (the hull's), its own
+    # and the eroded ones, all 56, and the boot's differing from the prior
+    want_masks = {"real_front": ["render-mask", "mask-erosion"],
+                  "real_boot": ["render-mask", "render-mask", "mask-erosion"]}
+    for leg, cmds in want_masks.items():
+        got = masks.get(leg, [])
+        if [c for c, _, _ in got] != cmds or any(k != REAL_VIEWS for _, k, _ in got):
+            raise AssertionError(f"{leg}'s masks: {got}")
+    if masks["real_boot"][0][2] == masks["real_boot"][1][2]:
+        raise AssertionError("real_boot's own masks are its prior masks")
+
+    out = dict(seconds=[(r["leg"], c["command"], c["s"]) for r in recs.values()
+                        for c in r["commands"]],
+               chamfer={"real_front": front["chamfer"]["outer"]["chamfer"],
+                        "real_boot": boot["chamfer"]["outer"]["chamfer"],
+                        "real_stage2": stage2["chamfer"]["inner"]["chamfer"]},
+               test={k: v for r in (boot, stage2) for k, v in r["eval_images"].items()},
+               eval_shell=stage2["eval_shell"], traced=stage2["stage1"], launches=launches,
+               launches_by_command=by_command, masks=masks, peak_gib=peaks)
+    for leg, name in (("real_front", "nested_real"), ("real_boot", "nested_real_boot"),
+                      ("real_stage2", "nested_real_s2")):
+        st = recs[leg]["steps"][name]
+        if st != {"from": 0, "to": n, "total_step": n, "paused": False}:
+            raise AssertionError(f"{name} trained {st}")
+        logs = read_log(os.path.join(leg_dir, "data/model", name, "train_log.jsonl"))
+        val = {r["step"]: r for r in logs if r["prefix"] == "val"}
+        last = [r for r in logs if r["prefix"] == "train" and r["step"] == n]
+        if sorted(val) != list(range(every, n + 1, every)) or not all(
+                math.isfinite(r["psnr"]) for r in val.values()):
+            raise AssertionError(f"{name} validated {val}")
+        train = [r for r in logs if r["prefix"] == "train"]
+        if not (last and all(math.isfinite(r["loss_total"]) for r in train)
+                and last[0]["step_ms"] > 0 and last[0]["rays_per_sec"] > 0):
+            raise AssertionError(f"{name} logged {last}")
+        last = last[0]
+        out[name] = dict(step_ms=last["step_ms"], rays_per_s=last["rays_per_sec"],
+                         rays=round(last["rays_per_sec"] * last["step_ms"] / 1e3),
+                         loss_total=last["loss_total"],
+                         peak_gib=((child["max_memory_allocated"] or 0) / 2 ** 30
+                                   if leg == "real_stage2" else peaks[leg]),
+                         val={s: (r["psnr"], r["ssim"]) for s, r in val.items()})
+    for key in ("real_front", "real_boot"):
+        if not math.isfinite(out["chamfer"][key]):
+            raise AssertionError(f"{key}'s outer chamfer: {out['chamfer'][key]}")
+    # 100 steps carve no inner surface inside the outer one: then the inner
+    # mesh is empty and eval-geometry must say so
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+
+    inner_tris = len(load_ply(os.path.join(leg_dir, stage2["meshes"]["inner_post"]))[1])
+    geo = stage2["chamfer"]["inner"]
+    empty = inner_tris == 0 and geo["chamfer"] is None and \
+        geo.get("error", "").startswith("empty surface: pred=0 ")
+    if not (empty or (geo["chamfer"] is not None and math.isfinite(geo["chamfer"]))):
+        raise AssertionError(f"real_stage2's inner chamfer: {geo}, {inner_tris} triangles")
+    out["inner_triangles"] = inner_tris
+    for name, ev in out["test"].items():
+        if ev["views"] != REAL_TEST_VIEWS or not (
+                math.isfinite(ev["mean_psnr"]) and math.isfinite(ev["mean_ssim"])):
+            raise AssertionError(f"eval-images of {name}: {ev}")
+    es = stage2["eval_shell"]
+    if not all(math.isfinite(es[k]) for k in ("learned_ior", "learned_thickness")) or not (
+            len(es["learned_kappa"]) == 3 and all(math.isfinite(x) for x in es["learned_kappa"])):
+        raise AssertionError(f"eval_shell: {es}")
+
+    def count(leg, command, counter):
+        return sum(c.get(counter, 0) for lg, cmd, c in by_command if lg == leg and cmd == command)
+
+    need = [("real_front", "train", "chain_fwd"), ("real_front", "train", "chain_bwd"),
+            ("real_boot", "train", "chain_fwd"), ("real_boot", "train", "chain_bwd"),
+            ("real_front", "extract-mesh-stage1", "chain_fwd"),
+            ("real_boot", "extract-mesh-stage1", "chain_fwd"),
+            ("real_stage2", "extract-mesh-stage2", "chain_fwd"),
+            ("real_front", "postprocess-outer", "closest_hit"),
+            ("real_boot", "postprocess-outer", "closest_hit"),
+            ("real_front", "render-mask", "closest_hit"),
+            ("real_boot", "render-mask", "closest_hit"),
+            ("real_boot", "eval-images", "chain_fwd"),
+            ("real_stage2", "eval-images", "closest_hit")]
+    for leg, command, counter in need:
+        if not count(leg, command, counter) > 0:
+            raise AssertionError(f"{leg} {command} launched {counter} no time: {by_command}")
+    if not child["launches"].get("closest_hit", 0) > 0:
+        raise AssertionError(f"real_stage2's train child launched K3 no time: {child}")
+    log(f"real legs (pipeline.run_leg at full width, {n} steps each): " + ", ".join(
+        f"{leg}/{c} {v:.2f} s" for leg, c, v in out["seconds"]))
+    for name in ("nested_real", "nested_real_boot", "nested_real_s2"):
+        r = out[name]
+        log(f"real legs: {name} step {n} {r['step_ms']:.1f} ms/step ({r['rays_per_s']:.0f} "
+            f"rays/s, {r['rays']} rays a step), peak memory {r['peak_gib']:.2f} GiB; "
+            f"validation PSNR/SSIM {r['val']}")
+    log(f"real legs: chamfers {out['chamfer']} (not judged), inner mesh {inner_tris} "
+        f"triangles; test {out['test']}; eval_shell {es}; stage 2 traced {stage2['stage1']}; "
+        f"masks {masks}; launches {launches} (the child's {child['launches']})")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase_pipeline_real: {out['s']:.1f} s")
+    return launches, out
+
+
 def k3_device_split(fn, reps=3):
     """Device time of K3's kernels over ``reps`` calls of ``fn``, by kernel
     (``torch.profiler``, as ``tools/prof_k3.py`` splits it): {name: ms a
@@ -3754,6 +3977,7 @@ def main():
             dev, work, os.path.join(work, "model", SHELL_CFG["name"], "model.ckpt"))
         paths["pipeline_stage2"], res_leg_stage2 = phase_pipeline_stage2(dev, work)
         paths["pipeline_shell"], res_leg_shell = phase_pipeline_shell(dev, work)
+        paths["pipeline_real"], res_leg_real = phase_pipeline_real(dev, work)
         tool_paths, res_tools = phase_tools(dev, work, ckpt1, res_x["extract_s1"]["mesh"],
                                             outer_mesh)
         paths.update(tool_paths)
@@ -3779,7 +4003,9 @@ def main():
                           ("pipeline_front", "chain_fwd"), ("pipeline_front", "chain_bwd"),
                           ("pipeline_shell", "chain_fwd"), ("pipeline_shell", "chain_bwd"),
                           ("pipeline_shell", "closest_hit"),
-                          ("pipeline_stage2", "chain_fwd"), ("pipeline_stage2", "closest_hit")):
+                          ("pipeline_stage2", "chain_fwd"), ("pipeline_stage2", "closest_hit"),
+                          ("pipeline_real", "chain_fwd"), ("pipeline_real", "chain_bwd"),
+                          ("pipeline_real", "closest_hit")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -3868,6 +4094,7 @@ def main():
                "pipeline_front": res_leg,
                "pipeline_shell": res_leg_shell,
                "pipeline_stage2": res_leg_stage2,
+               "pipeline_real": res_leg_real,
                "tools": res_tools,
                "parallel": res_par,
                "seconds": time.perf_counter() - t_start}

@@ -264,7 +264,7 @@ def eval_images(cfg, ckpt=None, split="validation", device="cuda"):
     ckpt = ckpt or os.path.join("data/model", name, "model_best.ckpt")
     step = 0
     if trainer.mesh.from_rank0(os.path.exists(ckpt)):  # rank 0's file decides
-        step, params, _, _ = trainer.read_checkpoint(ckpt)
+        step, params = trainer.read_checkpoint(ckpt)[:2]
         load_jax_params(trainer.renderer, params, trainer.tree_top)
     else:
         say(f"WARNING: no checkpoint at {ckpt}; evaluating the init")

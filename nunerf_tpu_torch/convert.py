@@ -139,8 +139,10 @@ def load_jax_checkpoint(path: str):
     """(step, params, best_para) of a checkpoint written by the JAX trainer's
     ``save_checkpoint`` or the port's (``train/trainer.py``): a pickle whose
     ``params`` is the parameter tree as numpy arrays in the JAX layout.  The
-    optimizer state is ignored.  Unpickling runs code: read only checkpoints
-    this project wrote."""
-    with open(path, "rb") as f:
+    optimizer state is ignored; a kept copy (``.gz``) is read too.
+    Unpickling runs code: read only checkpoints this project wrote."""
+    import gzip
+
+    with (gzip.open if path.endswith(".gz") else open)(path, "rb") as f:
         blob = pickle.load(f)
     return blob["step"], blob["params"], blob.get("best_para", 0.0)

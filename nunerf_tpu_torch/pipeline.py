@@ -31,14 +31,18 @@ subcommands, with its arguments and in its order, through
   scores), also written to ``<workdir>/runs/leg_<leg>.json``.
 
 Legs that take a budget (``stage2``, ``shell_stage2``, ``shell_stage2b``,
-``real_stage2``, ``real_stage2_fresh``) train in a child process,
+``real_stage2``, ``real_stage2_fresh``, and ``real_boot`` where one is
+given) train in a child process,
 ``python -m nunerf_tpu_torch.cli train``, stopped within ``budget`` seconds
 as the script's ``timeout`` stops it: a pause, after which the leg goes on
 from the last checkpoint and a rerun resumes exactly.  The child is stopped
 right after a ``model.ckpt`` save once the next save, at the pace of the
 last one, would land past the budget, so no trained step is lost; else at
 the budget (checkpoints are written through ``.tmp`` and ``os.replace``, so
-a kill never leaves half of one).  A child that ends by itself leaves its
+a kill never leaves half of one).  A paused ``real_boot`` ends there; run
+again, it renders its prior masks anew (the same bytes) and resumes.  A
+checkpoint carries the trainer's draws (``Trainer.rng_state``), so a resumed
+run is the run that was never stopped.  A child that ends by itself leaves its
 kernels' launch counts and peak memory in the record (``train_child``,
 through ``cli``'s ``NUNERF_LAUNCH_LOG``).  The other legs train in this
 process.
@@ -113,6 +117,7 @@ class _Leg:
         self.overrides = cfg_overrides or {}
         self.extra_args = extra_args or {}
         self.cfgs = {}
+        self.paused = False
         self.record = {"leg": name, "workdir": os.getcwd(), "device": self.device,
                        "steps": {}, "checkpoints": {}, "commands": [], "chamfer": {},
                        "eval_images": {}, "meshes": {}}
@@ -171,6 +176,7 @@ class _Leg:
         if self.keep:
             self.record["kept"] = sorted(glob.glob(os.path.join(os.path.dirname(ckpt),
                                                                 "model_*.ckpt.gz")))
+        self.paused = paused
         self.record["steps"][cfg["name"]] = {"from": before or 0, "to": after,
                                              "total_step": cfg["total_step"],
                                              "paused": paused}
@@ -292,7 +298,8 @@ class _Leg:
 
     def stage1_inputs(self, rel):
         """Stop unless the stage-1 mesh and checkpoint that stage-2 config
-        ``rel`` names exist; returns the mesh's path."""
+        ``rel`` names exist; records them and the checkpoint's step, and
+        returns the mesh's path."""
         _, cfg = self.cfg(rel)
         for key in ("stage1_mesh_dir", "stage1_ckpt_dir"):
             if not os.path.exists(cfg[key]):
@@ -301,6 +308,9 @@ class _Leg:
                     f"{rel}: {key} {cfg[key]} does not exist in {os.getcwd()}; meshes "
                     f"there: {there or 'none'}.  Run the stage-1 leg first, or name the "
                     f"mesh and checkpoint it wrote in the config")
+        self.record["stage1"] = {"mesh": cfg["stage1_mesh_dir"],
+                                 "ckpt": cfg["stage1_ckpt_dir"],
+                                 "ckpt_step": _ckpt_step(cfg["stage1_ckpt_dir"])}
         return cfg["stage1_mesh_dir"]
 
 
@@ -349,9 +359,12 @@ def shell_stage2b(leg, budget):
     _stage2(leg, S2_SHELL_B, budget, "nested_shell", shell=True)
 
 
+REAL_SCENE_ARGS = ("--colmap", "--shell", "--n-train", "56")
+
+
 def real_front(leg, budget=None):
     if not os.path.isdir("datasets/nested_real"):
-        leg.synth("./datasets/nested_real", "--colmap", "--shell", "--n-train", "56")
+        leg.synth("./datasets/nested_real", *REAL_SCENE_ARGS)
     path, _ = leg.cfg(S1_REAL)
     leg.train(S1_REAL)
     mesh = leg.extract_stage1(S1_REAL, 384)["simplified"]
@@ -382,7 +395,10 @@ def real_boot(leg, budget=None):
     real, _ = leg.cfg(S1_REAL)
     prior, _, _ = leg.cli("silhouette-prior", "--cfg", real)
     leg.cli("render-mask", "--cfg", real, "--mesh_path", prior)
-    leg.train(S1_BOOT)
+    leg.train(S1_BOOT, budget)
+    if leg.paused:
+        print("[pipeline] real_boot: paused; run the leg again to resume", flush=True)
+        return
     boot, outer = _boot_tail(leg)
     leg.cli("render-mask", "--cfg", boot, "--mesh_path", outer)
     leg.cli("mask-erosion", "--cfg", boot)
@@ -413,6 +429,24 @@ LEGS = {"front": front, "stage2": stage2, "shell_front": shell_front,
         "real_boot_ext": real_boot_ext, "real_stage2": real_stage2,
         "real_stage2_fresh": real_stage2_fresh}
 BUDGET_LEGS = ("stage2", "shell_stage2", "shell_stage2b", "real_stage2", "real_stage2_fresh")
+# legs that take a budget where one is given (the script's run theirs whole)
+PAUSE_LEGS = ("real_boot",)
+
+
+def boot_overrides(workdir):
+    """``cfg_overrides`` that point ``real_stage2`` at the outer mesh that
+    ``real_boot`` wrote in ``workdir`` (its record's): the stage-2 config
+    names ``nested_real_boot-20000_simplified_outer.ply``, while the boot
+    config's 32,000 steps write ``-32000``.  The checkpoint it names,
+    ``data/model/nested_real_boot/model.ckpt``, is the one the boot wrote."""
+    path = os.path.join(workdir, "runs", "leg_real_boot.json")
+    if not os.path.exists(path):
+        raise LegError(f"{path} does not exist: run real_boot in {workdir} first")
+    with open(path) as f:
+        rec = json.load(f)
+    if "outer" not in rec["meshes"]:
+        raise LegError(f"real_boot in {workdir} was paused before its mesh: run it again")
+    return {S2_REAL: {"stage1_mesh_dir": "./" + rec["meshes"]["outer"]}}
 
 
 def run_leg(leg, workdir=DEFAULT_WORKDIR, budget=None, device="cuda", cfg_overrides=None,
@@ -425,6 +459,8 @@ def run_leg(leg, workdir=DEFAULT_WORKDIR, budget=None, device="cuda", cfg_overri
         raise ValueError(f"unknown leg {leg!r}; legs: {', '.join(LEGS)}")
     if leg in BUDGET_LEGS and budget is None:
         raise ValueError(f"leg {leg} takes a budget in seconds")
+    if budget is not None and leg not in BUDGET_LEGS + PAUSE_LEGS:
+        raise ValueError(f"leg {leg} takes no budget")
     workdir = os.path.abspath(workdir)
     if os.path.realpath(workdir) == os.path.realpath(REPO):
         raise ValueError("the pipeline's working directory must not be the repository's "

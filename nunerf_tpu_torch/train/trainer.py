@@ -42,7 +42,10 @@ Differences of form from the JAX package, not of result:
   checkpoints, and ``opt_state`` as Adam's moments by the same paths with
   the update count.  The JAX trainer's ``opt_state`` is flax msgpack, which
   the port cannot read: resuming from a JAX checkpoint starts Adam's moments
-  afresh at its step and says so;
+  afresh at its step and says so.  A port checkpoint also carries the
+  trainer's draws (``rng``: the index generator's and the renderer's
+  states), so a run resumed on the same kind of device draws what the run
+  never stopped would have drawn;
 * validation images are ``.png`` (``train/metrics.py``);
 * the JAX-only config keys ``compilation_cache_dir``, ``matmul_precision``
   and ``scan_chunk``'s compile-time role have no counterpart: the first two
@@ -201,20 +204,35 @@ def _opener(path: str):
     return gzip.open if path.endswith(".gz") else open
 
 
-def save_checkpoint(path: str, step: int, params, opt_state, best_para: float):
+def save_checkpoint(path: str, step: int, params, opt_state, best_para: float, rng=None):
     """The reference's {step, best_para, network_state_dict,
     optimizer_state_dict} (train/trainer.py:218-225) as a pickle of numpy:
     ``params`` the JAX-layout tree, ``opt_state`` a dict (``count``,
-    ``exp_avg``, ``exp_avg_sq``) or None, written through ``.tmp`` and
+    ``exp_avg``, ``exp_avg_sq``) or None, ``rng`` the trainer's draws
+    (``Trainer.rng_state``) where given, written through ``.tmp`` and
     ``os.replace`` so that a crash never leaves half a checkpoint; gzip'd
     where ``path`` ends in ``.gz``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     blob = {"step": int(step), "best_para": float(best_para), "params": params,
             "opt_state": opt_state}
+    if rng is not None:
+        blob["rng"] = rng
     tmp = path + ".tmp"
     with _opener(path)(tmp, "wb") as f:
         pickle.dump(blob, f)
     os.replace(tmp, path)
+
+
+def _read_blob(path: str):
+    with _opener(path)(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _unpack(blob):
+    opt_state = blob.get("opt_state")
+    if not isinstance(opt_state, dict):
+        opt_state = None
+    return blob["step"], blob["params"], opt_state, blob.get("best_para", 0.0)
 
 
 def load_checkpoint(path: str):
@@ -222,12 +240,7 @@ def load_checkpoint(path: str):
     package; ``opt_state`` is the port's dict, or ``None`` for a JAX
     checkpoint (flax msgpack bytes).  Unpickling runs code: read only
     checkpoints this project wrote."""
-    with _opener(path)(path, "rb") as f:
-        blob = pickle.load(f)
-    opt_state = blob.get("opt_state")
-    if not isinstance(opt_state, dict):
-        opt_state = None
-    return blob["step"], blob["params"], opt_state, blob.get("best_para", 0.0)
+    return _unpack(_read_blob(path))
 
 
 class Trainer:
@@ -381,23 +394,49 @@ class Trainer:
             out[key] = named_to_jax_tree(named, self.tree_top)
         return out
 
+    def rng_state(self):
+        """The trainer's draws as they stand: the ray index generator's
+        state and the renderer's (stage 1's sampler jitter and occlusion
+        priorities), as uint8 arrays, with the device type they belong to."""
+        out = {"device": self.device.type,
+               "index": self.index_generator.get_state().numpy().copy()}
+        gen = getattr(self.renderer, "generator", None)
+        if gen is not None:
+            out["renderer"] = gen.get_state().numpy().copy()
+        return out
+
+    def set_rng_state(self, rng, path):
+        """Restore ``rng_state``'s draws; a checkpoint without them (older,
+        or the JAX package's), or of another kind of device, leaves the
+        draws at their seeds, and the trainer says so."""
+        if rng is None or rng["device"] != self.device.type:
+            if self.writes and self.train.n_updates:
+                print(f"{path}: no {self.device.type} draws in the checkpoint; the ray "
+                      f"indices and the sampler's draws start again from their seeds")
+            return
+        self.index_generator.set_state(torch.as_tensor(rng["index"]))
+        if "renderer" in rng:
+            self.renderer.generator.set_state(torch.as_tensor(rng["renderer"]))
+
     def save(self, path: str, step: int, best_para: float):
         """Write a checkpoint (rank 0 only)."""
         if self.writes:
             save_checkpoint(path, step, self.params_tree(), self.opt_state_tree(),
-                            best_para)
+                            best_para, self.rng_state())
 
     def kept_path(self, step: int) -> str:
         return os.path.join(self.model_dir, f"model_{int(step)}.ckpt.gz")
 
     def read_checkpoint(self, path: str):
-        """``load_checkpoint(path)`` as rank 0 reads it, on every rank: no
-        other rank opens the file, so ``model_dir`` need not be shared.  A
-        read that fails on rank 0 raises on every rank."""
+        """``load_checkpoint(path)`` and the checkpoint's draws (None where
+        it has none) as rank 0 reads them, on every rank: no other rank
+        opens the file, so ``model_dir`` need not be shared.  A read that
+        fails on rank 0 raises on every rank."""
         sent = None
         if self.writes:
             try:
-                sent = load_checkpoint(path)
+                blob = _read_blob(path)
+                sent = _unpack(blob) + (blob.get("rng"),)
             except Exception as e:
                 self.mesh.from_rank0(f"rank 0 could not read {path}: {e!r}")
                 raise
@@ -410,10 +449,11 @@ class Trainer:
         """Restore the parameters and Adam from a checkpoint of either
         package; (step, best_para).  Rank 0 reads the file and sends every
         rank its contents (parameters, Adam's moments and count), so the
-        ranks go on bit-equal."""
+        ranks go on bit-equal.  The draws too, where the checkpoint holds
+        them (``set_rng_state``)."""
         from nunerf_tpu_torch.convert import load_jax_params
 
-        step, params, opt_state, best = self.read_checkpoint(path)
+        step, params, opt_state, best, rng = self.read_checkpoint(path)
         load_jax_params(self.renderer, params, self.tree_top)
         self.train.optimizer.state.clear()
         if opt_state is None:
@@ -423,6 +463,7 @@ class Trainer:
                   f"cannot be read, so Adam starts afresh at step {step}")
             return step, best
         self.train.load_state(opt_state, self.tree_top)
+        self.set_rng_state(rng, path)
         return step, best
 
     def _load_if_exists(self):

@@ -57,18 +57,20 @@ def warm():
     import nunerf_tpu.tracing.scene  # noqa: F401
 
 
-def steps(kind, cfg, mesh, s1_params, cases, options=None):
+def steps(kind, cfg, mesh, s1_params, cases, options=None, renderer=None):
     """JAX's step of ``kind`` at ``cases``, a list of (parameters, batch,
     step), in a worker that ``warm`` started; returns [(terms, outputs,
-    gradients, lr)] in their order."""
+    gradients, lr)] in their order.  ``renderer``: the stage-2 renderer's
+    class (the zero-thickness ``Stage2Renderer`` unless given)."""
     import numpy as np
 
     from nunerf_tpu.models.stage2 import Stage2Renderer
     from nunerf_tpu.tracing.scene import Scene
     from nunerf_tpu.train.lr import warm_up_cos_schedule
 
-    side = _tool().ShellJaxSide(Stage2Renderer(cfg, scene=Scene(mesh, tile=512),
-                                              stage1_params=s1_params), kind == "f64")
+    renderer = renderer or Stage2Renderer
+    side = _tool().ShellJaxSide(renderer(cfg, scene=Scene(mesh, tile=512),
+                                         stage1_params=s1_params), kind == "f64")
     params, batch, step = cases[0]
     side.load(params, _fresh_adam(params))
     side.compiled = side.lower(batch, step).compile(compiler_options=options)

@@ -785,6 +785,51 @@ def test_render_masks_with_k3_match_the_plain_closest_hit(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_real_boot_render_mask_with_k3_matches_the_plain_closest_hit(cuda, tmp_path):
+    """``real_boot``'s ``render-mask`` on the card: its config
+    (``configs/shape/real/nested_real_boot.yaml``: the capture layout, NeRO
+    rays, the ``rawmask`` database; its size cut to the tiny capture's 32
+    pixels) on a ``synth-scene --colmap --shell`` capture of 8 views and a
+    small mesh; the masks K3 writes are the plain closest hit's, exactly,
+    as {0, 255} PNGs."""
+    import os
+
+    from chip_smoke import lumpy_sphere_mesh
+    from nunerf_tpu_torch import cli
+    from nunerf_tpu_torch.config import load_cfg
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.data.database import parse_database_name
+    from nunerf_tpu_torch.tools import render_mask as rm
+    from nunerf_tpu_torch.tracing.mesh_ops import save_ply
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cli.synth_scene(str(tmp_path / "ds" / "nested_real"), n_train=8, size=32, shell=True,
+                    colmap=True)
+    mesh = str(tmp_path / "outer.ply")
+    save_ply(mesh, *lumpy_sphere_mesh(48))
+    cfg = load_cfg(os.path.join(root, "configs/shape/real/nested_real_boot.yaml"))
+    assert cfg["database_name"] == "custom/nested_real/128/rawmask" and not cfg["is_nerf"]
+    cfg.update(database_name="custom/nested_real/32/rawmask", dataset_dir=str(tmp_path / "ds"))
+    before = ri.launches["closest_hit"]
+    out = rm.render_masks(cfg, mesh, chunk=1000, device=cuda)
+    db = parse_database_name(cfg["database_name"], cfg["dataset_dir"])
+    ids = db.get_img_ids()
+    assert len(ids) == 8 and ri.launches["closest_hit"] - before > 0
+    plain = Scene(mesh, device=cuda, use_kernel=False)
+    for i in ids:
+        o, d, h, w = rm.view_rays(db, i, False)
+        want = rm.hit_mask(plain, o, d, h, w)
+        got = image_io.imread(rm.mask_path(db.root, "mask", db.get_image_name(i)))
+        assert want.any() and not want.all()
+        assert got.dtype == np.uint8 and set(np.unique(got)) <= {0, 255}
+        np.testing.assert_array_equal(got, want)
+    # the boot database reads these raw silhouettes back as its masks
+    assert out.endswith("mask")
+    assert db.get_mask(ids[0]) is not None
+
+
+@pytest.mark.cuda
 def test_world_size_1_nccl_step_equals_the_plain_step(cuda, tmp_path):
     """Three small stage-1 steps at 25000 (perturbed samples, an occlusion
     subset of 64 points) and three small stage-2 steps through the mesh of a

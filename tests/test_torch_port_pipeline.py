@@ -530,6 +530,7 @@ def test_leg_geometry_seed_run_keeps_stops_resumes_and_sets(tmp_path, monkeypatc
         tr.ckpt_path = os.path.join(workdir, "data/model/nested/model.ckpt")
         tr.params_tree = lambda: {"a": np.zeros(2, np.float32)}
         tr.opt_state_tree = lambda: None
+        tr.rng_state = lambda: None
         for step in (20500, 21000, 21500, 22000):
             tr.save(tr.ckpt_path, step, 0.0)
         return {"steps": {"nested": {"from": 20000, "to": 22000}}}

@@ -46,9 +46,19 @@ import torch  # noqa: E402
 from nunerf_tpu_torch import pipeline as pl  # noqa: E402
 
 
+@torch.no_grad()
+def transmission_at(renderer, points):
+    """Percentiles (1, 50, 99) of a stage-1 renderer's shader transmission
+    weight at ``points`` (numpy [N, 3])."""
+    dev = next(renderer.parameters())
+    p = torch.as_tensor(points, device=dev.device).to(dev.dtype)
+    feats = renderer.sdf_net(p)[..., 1:].float()
+    t = renderer.color_net.transmission_weight(torch.cat([feats, p.float()], -1)).float()
+    return [float(x) for x in np.percentile(t.cpu().numpy(), [1, 50, 99])]
+
+
 def transmission(cfg, ckpt, points, device):
-    """Percentiles (1, 50, 99) of the stage-1 shader's transmission weight
-    at ``points`` for the parameters of ``ckpt``."""
+    """(step, ``transmission_at``) for the parameters of ``ckpt``."""
     from nunerf_tpu_torch.convert import load_jax_params
     from nunerf_tpu_torch.models.stage1 import PARAM_KEYS, ShapeRenderer
     from nunerf_tpu_torch.train.trainer import load_checkpoint
@@ -56,19 +66,20 @@ def transmission(cfg, ckpt, points, device):
     r = ShapeRenderer(cfg, device=device, seed=0)
     step, params, _, _ = load_checkpoint(ckpt)
     load_jax_params(r, params, PARAM_KEYS)
-    with torch.no_grad():
-        p = torch.as_tensor(points, dtype=torch.float32, device=device)
-        feats = r.sdf_net(p)[..., 1:].float()
-        t = r.color_net.transmission_weight(torch.cat([feats, p], -1)).float()
-    return int(step), [float(x) for x in np.percentile(t.cpu().numpy(), [1, 50, 99])]
+    return int(step), transmission_at(r, points)
+
+
+def sphere_points(radius, n=4096):
+    """``n`` points of the sphere of ``radius``, directions from
+    ``RandomState(0)``."""
+    dirs = np.random.RandomState(0).randn(n, 3)
+    return (radius * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
 
 
 def outer_sphere(workdir, n=4096):
     """``n`` points of the scene's outer sphere (``r_outer`` of its meta)."""
     with open(os.path.join(workdir, "datasets/nested/meta.json")) as f:
-        r_outer = float(json.load(f)["r_outer"])
-    dirs = np.random.RandomState(0).randn(n, 3)
-    return r_outer * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+        return sphere_points(float(json.load(f)["r_outer"]), n)
 
 
 def measure(args):

@@ -5,6 +5,7 @@ step injected into both, on the CPU.
 
     python tools/trained_step_compare.py f64 CKPT [CKPT ...] [--moments FULL] [--rays N]
     python tools/trained_step_compare.py traj CKPT [--steps 100] [--every 25] [--rays N]
+    python tools/trained_step_compare.py init OUT [--rays N]
     python tools/trained_step_compare.py shell-f64 CKPT [CKPT ...] --workdir W [--moments FULL]
     python tools/trained_step_compare.py shell-render CKPT --workdir W [--views 0,1,...]
     python tools/trained_step_compare.py shell-traj CKPT --workdir W [--steps 25] [--control]
@@ -52,7 +53,17 @@ whose candidates differ, and each package's median zero-crossing radius of
 its SDF along ``N_DIRS`` fixed directions (the outermost change from inside
 to outside on radii 0..1).  ``--control`` runs JAX against JAX from the
 checkpoint with every parameter one f32 ulp up, in place of the port: the
-rate at which f32 roundings alone part two runs.
+rate at which f32 roundings alone part two runs.  Each point also reads
+each side's stage-1 shader transmission weight ``T``
+(``transmission_weight``, through which stage 2 sees behind the outer
+interface) at ``N_T_POINTS`` points of the scene's outer sphere
+(``r_outer`` of its ``meta.json``): its 1st, 50th and 99th percentiles,
+computed by the port's shader on each side's parameters.
+
+``init``: writes to ``OUT`` the port trainer's step-0 checkpoint of the
+leg's config (its initialisation at the config's ``random_seed``, Adam's
+moments zero and its count 0), the state both packages start ``traj``
+from.
 
 The shell modes run in ``--workdir``, the shell legs' working directory
 (``python -m nunerf_tpu_torch.pipeline shell_front`` then ``shell_stage2``):
@@ -82,6 +93,7 @@ in JAX and 25 s in the port, about 11 GB.
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import os
 import sys
@@ -101,6 +113,7 @@ import torch  # noqa: E402
 LEG_CFG = "configs/shape/nerf/nested.yaml"
 RTOL_LOSS, RTOL_GRAD = 1e-5, 1e-4
 N_DIRS, N_RADII = 1000, 256
+N_T_POINTS = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +583,50 @@ def median_radius(sdf, dirs, n=N_RADII, chunk=65536):
     return float(np.median(out)) if out else float("nan"), len(out)
 
 
+def _card_transmission():
+    """``tools/card_nested_transmission.py``, which reads ``T``."""
+    spec = importlib.util.spec_from_file_location(
+        "card_nested_transmission", os.path.join(ROOT, "tools", "card_nested_transmission.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sphere_points(radius, n=N_T_POINTS):
+    return _card_transmission().sphere_points(radius, n)
+
+
+def outer_sphere(scene_root, n=N_T_POINTS):
+    """``n`` points of the scene's outer sphere (``r_outer`` of its meta),
+    the points ``tools/card_nested_transmission.py`` reads ``T`` at."""
+    with open(os.path.join(scene_root, "meta.json")) as f:
+        return sphere_points(float(json.load(f)["r_outer"]), n)
+
+
+class Transmission:
+    """The stage-1 shader's transmission weight at fixed points
+    (``card_nested_transmission.transmission_at``), read by a port renderer
+    of the config on the CPU for either side's parameters (a ``PortSide``'s
+    own renderer, or JAX's tree loaded into a scratch one)."""
+
+    def __init__(self, cfg, points):
+        from nunerf_tpu_torch.models.stage1 import ShapeRenderer
+
+        self.points = points
+        self.scratch = ShapeRenderer(cfg, device="cpu", seed=0)
+        self.at = _card_transmission().transmission_at
+
+    def __call__(self, side):
+        from nunerf_tpu_torch.convert import load_jax_params
+        from nunerf_tpu_torch.models.stage1 import PARAM_KEYS
+
+        if isinstance(side, PortSide):
+            return self.at(side.renderer, self.points)
+        load_jax_params(self.scratch, jax.tree_util.tree_map(np.asarray, side.params),
+                        PARAM_KEYS)
+        return self.at(self.scratch, self.points)
+
+
 def _emit(rec, log):
     line = json.dumps(rec)
     print(line, flush=True)
@@ -615,6 +672,7 @@ def run_traj(args, log):
         P = PortSide.from_trainer(cfg, False)
         P.load(params, opt)
     theta0 = J.flat_params()
+    trans = Transmission(cfg, outer_sphere(os.path.join(args.scene, "nested")))
 
     def point(i, span):
         pp, jp = P.flat_params(), J.flat_params()
@@ -629,6 +687,7 @@ def run_traj(args, log):
                    param_dist=dist, jax_moved=moved,
                    dist_over_moved=dist / moved if moved else 0.0,
                    radius=dict(port=median_radius(P.sdf, dirs), jax=median_radius(J.sdf, dirs)),
+                   transmission=dict(port=trans(P), jax=trans(J)),
                    span_terms=mean, candidates_differ=[s["step"] for s in span
                                                        if not s["same"]],
                    s_a_step=dict(port=float(np.mean([s["port_s"] for s in span])) if span else 0,
@@ -652,6 +711,18 @@ def run_traj(args, log):
         if (i + 1) % args.every == 0 or i + 1 == args.steps:
             point(i + 1, span)
             span = []
+
+
+def run_init(args, log):
+    """The port trainer's step-0 checkpoint of the leg's config, to
+    ``args.ckpt[0]``."""
+    from nunerf_tpu_torch.train import trainer as ttrainer
+
+    cfg = leg_cfg(args.scene, args.model_dir, args.rays)
+    tr = ttrainer.Trainer(cfg, device="cpu")
+    tr.save(args.ckpt[0], 0, 0.0)
+    _emit(dict(mode="init", ckpt=args.ckpt[0], rays=tr.cfg["train_ray_num"],
+               seed=tr.cfg.get("random_seed")), log)
 
 
 # ---------------------------------------------------------------------------
@@ -1030,6 +1101,7 @@ def run_shell_traj(args, log):
         P = shell_port_side(cfg, False)
         P.load(params, opt)
     theta0 = J.flat_params()
+    trans = Transmission(cfg, outer_sphere(os.path.join(args.scene, "nested")))
 
     def point(i, span):
         pp, jp = P.flat_params(), J.flat_params()
@@ -1063,7 +1135,8 @@ def run_shell_traj(args, log):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=["f64", "traj", "shell-f64", "shell-render", "shell-traj"])
+    ap.add_argument("mode", choices=["f64", "traj", "init", "shell-f64", "shell-render",
+                                       "shell-traj"])
     ap.add_argument("ckpt", nargs="+")
     ap.add_argument("--moments", default=None,
                     help="a full checkpoint whose Adam moments a parameters-only one takes")
@@ -1106,7 +1179,7 @@ def main(argv=None):
     try:
         with tempfile.TemporaryDirectory() as model_dir:
             args.model_dir = model_dir
-            {"f64": run_f64, "traj": run_traj, "shell-f64": run_shell_f64,
+            {"f64": run_f64, "traj": run_traj, "init": run_init, "shell-f64": run_shell_f64,
              "shell-render": run_shell_render, "shell-traj": run_shell_traj}[args.mode](args, log)
     finally:
         if shell:
