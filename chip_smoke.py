@@ -112,15 +112,17 @@ Phases (any failure exits non-zero):
      every artifact and metric checked; then the port's ``eval_shell`` on
      the shell pipeline's checkpoint on the card against the CPU (1e-5);
  11. the leg runner's curvature-shell legs (``phase_pipeline_shell``, path
-     ``pipeline_shell``: K1 in the sweeps and both extractions, K2 in the
+     ``pipeline_shell``: K1 in the sweeps and the extractions, K2 in the
      init-SDF regulariser, K3 in ``postprocess-outer`` and the stage-2
-     renders): ``shell_front`` then ``shell_stage2`` in one working
+     renders): ``shell_front``, ``shell_stage2`` and the absorption-gated
+     ``shell_stage2b`` in one working
      directory, at full width, each cut to 100 steps through
      ``cfg_overrides``, the stage-2 ``train`` in a child under a budget it
      never reaches; every artifact's presence, the chained mesh names, the
      outer chamfer and the test scores checked, and ``eval_shell`` on the
-     leg's checkpoint on the card against the CPU (1e-5); the inner mesh of
-     a 100-step stage 2 is empty, and only its report as empty is checked;
+     stage-2 legs' checkpoints on the card against the CPU (1e-5); the inner
+     mesh of a 100-step stage 2 is empty, and only its report as empty is
+     checked;
  12. the leg runner's zero-thickness ``stage2`` leg (``phase_pipeline_stage2``,
      path ``pipeline_stage2``: K3 in its budgeted ``train`` child, counted
      there and read back from the child's launch record, K1 in
@@ -144,6 +146,15 @@ Phases (any failure exits non-zero):
      extractions, K3 in ``postprocess-outer``, ``render-mask``, the child
      and the stage 2's ``eval-images``); step ms, rays/s and peak memory of
      each leg and the seconds of each subcommand printed.
+ 14. the leg runner's ``res1024`` leg (``phase_pipeline_res1024``, path
+     ``pipeline_res1024``) in ``phase_pipeline``'s working directory, on its
+     100-step ``front``, at the leg's own 1024^3: ``extract-mesh-stage1
+     --tag r1024`` (K1 over 2^30 points in 516 launches, the native
+     marching, the dedup, the remesh; seconds by part, counts, peak device
+     memory and host RSS printed) and ``render-mask`` on the raw mesh of
+     millions of triangles (K3, one launch a view); then K3 on that mesh
+     timed on 65,536 rays beside its flat and two-level bounds, and held bit
+     for bit to the brute plain closest hit on 4,096 rays of one view.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2601,27 +2612,31 @@ def phase_pipeline(dev, work, shell_ckpt):
 
 
 def phase_pipeline_shell(dev, work):
-    """The leg runner's two curvature-shell legs in one working directory of
-    their own, at full width, each cut to ``PIPELINE_SHELL_STEPS`` steps
+    """The leg runner's three curvature-shell legs in one working directory
+    of their own, at full width, each cut to ``PIPELINE_SHELL_STEPS`` steps
     through ``cfg_overrides``: ``shell_front`` (``synth-scene --shell``,
     ``configs/shape/nerf/nested_shell.yaml``, the 512^3
     ``extract-mesh-stage1``, ``postprocess-outer`` through K3,
     ``eval-geometry``, ``eval-images``), then ``shell_stage2`` (its
     ``train`` in a child under a budget it never reaches, ``eval_shell``,
     ``extract-mesh-stage2`` at 256^3, ``postprocess-stage2``,
-    ``eval-geometry`` of the inner mesh, ``eval-images``), the stage-2
-    config reading the chained outer mesh, its ``train`` keeping the
-    parameters at ``PIPELINE_SHELL_INTERVAL`` (``--keep``).  Checked: every
-    artifact is there, the kept copy (that step, no Adam state), the
-    chained mesh names, the steps and validations logged, the
-    outer chamfer and the test scores finite, and ``eval_shell`` on the
-    card against the CPU.  The inner geometry is not checked here: a stage
-    2 of 100 steps carves no inner surface yet, so ``extract-mesh-stage2``,
+    ``eval-geometry`` of the inner mesh, ``eval-images``), its ``train``
+    keeping the parameters at ``PIPELINE_SHELL_INTERVAL`` (``--keep``), then
+    ``shell_stage2b`` the same way on the same stage 1
+    (``configs/stage2/nerf/nested_shell_b.yaml``: the absorption held at its
+    init before step 3,000 and while the inner inv_s is under 200), each
+    stage-2 config reading the chained outer mesh.  Checked: every artifact
+    is there, the kept copy (that step, no Adam state), the chained mesh
+    names, each child's config and its K3 launches, the steps and
+    validations logged, finite losses, the outer chamfer and the test scores
+    finite, and ``eval_shell`` of both stage-2 legs on the card against the
+    CPU.  The inner geometry is not checked here: a stage 2 of 100 steps
+    carves no inner surface yet, so ``extract-mesh-stage2``,
     ``postprocess-stage2`` and ``eval-geometry`` of the inner mesh run on
     an empty mesh, and the phase checks only that ``eval-geometry`` reports
     it as empty (a finite chamfer where a surface was carved).  The launch
-    counts are this process's: the budgeted child's ``train`` counts in its
-    own.  Returns (launches, numbers)."""
+    counts are this process's: the budgeted children's ``train`` count in
+    their own, read back from their records.  Returns (launches, numbers)."""
     import os
 
     from nunerf_tpu_torch import pipeline as pl
@@ -2635,12 +2650,15 @@ def phase_pipeline_shell(dev, work):
     n, every = PIPELINE_SHELL_STEPS, PIPELINE_SHELL_INTERVAL
     cut = dict(total_step=n, val_interval=every, save_interval=every)
     outer = f"./data/meshes/nested_shell-{n}_simplified_outer.ply"
-    over = {pl.S1_SHELL: cut, pl.S2_SHELL: dict(cut, stage1_mesh_dir=outer)}
+    over = {pl.S1_SHELL: cut, pl.S2_SHELL: dict(cut, stage1_mesh_dir=outer),
+            pl.S2_SHELL_B: dict(cut, stage1_mesh_dir=outer)}
     fm.reset_launches()
     ri.reset_launches()
     front = pl.run_leg("shell_front", leg_dir, device=dev, cfg_overrides=over)
     stage2 = pl.run_leg("shell_stage2", leg_dir, budget=PIPELINE_SHELL_BUDGET, device=dev,
                         cfg_overrides=over, keep=(every,))
+    stage2b = pl.run_leg("shell_stage2b", leg_dir, budget=PIPELINE_SHELL_BUDGET, device=dev,
+                         cfg_overrides=over)
     torch.cuda.synchronize()
     launches = dict(fm.launches, **ri.launches)
 
@@ -2648,11 +2666,19 @@ def phase_pipeline_shell(dev, work):
     if front["meshes"] != meshes:
         raise AssertionError(f"shell_front's meshes are {front['meshes']}, not {meshes}")
     inner = f"data/meshes/nested_shell_s2-{n}-inner.ply"
-    if stage2["meshes"] != dict(inner=inner, inner_post=inner[:-4] + "_post.ply"):
-        raise AssertionError(f"shell_stage2's meshes are {stage2['meshes']}")
-    post = [c["argv"] for c in stage2["commands"] if c["command"] == "postprocess-stage2"]
-    if post != [["postprocess-stage2", "--input", inner, "--outer", outer]]:
-        raise AssertionError(f"postprocess-stage2 ran {post}")
+    for r, name, rel in ((stage2, "nested_shell_s2", pl.S2_SHELL),
+                         (stage2b, "nested_shell_s2b", pl.S2_SHELL_B)):
+        mine = f"data/meshes/{name}-{n}-inner.ply"
+        if r["meshes"] != dict(inner=mine, inner_post=mine[:-4] + "_post.ply"):
+            raise AssertionError(f"{r['leg']}'s meshes are {r['meshes']}")
+        post = [c["argv"] for c in r["commands"] if c["command"] == "postprocess-stage2"]
+        if post != [["postprocess-stage2", "--input", mine, "--outer", outer]]:
+            raise AssertionError(f"{r['leg']}'s postprocess-stage2 ran {post}")
+        # the budgeted child ran the leg's own config, and ended by itself
+        train = r["commands"][0]
+        argv = train["argv"]
+        if argv[argv.index("--cfg") + 1] != rel or train["paused"]:
+            raise AssertionError(f"{r['leg']}'s train child ran {train}")
     want = [os.path.join(leg_dir, p) for p in (
         "datasets/nested_shell/meta.json", "data/model/nested_shell/model.ckpt",
         "data/model/nested_shell/model_best.ckpt", "data/model/nested_shell/train_log.jsonl",
@@ -2660,7 +2686,11 @@ def phase_pipeline_shell(dev, work):
         "data/model/nested_shell_s2/train_log.jsonl", "data/eval/nested_shell/eval_test.json",
         "data/eval/nested_shell_s2/eval_test.json", "runs/leg_shell_front.json",
         "runs/leg_shell_stage2.json", "runs/eval_shell_nested_shell_s2.json",
-        *front["meshes"].values(), *stage2["meshes"].values())]
+        "data/model/nested_shell_s2b/model.ckpt", "data/model/nested_shell_s2b/model_best.ckpt",
+        "data/model/nested_shell_s2b/train_log.jsonl",
+        "data/eval/nested_shell_s2b/eval_test.json", "runs/leg_shell_stage2b.json",
+        "runs/eval_shell_nested_shell_s2b.json",
+        *front["meshes"].values(), *stage2["meshes"].values(), *stage2b["meshes"].values())]
     missing = [p for p in want if not os.path.exists(p)]
     if missing:
         raise AssertionError(f"the shell legs left no {missing}")
@@ -2674,17 +2704,26 @@ def phase_pipeline_shell(dev, work):
     if k_step != every or k_opt is not None or sorted(k_params) != sorted(last[1]):
         raise AssertionError(f"{kept}: step {k_step}, Adam state {k_opt is not None}")
     steps = {"nested_shell": front["steps"]["nested_shell"],
-             "nested_shell_s2": stage2["steps"]["nested_shell_s2"]}
+             "nested_shell_s2": stage2["steps"]["nested_shell_s2"],
+             "nested_shell_s2b": stage2b["steps"]["nested_shell_s2b"]}
     for name, st in steps.items():
         if st != {"from": 0, "to": n, "total_step": n, "paused": False}:
             raise AssertionError(f"{name} trained {st}")
-    out = dict(seconds={f"{r['leg']}/{c['command']}": c["s"] for r in (front, stage2)
+    legs = (front, stage2, stage2b)
+    out = dict(seconds={f"{r['leg']}/{c['command']}": c["s"] for r in legs
                         for c in r["commands"]},
                chamfer={"outer": front["chamfer"]["outer"]["chamfer"],
-                        "inner": stage2["chamfer"]["inner"]["chamfer"]},
-               test={k: v for r in (front, stage2) for k, v in r["eval_images"].items()},
-               launches=launches)
-    for r in (front, stage2):
+                        "inner": stage2["chamfer"]["inner"]["chamfer"],
+                        "inner_b": stage2b["chamfer"]["inner"]["chamfer"]},
+               test={k: v for r in legs for k, v in r["eval_images"].items()},
+               launches=launches,
+               launches_by_child={r["leg"]: r["train_child"]["launches"]
+                                  for r in (stage2, stage2b)})
+    for r in (stage2, stage2b):
+        if not r["train_child"]["launches"].get("closest_hit", 0) > 0:
+            raise AssertionError(f"{r['leg']}'s train child launched K3 no time: "
+                                 f"{r['train_child']}")
+    for r in legs:
         for name, ev in r["eval_images"].items():
             # the best validation's checkpoint
             if ev["views"] != 8 or ev["step"] not in range(every, n + 1, every) or not (
@@ -2694,16 +2733,17 @@ def phase_pipeline_shell(dev, work):
     # one yet: then the inner mesh is empty and eval-geometry must say so
     from nunerf_tpu_torch.tracing.mesh_ops import load_ply
 
-    inner_tris = len(load_ply(os.path.join(leg_dir, stage2["meshes"]["inner_post"]))[1])
-    geo = stage2["chamfer"]["inner"]
-    empty = inner_tris == 0 and geo["chamfer"] is None and \
-        geo.get("error", "").startswith("empty surface: pred=0 ")
-    out["inner_triangles"] = inner_tris
-    if not (math.isfinite(out["chamfer"]["outer"])
-            and (empty or (out["chamfer"]["inner"] is not None
-                           and math.isfinite(out["chamfer"]["inner"])))):
-        raise AssertionError(f"eval-geometry: {out['chamfer']}, {geo}, inner mesh of "
-                             f"{inner_tris} triangles")
+    if not math.isfinite(out["chamfer"]["outer"]):
+        raise AssertionError(f"eval-geometry of the outer mesh: {out['chamfer']}")
+    for r, key in ((stage2, "inner_triangles"), (stage2b, "inner_triangles_b")):
+        inner_tris = len(load_ply(os.path.join(leg_dir, r["meshes"]["inner_post"]))[1])
+        geo = r["chamfer"]["inner"]
+        empty = inner_tris == 0 and geo["chamfer"] is None and \
+            geo.get("error", "").startswith("empty surface: pred=0 ")
+        out[key] = inner_tris
+        if not (empty or (geo["chamfer"] is not None and math.isfinite(geo["chamfer"]))):
+            raise AssertionError(f"eval-geometry of {r['leg']}: {geo}, inner mesh of "
+                                 f"{inner_tris} triangles")
     for name in steps:
         logs = read_log(os.path.join(leg_dir, "data/model", name, "train_log.jsonl"))
         val = sorted(r["step"] for r in logs if r["prefix"] == "val")
@@ -2712,27 +2752,40 @@ def phase_pipeline_shell(dev, work):
                 last and math.isfinite(last[0]["loss_total"]) and last[0]["step_ms"] > 0):
             raise AssertionError(f"{name} logged validations {val} and {last}")
         out[f"{name}_step_ms"] = last[0]["step_ms"]
+        out[f"{name}_loss_total"] = last[0]["loss_total"]
     log(f"shell legs (pipeline.run_leg at full width, {n} steps each): " + ", ".join(
         f"{k} {v:.2f} s" for k, v in out["seconds"].items()))
     log(f"shell legs: {front['meshes']['outer']} chamfer {out['chamfer']['outer']:.6f}, "
-        f"{inner} post: {inner_tris} triangles, chamfer {out['chamfer']['inner']}; test "
-        f"{out['test']}; "
-        f"stage 1 {out['nested_shell_step_ms']:.1f} ms/step, stage 2 "
-        f"{out['nested_shell_s2_step_ms']:.1f} ms/step (its child's); launches {launches}")
+        f"{inner} post: {out['inner_triangles']} triangles, chamfer "
+        f"{out['chamfer']['inner']}; the absorption-gated shell_stage2b's post: "
+        f"{out['inner_triangles_b']} triangles, chamfer {out['chamfer']['inner_b']}; test "
+        f"{out['test']}; stage 1 {out['nested_shell_step_ms']:.1f} ms/step, stage 2 "
+        f"{out['nested_shell_s2_step_ms']:.1f} and the gated "
+        f"{out['nested_shell_s2b_step_ms']:.1f} ms/step (their children's), step-{n} "
+        f"loss_total {out['nested_shell_s2_loss_total']:.5f} and "
+        f"{out['nested_shell_s2b_loss_total']:.5f}; launches {launches}, in the children "
+        f"{out['launches_by_child']}")
 
     # eval_shell on the leg's checkpoint: the leg's record (the card) against
     # the CPU, in the leg's working directory
-    cfg = load_cfg(os.path.join(leg_dir, pl.S2_SHELL))
     with open(os.path.join(leg_dir, "datasets/nested_shell/meta.json")) as f:
         meta = json.load(f)
-    cwd = os.getcwd()
-    os.chdir(leg_dir)
-    try:
-        cpu = eval_shell(cfg, meta, device="cpu")
-    finally:
-        os.chdir(cwd)
-    out["eval_shell"] = eval_shell_check("shell_stage2's checkpoint", cfg,
-                                         stage2["eval_shell"], cpu)
+    for r, rel, key in ((stage2, pl.S2_SHELL, "eval_shell"),
+                        (stage2b, pl.S2_SHELL_B, "eval_shell_b")):
+        cfg = load_cfg(os.path.join(leg_dir, rel))
+        cwd = os.getcwd()
+        os.chdir(leg_dir)
+        try:
+            cpu = eval_shell(cfg, meta, device="cpu")
+        finally:
+            os.chdir(cwd)
+        out[key] = eval_shell_check(f"{r['leg']}'s checkpoint", cfg, r["eval_shell"], cpu)
+    # before step 3,000 shell_stage2b's gate holds the absorption at its init
+    init = float(torch.nn.functional.softplus(torch.tensor(-2.0)))
+    kappa = stage2b["eval_shell"]["learned_kappa"]
+    if not all(abs(k - init) <= 1e-6 * init for k in kappa):
+        raise AssertionError(f"shell_stage2b's absorption moved under its gate: {kappa}, "
+                             f"init {init}")
     out["s"] = time.perf_counter() - t_phase
     log(f"phase_pipeline_shell: {out['s']:.1f} s")
     return launches, out
@@ -2838,6 +2891,202 @@ def phase_pipeline_stage2(dev, work):
         f"launches {out['launches_by_process']}")
     out["s"] = time.perf_counter() - t_phase
     log(f"phase_pipeline_stage2: {out['s']:.1f} s")
+    return launches, out
+
+
+RES1024_K3_SAMPLE = 4096   # rays of one view held to the brute plain closest hit
+RES1024_K3_TILE = 4096     # triangles a step of that plain sweep
+
+
+def counted_commands(fn):
+    """``fn()`` with every ``cli.main`` subcommand it runs wrapped: returns
+    (what ``fn`` returns, {subcommand: the launches it made}), each read
+    after a synchronise.  The counters are not reset: the caller sets them
+    to 0 before and reads the path's whole count after."""
+    from nunerf_tpu_torch import cli
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+
+    by, real = {}, cli.main
+
+    def main(argv=None):
+        before = dict(fm.launches, **ri.launches)
+        try:
+            return real(argv)
+        finally:
+            torch.cuda.synchronize()
+            mine = by.setdefault(argv[0], {})
+            for k, v in dict(fm.launches, **ri.launches).items():
+                mine[k] = mine.get(k, 0) + v - before[k]
+
+    cli.main = main
+    try:
+        return fn(), by
+    finally:
+        cli.main = real
+
+
+def views_rays(db, ids, n, dev):
+    """The first ``n`` rays of the views ``ids`` in turn, as ``render-mask``
+    builds each view's: (rays_o, rays_d) f32 on ``dev``."""
+    from nunerf_tpu_torch.tools import render_mask as rm
+
+    os_, ds_, have = [], [], 0
+    for i in ids:
+        o, d, _, _ = rm.view_rays(db, i, True)
+        os_.append(o)
+        ds_.append(d)
+        have += len(o)
+        if have >= n:
+            break
+    return tuple(torch.as_tensor(np.concatenate(a)[:n], device=dev) for a in (os_, ds_))
+
+
+def k3_on_raw_mesh(dev, mesh_path, db):
+    """K3 on a raw marched mesh as ``render-mask`` traces it: the scene's
+    build seconds and its index; K3's ms on ``render_mask.CHUNK`` rays of
+    the database's first views (one launch of the tool's size) beside the
+    bounds of the flat and the two-level culled work those rays needed, and
+    its device time by kernel; then K3 on ``RES1024_K3_SAMPLE`` rays drawn
+    from the first view (seed 0) against the brute plain closest hit
+    (``closest_hit_reference`` in the scene's tolerant mode, every
+    triangle), ``t``, index and ``hit`` held bit for bit.  Raises where K3
+    disagrees; returns the numbers."""
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+    from nunerf_tpu_torch.tools import render_mask as rm
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    t0 = time.perf_counter()
+    scene = Scene(mesh_path, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index = scene.kernel_index
+    ids = db.get_img_ids()
+    o, d = views_rays(db, ids, rm.CHUNK, dev)
+    c = len(o)
+    ms = cuda_ms(lambda: scene.intersect(o, d), 5)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    _, _, hit = ri.closest_hit_cuda(o, d, index, stats=stats, tol=scene.kernel_tol)
+    bound, by = k3_bound(ri, index, c, stats)
+    bound2, by2, tile_tests = k3_bound_two_level(ri, index, o, d, stats)
+    split = k3_device_split(lambda: scene.intersect(o, d))
+    n_tris, n_tiles, n_groups = len(scene.tris_np), index.box.shape[0], index.gbox.shape[0]
+    rec = dict(triangles=n_tris, tiles=n_tiles, groups=n_groups, scene_build_s=build_s,
+               rays=c, hit_share=float(hit.double().mean()), ms=ms, bound_ms=bound,
+               bound_by=by, bound_ms_two_level=bound2, bound_by_two_level=by2,
+               device_ms_by_kernel=split, box_tests=c * n_groups + tile_tests,
+               tri_pairs=int(stats[1]), k3_rays_per_s=c / ms * 1e3)
+    log(f"K3 on the raw mesh ({n_tris} triangles, {n_tiles} tiles in {n_groups} groups; "
+        f"scene built in {build_s:.2f} s): {ms:.3f} ms for {c} rays of the first views "
+        f"(hit share {rec['hit_share']:.3f}); bound of the flat work {bound:.4f} ms ({by}), "
+        f"of the two-level work {bound2:.4f} ms ({by2}); {tile_tests / c:.1f} tile tests "
+        f"and {int(stats[1]) / c:.0f} triangles a ray; device ms by kernel {split}")
+
+    v0_o, v0_d, _, _ = rm.view_rays(db, ids[0], True)
+    gen = torch.Generator().manual_seed(0)
+    pick = torch.randperm(len(v0_o), generator=gen)[:RES1024_K3_SAMPLE]
+    so, sd = (torch.as_tensor(a, device=dev)[pick.to(dev)] for a in (v0_o, v0_d))
+    t, idx, hit = ri.closest_hit_cuda(so, sd, index, tol=scene.kernel_tol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt, ridx, rhit = ri.closest_hit_reference(so, sd, scene.v0, scene.e1, scene.e2,
+                                              tile=RES1024_K3_TILE, tol=scene.kernel_tol)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = torch.equal(t, rt) and torch.equal(idx, ridx) and torch.equal(hit, rhit)
+    rec.update(sample=len(pick), sample_hits=int(hit.sum()), plain="closest_hit_reference "
+               f"(brute, tolerant mode {scene.kernel_tol:g}), every triangle",
+               plain_s=plain_s, max_abs_err=float((t - rt).abs().max()), exact=same)
+    log(f"K3 on the raw mesh against the brute plain closest hit: {len(pick)} rays of view "
+        f"{ids[0]} (seed 0), {rec['sample_hits']} hits; t, index and hit "
+        f"{'equal' if same else 'DIFFER'} (held exactly), max |t - plain| "
+        f"{rec['max_abs_err']:.1e}; the plain sweep in {plain_s:.1f} s")
+    if not same:
+        bad = (int((idx != ridx).sum()), int((hit != rhit).sum()), int((t != rt).sum()))
+        raise AssertionError(f"K3 on the raw mesh disagrees with its plain version: {bad} "
+                             "(index, hit, t) rays differ")
+    if not 0 < rec["sample_hits"] < len(pick):
+        raise AssertionError(f"the sample's rays all {'miss' if not rec['sample_hits'] else 'hit'}")
+    del scene
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_pipeline_res1024(dev, work):
+    """The leg runner's ``res1024`` leg in ``phase_pipeline``'s working
+    directory, on its 100-step ``front``, at the leg's own 1024^3:
+    ``extract-mesh-stage1 --resolution 1024 --tag r1024`` (K1 over 2^30 grid
+    points, ``slab_chunks(1024)`` launches of up to 2^21, the native
+    marching, the dedup and the remesh), then ``render-mask`` on the raw
+    mesh (K3 on every pixel of the 48 train views).  Checked: the mesh named
+    from the checkpoint's step with its tag, both meshes and the 48 masks
+    there, the launches of each subcommand, then K3 on that raw mesh
+    against the brute plain closest hit (``k3_on_raw_mesh``).  Returns
+    (launches, numbers)."""
+    import os
+    import resource
+
+    from nunerf_tpu_torch import pipeline as pl
+    from nunerf_tpu_torch.data.database import parse_database_name
+    from nunerf_tpu_torch.ops import fused_mlp as fm
+    from nunerf_tpu_torch.ops import ray_intersect as ri
+
+    t_phase = time.perf_counter()
+    leg_dir = os.path.join(work, "leg_front")
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launches()
+    ri.reset_launches()
+    rec, by_cmd = counted_commands(lambda: pl.run_leg("res1024", leg_dir, device=dev))
+    torch.cuda.synchronize()
+    launches = dict(fm.launches, **ri.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+    raw = f"data/meshes/nested-{PIPELINE_STEPS}_r1024.ply"
+    if rec["meshes"] != {"raw": raw, "stage1": raw[:-4] + "_simplified.ply"} or \
+            rec["checkpoints"] != {
+            "extract-mesh-stage1": PIPELINE_STEPS}:
+        raise AssertionError(f"the res1024 leg's meshes {rec['meshes']}, checkpoints "
+                             f"{rec['checkpoints']}")
+    if [c["command"] for c in rec["commands"]] != ["extract-mesh-stage1", "render-mask"]:
+        raise AssertionError(f"the res1024 leg ran {rec['commands']}")
+    db = parse_database_name("nerf/nested", os.path.join(leg_dir, "datasets"))
+    masks = os.path.join(leg_dir, "datasets/nested/mask")
+    n_masks = sum(len(names) for _, _, names in os.walk(masks))
+    want = [os.path.join(leg_dir, p) for p in (raw, raw[:-4] + "_simplified.ply",
+                                               "runs/leg_res1024.json")]
+    missing = [p for p in want if not os.path.exists(p)]
+    n_views = len(db.get_img_ids())
+    sweeps = slab_chunks(1024)
+    x = by_cmd["extract-mesh-stage1"]
+    m = by_cmd["render-mask"]
+    out = dict(seconds={c["command"]: c["s"] for c in rec["commands"]},
+               extract=rec["extract_s1"], **rec["mesh_counts"], launches=launches,
+               by_command=by_cmd, k1_expected=sweeps, masks=n_masks, views=n_views,
+               peak_device_gib=peak_gib, peak_host_rss_gib=rss_gib)
+    log(f"res1024 leg (pipeline.run_leg at 1024^3 on the {PIPELINE_STEPS}-step front): "
+        + ", ".join(f"{c['command']} {c['s']:.2f} s" for c in rec["commands"])
+        + "; extract-mesh-stage1 by part: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rec["extract_s1"].items())
+        + f"; {raw}: {out['verts']} vertices, {out['tris']} triangles, remeshed "
+        f"{out['tris_simplified']}; K1 launches {x['chain_fwd']} ({sweeps} expected), "
+        f"render-mask's K3 launches {m['closest_hit']} for {n_views} views, {n_masks} masks; "
+        f"peak device memory {peak_gib:.2f} GiB, peak host RSS {rss_gib:.2f} GiB; "
+        f"launches {launches}")
+    if missing:
+        raise AssertionError(f"the res1024 leg left no {missing}")
+    if x["chain_fwd"] != sweeps or x["closest_hit"] != 0:
+        raise AssertionError(f"extract-mesh-stage1 at 1024^3 launched {x}: {sweeps} K1 "
+                             "expected")
+    if m["closest_hit"] != n_views or m["chain_fwd"] != 0 or n_masks != n_views:
+        raise AssertionError(f"render-mask launched {m} and wrote {n_masks} masks for "
+                             f"{n_views} views")
+    out["k3"] = k3_on_raw_mesh(dev, os.path.join(leg_dir, raw), db)
+    if out["k3"]["triangles"] != out["tris"]:
+        raise AssertionError(f"K3 traced {out['k3']['triangles']} triangles of {out['tris']}")
+    out["leg_s"] = rec["seconds"]
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase_pipeline_res1024: {out['s']:.1f} s")
     return launches, out
 
 
@@ -3976,6 +4225,7 @@ def main():
         paths["pipeline_front"], res_leg = phase_pipeline(
             dev, work, os.path.join(work, "model", SHELL_CFG["name"], "model.ckpt"))
         paths["pipeline_stage2"], res_leg_stage2 = phase_pipeline_stage2(dev, work)
+        paths["pipeline_res1024"], res_leg_res1024 = phase_pipeline_res1024(dev, work)
         paths["pipeline_shell"], res_leg_shell = phase_pipeline_shell(dev, work)
         paths["pipeline_real"], res_leg_real = phase_pipeline_real(dev, work)
         tool_paths, res_tools = phase_tools(dev, work, ckpt1, res_x["extract_s1"]["mesh"],
@@ -4005,7 +4255,9 @@ def main():
                           ("pipeline_shell", "closest_hit"),
                           ("pipeline_stage2", "chain_fwd"), ("pipeline_stage2", "closest_hit"),
                           ("pipeline_real", "chain_fwd"), ("pipeline_real", "chain_bwd"),
-                          ("pipeline_real", "closest_hit")):
+                          ("pipeline_real", "closest_hit"),
+                          ("pipeline_res1024", "chain_fwd"),
+                          ("pipeline_res1024", "closest_hit")):
         if not paths[path].get(counter, 0) > 0:
             raise AssertionError(f"path {path} launched {counter} no time")
 
@@ -4031,6 +4283,12 @@ def main():
         "triangles", "tiles", "groups", "chunk", "ms_chunk", "ms_chunk_top", "ms_view",
         "ms_view_one_call", "bound_ms_chunk", "bound_by", "bound_ms_chunk_two_level",
         "bound_by_two_level", "device_ms_by_kernel", "k3_rays_per_s", "plain_hit_differs")}
+    # K3 on the raw 1024^3 mesh (the res1024 leg's), K1 over its grid
+    rec["K3"]["raw_mesh_1024"] = {k: v for k, v in res_leg_res1024["k3"].items()
+                                  if k != "device_ms_by_kernel"}
+    rec["K1"]["sweep_1024"] = dict(
+        launches=res_leg_res1024["by_command"]["extract-mesh-stage1"]["chain_fwd"],
+        sweep_s=res_leg_res1024["extract"]["sweep_s"], points=1024 ** 3)
     chunk = res_x["k1_chunk"]
     rec["K1"].update({f"{k}_n{chunk['n']}": chunk[k]
                       for k in ("ms", "plain_ms", "bound_ms", "rel_err")})
@@ -4043,7 +4301,8 @@ def main():
                 "box_pairs_passed_r131072", "tri_pairs_tested_r131072", "mode", "ms_exact",
                 "ms_exact_r131072", "brute_sweep_agreement", "culled_descent_agreement",
                 "brute_sweep_agreement_r131072", "adversarial_agreement_tile8",
-                "adversarial_agreement_tile32", "tool_scale", "bound_ms_two_level",
+                "adversarial_agreement_tile32", "tool_scale", "raw_mesh_1024", "sweep_1024",
+                "bound_ms_two_level",
                 "bound_by_two_level", "groups", "device_ms_by_kernel", "bound_ms_r131072",
                 "bound_ms_two_level_r131072", "device_ms_by_kernel_r131072")
     kernels = []
@@ -4095,6 +4354,7 @@ def main():
                "pipeline_shell": res_leg_shell,
                "pipeline_stage2": res_leg_stage2,
                "pipeline_real": res_leg_real,
+               "pipeline_res1024": res_leg_res1024,
                "tools": res_tools,
                "parallel": res_par,
                "seconds": time.perf_counter() - t_start}

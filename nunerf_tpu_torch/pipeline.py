@@ -256,12 +256,16 @@ class _Leg:
                 return None
             time.sleep(min(WATCH_S, deadline - now))
 
-    def extract_stage1(self, rel, resolution):
+    def extract_stage1(self, rel, resolution, tag=None):
+        """``extract-mesh-stage1`` of config ``rel``; records the checkpoint's
+        step, the remeshed mesh, the seconds of each part and the counts."""
         path, _ = self.cfg(rel)
-        rec = self.cli("extract-mesh-stage1", "--cfg", path, "--resolution", str(resolution))
+        rec = self.cli("extract-mesh-stage1", "--cfg", path, "--resolution", str(resolution),
+                       *(["--tag", tag] if tag else []))
         self.record["checkpoints"]["extract-mesh-stage1"] = rec["step"]
         self.record["meshes"]["stage1"] = rec["simplified"]
         self.record["extract_s1"] = {k: v for k, v in rec.items() if k.endswith("_s")}
+        self.record["mesh_counts"] = {k: rec[k] for k in ("verts", "tris", "tris_simplified")}
         return rec
 
     def extract_stage2(self, rel, resolution=256):
@@ -375,12 +379,10 @@ def real_front(leg, budget=None):
 
 
 def res1024(leg, budget=None):
-    path, _ = leg.cfg(S1_NESTED)
-    rec = leg.cli("extract-mesh-stage1", "--cfg", path, "--resolution", "1024", "--tag",
-                  "r1024")
-    leg.record["checkpoints"]["extract-mesh-stage1"] = rec["step"]
-    leg.record["meshes"]["raw"] = rec["mesh"]
-    leg.cli("render-mask", "--cfg", path, "--mesh_path", rec["mesh"])
+    # the masks come from the raw mesh, not the remeshed one
+    raw = leg.extract_stage1(S1_NESTED, 1024, tag="r1024")["mesh"]
+    leg.record["meshes"]["raw"] = raw
+    leg.cli("render-mask", "--cfg", leg.cfg(S1_NESTED)[0], "--mesh_path", raw)
 
 
 def _boot_tail(leg):

@@ -9,7 +9,11 @@
 * ``shell_front`` then ``shell_stage2`` through ``run_leg`` on a tiny
   scene, tiny configs and 16^3 extractions, in a working directory of their
   own: the mesh paths chained from the checkpoints' steps, the configs
-  written under the working directory, the record printed and written.
+  written under the working directory, the record printed and written;
+  then ``shell_stage2b`` (``nested_shell_b.yaml``, the absorption gated) on a
+  copy of that directory: its own run, meshes and scores, the absorption
+  still at its init after its steps.  Every leg of ``pipeline.LEGS`` runs
+  end to end in some test (``test_every_leg_runs_end_to_end_in_a_test``).
 * ``tools.leg_geometry``'s copies of each checkpoint the front leg's
   trainer writes, its refusal to start a seed run where the leg would
   resume, and the seed run's overrides (``--train-f32``: both bf16
@@ -31,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from leg_script import assert_runs_script
 from nunerf_tpu_torch import pipeline as pl
 from nunerf_tpu_torch.tools import eval_shell as port_eval_shell
 from nunerf_tpu_torch.tools import leg_geometry
@@ -55,7 +60,8 @@ S2_TINY = dict(sdf_n_layers=4, n_samples_outer=8, n_samples_inner=4, inner_up_ro
                sdf_mixed_precision=False, train_ray_num=16, test_ray_num=64, total_step=2,
                train_log_step=1, save_interval=2, val_interval=2,
                stage1_mesh_dir="./data/meshes/nested_shell-4_simplified_outer.ply")
-TINY = dict(device="cpu", cfg_overrides={pl.S1_SHELL: S1_TINY, pl.S2_SHELL: S2_TINY},
+TINY = dict(device="cpu", cfg_overrides={pl.S1_SHELL: S1_TINY, pl.S2_SHELL: S2_TINY,
+                                         pl.S2_SHELL_B: S2_TINY},
             extra_args={"synth-scene": ["--n-train", "4", "--n-test", "2", "--size", "16"],
                         "extract-mesh-stage1": ["--resolution", "16"],
                         "extract-mesh-stage2": ["--resolution", "16"],
@@ -209,6 +215,24 @@ def shell_legs(tmp_path_factory):
     return work, front, stage2, buf.getvalue().splitlines(), kept
 
 
+@pytest.fixture(scope="module")
+def shell_stage2b(shell_legs, tmp_path_factory):
+    """``shell_stage2b`` (a 600 s budget, never reached) in a copy of the
+    shell legs' working directory: (workdir, record)."""
+    import contextlib
+    import io
+    import shutil
+
+    home = tmp_path_factory.mktemp("legs_b")
+    work = str(home / "work")
+    shutil.copytree(shell_legs[0], work)
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(io.StringIO()):
+        mp.chdir(home)
+        mp.setenv("OMP_NUM_THREADS", "1")  # the budgeted child
+        rec = pl.run_leg("shell_stage2b", work, budget=600, **TINY)
+    return work, rec
+
+
 def _argv(record, command):
     return [c["argv"] for c in record["commands"] if c["command"] == command]
 
@@ -302,6 +326,78 @@ def test_stage2_leg_chains_its_inner_mesh_and_scores_the_shell(shell_legs):
         assert json.load(f) == es
     ev = stage2["eval_images"]["nested_shell_s2"]
     assert ev["step"] == 2 and ev["views"] == 2
+
+
+@pytest.mark.parametrize("which", ["shell_front", "shell_stage2"])
+def test_shell_legs_run_the_subcommands_of_their_script_bodies(shell_legs, which):
+    assert_runs_script(shell_legs[{"shell_front": 1, "shell_stage2": 2}[which]])
+
+
+def test_gated_shell_stage2b_runs_its_own_config_on_the_shell_front(shell_stage2b):
+    import yaml
+
+    work, rec = shell_stage2b
+    assert_runs_script(rec)
+    with open(os.path.join(work, pl.S2_SHELL_B)) as f:
+        s2 = yaml.safe_load(f)
+    with open(os.path.join(ROOT, pl.S2_SHELL_B)) as f:
+        assert s2 == dict(yaml.safe_load(f), **S2_TINY)
+    assert (s2["freeze_absorption_step"], s2["freeze_absorption_inv_s"]) == (3000, 200.0)
+    # the shell front's outer mesh and best checkpoint, as shell_stage2's
+    assert s2["stage1_ckpt_dir"] == "./data/model/nested_shell/model_best.ckpt"
+    assert rec["stage1"]["mesh"] == S2_TINY["stage1_mesh_dir"]
+    assert rec["steps"] == {"nested_shell_s2b": {"from": 0, "to": 2, "total_step": 2,
+                                                 "paused": False}}
+    inner = "data/meshes/nested_shell_s2b-2-inner.ply"
+    assert rec["meshes"] == {"inner": inner, "inner_post": inner[:-4] + "_post.ply"}
+    assert _argv(rec, "postprocess-stage2")[0] == [
+        "postprocess-stage2", "--input", inner, "--outer", S2_TINY["stage1_mesh_dir"]]
+    assert _argv(rec, "eval-geometry")[0][:5] == [
+        "eval-geometry", "--mesh", inner[:-4] + "_post.ply", "--gt",
+        "datasets/nested_shell/gt_inner.npy"]
+    for rel in ("data/model/nested_shell_s2b/model.ckpt",
+                "data/model/nested_shell_s2b/model_best.ckpt",
+                "data/eval/nested_shell_s2b/eval_test.json", "runs/leg_shell_stage2b.json",
+                "runs/eval_shell_nested_shell_s2b.json", *rec["meshes"].values()):
+        assert os.path.exists(os.path.join(work, rel)), rel
+    train = rec["commands"][0]
+    assert train["budget_s"] == 600 and not train["paused"]
+    ev = rec["eval_images"]["nested_shell_s2b"]
+    assert ev["step"] == 2 and ev["views"] == 2 and np.isfinite(ev["mean_psnr"])
+    assert np.isfinite(rec["eval_shell"]["learned_ior"])
+
+
+def test_gated_shell_stage2b_holds_the_absorption_that_shell_stage2_trains(
+        shell_legs, shell_stage2b):
+    """Two steps are before ``freeze_absorption_step``: the gated leg's
+    absorption is its init to the bit, while ``shell_stage2``'s (no gate)
+    has moved; ``eval_shell`` reports each."""
+    from nunerf_tpu_torch.train.trainer import load_checkpoint
+
+    raw = {}
+    for name, work in (("nested_shell_s2", shell_legs[0]), ("nested_shell_s2b",
+                                                           shell_stage2b[0])):
+        _, params, opt, _ = load_checkpoint(os.path.join(work, "data/model", name,
+                                                         "model.ckpt"))
+        assert opt["count"] == 2
+        raw[name] = np.asarray(params["train"]["absorption"])
+    np.testing.assert_array_equal(raw["nested_shell_s2b"], np.full(3, -2.0, np.float32))
+    assert (raw["nested_shell_s2"] != -2.0).all()
+    init = float(torch.nn.functional.softplus(torch.tensor(-2.0)))
+    assert shell_stage2b[1]["eval_shell"]["learned_kappa"] == pytest.approx([init] * 3,
+                                                                           rel=1e-6)
+
+
+def test_every_leg_runs_end_to_end_in_a_test():
+    """Each leg of ``pipeline.LEGS`` is run through ``run_leg`` by some test
+    file of the port: a leg added without such a run fails here."""
+    import glob
+
+    ran = set()
+    for path in glob.glob(os.path.join(ROOT, "tests", "test_torch_port_*.py")):
+        with open(path) as f:
+            ran |= set(re.findall(r"""run_leg\(\s*["'](\w+)["']""", f.read()))
+    assert sorted(set(pl.LEGS) - ran) == []
 
 
 def test_leg_geometry_keeps_each_checkpoint_the_trainer_writes(shell_legs):

@@ -1,7 +1,10 @@
 """The real-capture legs of the port's leg runner (``nunerf_tpu_torch.pipeline``)
 end to end on the CPU, in one working directory: ``real_front``, then
 ``real_boot`` (twice: cut to 2 steps, then run again to 4, so that its
-``train`` child resumes), then ``real_stage2``.
+``train`` child resumes), then ``real_stage2``; then, on a copy of that
+directory, ``real_boot_ext`` (the boot run resumed from 4 to 6 steps,
+re-extracted and re-scored) and ``real_stage2_fresh`` (``real_stage2`` from
+scratch, its run's directory removed first, on the extended boot's mesh).
 
 The three configs are the repository's (``configs/shape/real/
 nested_real.yaml``, ``nested_real_boot.yaml``, ``configs/stage2/real/
@@ -35,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from leg_script import assert_runs_script
 from nunerf_tpu_torch import pipeline as pl
 
 S1_TINY = dict(n_samples=8, n_importance=8, up_sample_steps=2, n_bg_samples=4,
@@ -107,6 +111,28 @@ def legs(tmp_path_factory):
         recs["real_stage2"] = pl.run_leg("real_stage2", work, budget=600,
                                          cfg_overrides=_overrides(**over[pl.S2_REAL]), **run)
     return work, recs, priors, str(guard.value), buf.getvalue().splitlines()
+
+
+@pytest.fixture(scope="module")
+def ext_legs(legs, tmp_path_factory):
+    """``real_boot_ext`` (the boot config cut to 6 steps) then
+    ``real_stage2_fresh`` on its mesh, in a copy of the legs' working
+    directory: (workdir, {leg: record})."""
+    home = tmp_path_factory.mktemp("real_ext")
+    work = str(home / "work")
+    shutil.copytree(legs[0], work)
+    recs = {}
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(io.StringIO()):
+        mp.chdir(home)
+        mp.setenv("OMP_NUM_THREADS", "1")  # the budgeted child
+        run = dict(device="cpu", extra_args=EXTRA)
+        recs["real_boot_ext"] = pl.run_leg("real_boot_ext", work, **run,
+                                           cfg_overrides=_overrides(boot_steps=6))
+        mesh = "./" + recs["real_boot_ext"]["meshes"]["outer"]
+        recs["real_stage2_fresh"] = pl.run_leg(
+            "real_stage2_fresh", work, budget=600, **run,
+            cfg_overrides=_overrides(boot_steps=6, stage1_mesh_dir=mesh))
+    return work, recs
 
 
 def _commands(rec):
@@ -293,6 +319,56 @@ def test_a_paused_real_boot_ends_the_leg_after_its_save(legs, tmp_path, monkeypa
     assert rec["meshes"] == {} and rec["eval_images"] == {}
     with pytest.raises(pl.LegError, match="paused before its mesh"):
         pl.boot_overrides(work)
+
+
+@pytest.mark.parametrize("leg", ["real_front", "real_boot", "real_stage2"])
+def test_real_legs_run_the_subcommands_of_their_script_bodies(legs, leg):
+    assert_runs_script(legs[1][leg])
+
+
+def test_real_boot_ext_resumes_the_boot_run_and_scores_its_new_mesh(ext_legs):
+    work, recs = ext_legs
+    rec = recs["real_boot_ext"]
+    assert_runs_script(rec)
+    # the boot run goes on from the real_boot leg's 4 steps to the extended 6
+    assert rec["steps"] == {"nested_real_boot": {"from": 4, "to": 6, "total_step": 6,
+                                                 "paused": False}}
+    outer = "data/meshes/nested_real_boot-6_simplified_outer.ply"
+    assert rec["meshes"] == {"stage1": "data/meshes/nested_real_boot-6_simplified.ply",
+                             "outer": outer}
+    assert rec["checkpoints"] == {"extract-mesh-stage1": 6}
+    assert _argv(rec, "postprocess-outer")[0][:3] == [
+        "postprocess-outer", "--input", rec["meshes"]["stage1"]]
+    assert _argv(rec, "eval-geometry")[0][:5] == [
+        "eval-geometry", "--mesh", outer, "--gt", "datasets/nested_real/gt_outer.npy"]
+    assert np.isfinite(rec["chamfer"]["outer"]["chamfer"])
+    ev = rec["eval_images"]["nested_real_boot"]
+    assert ev["step"] == 6 and np.isfinite(ev["mean_psnr"])
+    with open(os.path.join(work, BOOT_RUN, "train_log.jsonl")) as f:
+        logs = [json.loads(x) for x in f]
+    assert [r["step"] for r in logs if r["prefix"] == "train"] == [1, 2, 3, 4, 5, 6]
+    # the boot leg's mesh stays beside the extension's
+    assert os.path.exists(os.path.join(work, BOOT_MESH))
+
+
+def test_real_stage2_fresh_trains_from_scratch_on_the_extended_mesh(ext_legs):
+    work, recs = ext_legs
+    rec = recs["real_stage2_fresh"]
+    assert_runs_script(rec)
+    outer = "./" + recs["real_boot_ext"]["meshes"]["outer"]
+    assert rec["stage1"] == {"mesh": outer, "ckpt": f"./{BOOT_RUN}/model.ckpt",
+                             "ckpt_step": 6}
+    # real_stage2's run (2 steps) was removed first: from 0 again, one log
+    assert rec["steps"]["nested_real_s2"] == {"from": 0, "to": 2, "total_step": 2,
+                                              "paused": False}
+    with open(os.path.join(work, "data/model/nested_real_s2/train_log.jsonl")) as f:
+        logs = [json.loads(x) for x in f]
+    assert [r["step"] for r in logs if r["prefix"] == "train"] == [1, 2]
+    assert _argv(rec, "postprocess-stage2")[0][-2:] == ["--outer", outer]
+    assert rec["meshes"]["inner"] == "data/meshes/nested_real_s2-2-inner.ply"
+    assert np.isfinite(rec["eval_shell"]["learned_ior"])
+    ev = rec["eval_images"]["nested_real_s2"]
+    assert ev["step"] == 2 and np.isfinite(ev["mean_psnr"])
 
 
 @pytest.mark.parametrize("leg", ["real_front", "front", "shell_front"])

@@ -1,5 +1,6 @@
 """The port's curvature-shell stage-2 step against the JAX step under the
-``shell_stage2`` leg's own config, at its schedule gates (CPU).
+``shell_stage2`` leg's own config, at its schedule gates, and under the
+``shell_stage2b`` leg's at its absorption gate (CPU).
 
 ``configs/stage2/nerf/nested_shell.yaml`` and the stage-1 config it names
 (``configs/shape/nerf/nested_shell.yaml``, the frozen nets') are read as
@@ -18,6 +19,16 @@ lr through ``TrainStep``) is held at the steps on both sides of each gate
 ``freeze_thickness_inv_s`` (``INV_S``: 80 and 120), so that both branches of
 the thickness gate are seen.  Stage 2 draws no random numbers; its one
 draw, the rays, is the batch handed to both packages.
+
+``configs/stage2/nerf/nested_shell_b.yaml`` is that config with the
+absorption held at its init before ``freeze_absorption_step`` 3,000 and
+while the inner inv_s is under ``freeze_absorption_inv_s`` 200: the same
+step, checks and tolerances at 2,999 and 3,000 (``CASES_B``), each at the
+jittered init's inv_s and at 180 and 220 (``INV_S_B``), so that at 3,000
+the absorption is held at 180 and trains at 220 while the thickness gate
+(100) is open at both.  The absorption's gradient is zero exactly where
+the gate holds it, in both packages.  JAX's steps under that config are
+traced and compiled beside the first config's, in the same fixture.
 
 The JAX step is jitted once a kind (f32, float64, bf16) with the step and
 the inner inv_s parameter as traced arguments, and its float64 step runs
@@ -117,11 +128,17 @@ def _tool():
 
 tsc = _tool()
 S2_PATH = "configs/stage2/nerf/nested_shell.yaml"
+S2_B_PATH = "configs/stage2/nerf/nested_shell_b.yaml"
 STEPS = [999, 1000, 1499, 1500, 2999, 3000, 7999, 8000, 9999, 10000, 27999, 28000, 29999]
 # the inner inv_s of each case: the jittered init's (about 20) at every step,
 # and at 3,000 also 80 and 120, each side of freeze_thickness_inv_s
 INV_S = (80.0, 120.0)
 CASES = [(s, None) for s in STEPS] + [(3000, v) for v in INV_S]
+# shell_stage2b's absorption gate: each side of its step and of its inv_s
+INV_S_B = (180.0, 220.0)
+CASES_B = [(s, v) for s in (2999, 3000) for v in (None,) + INV_S_B]
+PARAMS = ([pytest.param(S2_PATH, s, v, id=f"{s}-{v}") for s, v in CASES]
+          + [pytest.param(S2_B_PATH, s, v, id=f"b-{s}-{v}") for s, v in CASES_B])
 S1_CUT = dict(sdf_n_layers=4, n_samples=8, n_importance=8, up_sample_steps=2,
               n_bg_samples=4, n_front_samples=2, n_back_samples=2)
 S2_CUT = dict(sdf_n_layers=4, n_samples_outer=8, n_samples_inner=4, inner_up_rounds=1,
@@ -161,10 +178,10 @@ def _read(rel):
         return yaml.safe_load(f)
 
 
-def _cfg(bf16):
+def _cfg(bf16, path=S2_PATH):
     """The leg's stage-2 config with depth and samples cut, its stage-1
     config inlined; in f32 both configs' bf16 switches off."""
-    s2 = _read(S2_PATH)
+    s2 = _read(path)
     s1 = dict(_read(os.path.normpath(s2["stage1_cfg_dir"])), **S1_CUT)
     cfg = {k: v for k, v in s2.items() if k not in FILE_KEYS}
     cfg.update(S2_CUT, stage1_cfg=s1)
@@ -200,6 +217,22 @@ def test_config_holds_the_gates_the_cases_straddle():
         assert gate - 1 in STEPS and gate in STEPS
 
 
+def test_gated_config_is_the_shell_config_with_its_absorption_gate():
+    base, gated = _read(S2_PATH), _read(S2_B_PATH)
+    assert gated["freeze_absorption_step"] == 3000
+    assert gated["freeze_absorption_inv_s"] == 200.0
+    assert gated["name"] == base["name"] + "b"
+    rest = {k: v for k, v in gated.items()
+            if k not in ("name", "freeze_absorption_step", "freeze_absorption_inv_s")}
+    assert rest == {k: v for k, v in base.items() if k != "name"}
+    # the cases straddle the gate's step and its inv_s, above the thickness
+    # gate's inv_s, so that at 3,000 only the absorption's gate differs
+    steps = {s for s, _ in CASES_B}
+    assert steps == {gated["freeze_absorption_step"] - 1, gated["freeze_absorption_step"]}
+    assert min(INV_S_B) < gated["freeze_absorption_inv_s"] < max(INV_S_B)
+    assert min(INV_S_B) > gated["freeze_thickness_inv_s"]
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """(mesh, parameters, JAX's sides, the tiny scene's root): the
@@ -228,6 +261,13 @@ def setup(tmp_path_factory):
         side.load(params, _fresh_adam(params))
         side.compiling = _Compiled(side.lower(_batch(), STEPS[0]), OPTIONS.get(kind))
         sides[kind] = side
+    for kind in ("f32", "f64", "bf16"):
+        side = tsc.ShellJaxSide(JShellRenderer(_cfg(kind == "bf16", S2_B_PATH),
+                                               scene=JScene(mesh, tile=512),
+                                               stage1_params=s1_params), kind == "f64")
+        side.load(params, _fresh_adam(params))
+        side.compiling = _Compiled(side.lower(_batch(), CASES_B[0][0]), OPTIONS.get(kind))
+        sides[S2_B_PATH, kind] = side
     yield mesh, params, sides, root
     for side in sides.values():
         getattr(side, "compiling", side).join()
@@ -275,10 +315,11 @@ def _train_only(grads):
     return {k: v for k, v in grads.items() if not k.startswith("frozen/")}
 
 
-def _jax_step(setup, kind, step, inv_s, params=None, batch=None):
-    """(terms, outputs, trainable gradients) of JAX's step, float64 numpy,
-    from ``params`` (the setup's, with ``inv_s``) and a fresh Adam."""
-    side = setup[2][kind]
+def _jax_step(setup, kind, step, inv_s, params=None, batch=None, path=S2_PATH):
+    """(terms, outputs, trainable gradients) of JAX's step under the config
+    at ``path``, float64 numpy, from ``params`` (the setup's, with
+    ``inv_s``) and a fresh Adam."""
+    side = setup[2][kind if path == S2_PATH else (path, kind)]
     side.compiled = side.compiling.get()
     params = _with_inv_s(setup[1] if params is None else params, inv_s)
     side.load(params, _fresh_adam(params))
@@ -357,8 +398,12 @@ def _check_gates(cfg, step, inv_s, terms, grads):
         assert terms[flag] == float(frozen[flag]), (step, inv_s, flag, terms[flag])
         total = sum(float(np.abs(v).sum()) for k, v in grads.items() if k.startswith(head))
         assert (total == 0) == frozen[flag], (step, inv_s, head, total)
-    assert sum(float(np.abs(v).sum()) for k, v in grads.items()
-               if k.startswith("train/absorption")) > 0
+    # the absorption's gate, where the config has one (the reference's none)
+    thr = cfg.get("freeze_absorption_inv_s")
+    held = step < cfg.get("freeze_absorption_step", 0) or (thr is not None and seen < thr)
+    total = sum(float(np.abs(v).sum()) for k, v in grads.items()
+                if k.startswith("train/absorption"))
+    assert (total == 0) == held, (step, inv_s, "absorption", total)
 
 
 def _adam_held(step, grads, jgrads, before, after, lr, noise):
@@ -391,13 +436,13 @@ def _param_inv_s(setup, inv_s):
     return float(np.exp(10.0 * np.float64(flat_leaves(setup[1])[VAR])))
 
 
-@pytest.mark.parametrize("step,inv_s", CASES)
-def test_shell_step_matches_jax_f32(setup, step, inv_s):
-    cfg = _cfg(False)
+@pytest.mark.parametrize("path,step,inv_s", PARAMS)
+def test_shell_step_matches_jax_f32(setup, path, step, inv_s):
+    cfg = _cfg(False, path)
     t32, o32, g32, before, after, lr = _port_step(setup, cfg, step, inv_s, torch.float32)
     t64, o64, g64, _, _, _ = _port_step(setup, cfg, step, inv_s, torch.float64)
-    jterms, jout, jgrads = _jax_step(setup, "f32", step, inv_s)
-    j64, jout64, jg64 = _jax_step(setup, "f64", step, inv_s)
+    jterms, jout, jgrads = _jax_step(setup, "f32", step, inv_s, path=path)
+    j64, jout64, jg64 = _jax_step(setup, "f64", step, inv_s, path=path)
     seen = _param_inv_s(setup, inv_s)
     _check_gates(cfg, step, seen, jterms, jgrads)
     _check_gates(cfg, step, seen, t32, g32)
@@ -444,13 +489,13 @@ def _held_bf16(got, want, want32, rtol, what):
     return bound
 
 
-@pytest.mark.parametrize("step,inv_s", CASES)
-def test_shell_step_matches_jax_bf16(setup, step, inv_s):
-    cfg = _cfg(True)
+@pytest.mark.parametrize("path,step,inv_s", PARAMS)
+def test_shell_step_matches_jax_bf16(setup, path, step, inv_s):
+    cfg = _cfg(True, path)
     assert cfg["sdf_mixed_precision"] and cfg.get("mixed_precision", True)
     terms, out, grads, before, after, lr = _port_step(setup, cfg, step, inv_s, torch.bfloat16)
-    jterms, jout, jgrads = _jax_step(setup, "bf16", step, inv_s)
-    j32, jout32, jg32 = _jax_step(setup, "f32", step, inv_s)
+    jterms, jout, jgrads = _jax_step(setup, "bf16", step, inv_s, path=path)
+    j32, jout32, jg32 = _jax_step(setup, "f32", step, inv_s, path=path)
     seen = _param_inv_s(setup, inv_s)
     _check_gates(cfg, step, seen, jterms, jgrads)
     _check_gates(cfg, step, seen, terms, grads)

@@ -1,6 +1,7 @@
 """The zero-thickness nested ``stage2`` leg of the port's leg runner
 (``nunerf_tpu_torch.pipeline``) end to end on the CPU, after the ``front``
-leg, in one working directory.
+leg, in one working directory; and the ``res1024`` leg on a copy of the
+``front`` leg's directory.
 
 ``front`` trains ``configs/shape/nerf/nested.yaml`` cut to 4 steps (so its
 mesh is ``nested-4_simplified.ply``, not the config's ``-30000``), then
@@ -13,6 +14,13 @@ and the scene are tiny (``S1_TINY``, ``S2_TINY``: 16x16 views); every other
 key of both configs is the repository's.  One run of both legs is shared
 by the cases (``legs``); the budget pause runs its own injected child on
 the leg's zero-thickness checkpoint.
+
+``res1024`` runs the reference's extraction contract: ``extract-mesh-stage1
+--resolution 1024 --tag r1024`` of the ``front`` leg's last checkpoint (the
+test's later ``--resolution 16`` wins, as the other legs' 512 does), then
+``render-mask`` on the raw mesh, not the remeshed one.  Its masks go to the
+scene's ``mask/``, which the databases read, so it runs on a copy of the
+directory that ``stage2`` trains in.
 """
 
 import json
@@ -23,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from leg_script import assert_runs_script
 from nunerf_tpu_torch import pipeline as pl
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -188,3 +197,72 @@ def test_stage2_child_is_stopped_right_after_a_save_of_its_checkpoint(
     assert "train_child" not in rec  # a stopped child records nothing
     assert np.isfinite(rec["eval_images"]["nested_s2"]["mean_psnr"])
 
+
+
+@pytest.fixture(scope="module")
+def res1024(legs, tmp_path_factory):
+    """``res1024`` in a copy of the legs' working directory: (workdir,
+    record)."""
+    import contextlib
+    import io
+    import shutil
+
+    home = tmp_path_factory.mktemp("res1024")
+    work = str(home / "work")
+    shutil.copytree(legs[0], work)
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(io.StringIO()):
+        mp.chdir(home)
+        rec = pl.run_leg("res1024", work, **TINY)
+    return work, rec
+
+
+@pytest.mark.parametrize("which", ["front", "stage2"])
+def test_legs_run_the_subcommands_of_their_script_bodies(legs, which):
+    assert_runs_script(legs[{"front": 1, "stage2": 2}[which]])
+
+
+def test_res1024_extracts_the_tagged_mesh_of_the_last_checkpoint(res1024):
+    from nunerf_tpu_torch.tracing.mesh_ops import load_ply
+
+    work, rec = res1024
+    assert_runs_script(rec)
+    raw = "data/meshes/nested-4_r1024.ply"
+    # the mesh named from the checkpoint's step (4, not the config's 30,000)
+    # with the script's tag, so the front leg's meshes stay as they were
+    assert rec["checkpoints"] == {"extract-mesh-stage1": 4}
+    assert rec["meshes"] == {"raw": raw, "stage1": raw[:-4] + "_simplified.ply"}
+    assert _argv(rec, "extract-mesh-stage1") == [[
+        "extract-mesh-stage1", "--cfg", pl.S1_NESTED, "--resolution", "1024", "--tag",
+        "r1024", "--resolution", "16"]]
+    assert _argv(rec, "render-mask") == [["render-mask", "--cfg", pl.S1_NESTED,
+                                          "--mesh_path", raw]]
+    v, f = load_ply(os.path.join(work, raw))
+    vs, fs = load_ply(os.path.join(work, rec["meshes"]["stage1"]))
+    assert rec["mesh_counts"] == {"verts": len(v), "tris": len(f), "tris_simplified": len(fs)}
+    assert len(f) > 0 and len(fs) > 0 and set(rec["extract_s1"]) == {
+        "grid_s", "sweep_s", "march_s", "dedup_s", "write_s", "remesh_s"}
+    for name in ("nested-4.ply", "nested-4_simplified.ply"):
+        assert os.path.exists(os.path.join(work, "data/meshes", name)), name
+    with open(os.path.join(work, "runs/leg_res1024.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(rec))
+
+
+def test_res1024_masks_are_the_raw_meshs_hits_on_every_train_view(res1024):
+    from nunerf_tpu_torch.data import image_io
+    from nunerf_tpu_torch.data.database import parse_database_name
+    from nunerf_tpu_torch.tools import render_mask as rm
+    from nunerf_tpu_torch.tracing.scene import Scene
+
+    work, rec = res1024
+    db = parse_database_name("nerf/nested", os.path.join(work, "datasets"))
+    ids = db.get_img_ids()
+    written = [n for _, _, names in os.walk(os.path.join(db.root, "mask")) for n in names]
+    assert len(written) == len(ids) >= 4
+    scene = Scene(os.path.join(work, rec["meshes"]["raw"]), device="cpu")
+    hits = 0
+    for i in ids:
+        got = image_io.imread(rm.mask_path(db.root, "mask", db.get_image_name(i)))
+        o, d, h, w = rm.view_rays(db, i, True)
+        np.testing.assert_array_equal(got, rm.hit_mask(scene, o, d, h, w), err_msg=i)
+        hits += int((got == 255).sum())
+    assert 0 < hits < len(ids) * 16 * 16

@@ -3,7 +3,8 @@
 # then a copy in OUT of what the zero-thickness stage2 leg needs to start in
 # another working directory: the stage-1 model_best.ckpt (its Adam state
 # dropped), the simplified mesh it traces, the dataset and the configs, with
-# the leg's record and train log.
+# the leg's record and train log.  The last model.ckpt, which the res1024 leg
+# extracts, goes with them, its Adam state dropped too.
 #
 #   bash tools/card_nested_front.sh WORKDIR OUT
 set -u
@@ -21,10 +22,11 @@ cp "$W/data/model/nested/train_log.jsonl" "$OUT/data/model/nested/"
 python - "$W" "$OUT" <<'PY'
 import pickle, sys
 w, out = sys.argv[1:]
-blob = pickle.load(open(f"{w}/data/model/nested/model_best.ckpt", "rb"))
-print("model_best step", blob["step"], "best_para", blob["best_para"])
-blob["opt_state"] = None
-pickle.dump(blob, open(f"{out}/data/model/nested/model_best.ckpt", "wb"))
+for name in ("model_best", "model"):
+    blob = pickle.load(open(f"{w}/data/model/nested/{name}.ckpt", "rb"))
+    print(name, "step", blob["step"], "best_para", blob["best_para"])
+    blob["opt_state"] = None
+    pickle.dump(blob, open(f"{out}/data/model/nested/{name}.ckpt", "wb"))
 PY
 cp "$W"/data/meshes/nested-*_simplified.ply "$OUT/data/meshes/"
 cp -r "$W/configs" "$W/datasets" "$OUT/"
